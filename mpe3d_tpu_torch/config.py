@@ -1,0 +1,164 @@
+"""Typed configuration for the rig and the two models of the serving path.
+
+Port of ``mpe3d_tpu/config.py`` (``RigConfig`` :45, ``PANOPTIC`` :154,
+``MatcherConfig`` :225, ``LifterConfig`` :260), cut to the fields the
+PyTorch serving path reads.  Kept as a copy so the port never imports the
+JAX package.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+from typing import Any, Dict, Tuple
+
+# COCO-18 joint vocabulary (reference: skeleton_matching/graph_generator.py:63-67)
+COCO_JOINT_NAMES: Tuple[str, ...] = (
+    "nose", "left_eye", "right_eye", "left_ear", "right_ear",
+    "left_shoulder", "right_shoulder", "left_elbow", "right_elbow",
+    "left_wrist", "right_wrist", "left_hip", "right_hip",
+    "left_knee", "right_knee", "left_ankle", "right_ankle", "neck",
+)
+
+
+@dataclass(frozen=True)
+class RigConfig:
+    """A calibrated multi-camera rig.  Per-camera sequences are
+    index-aligned with ``camera_names``."""
+
+    name: str
+    image_width: int
+    image_height: int
+    camera_names: Tuple[str, ...]
+    fx: Tuple[float, ...]
+    fy: Tuple[float, ...]
+    cx: Tuple[float, ...]
+    cy: Tuple[float, ...]
+    kd0: Tuple[float, ...]
+    kd1: Tuple[float, ...]
+    kd2: Tuple[float, ...]
+    p1: Tuple[float, ...]
+    p2: Tuple[float, ...]
+    used_cameras: Tuple[str, ...]
+    used_cameras_skeleton_matching: Tuple[str, ...]
+    used_joints: Tuple[int, ...]
+    min_number_of_views: int = 2
+    numbers_per_joint: int = 14
+    graph_alternative: str = "3"
+    # drawing axis map: label -> (coordinate index, direction); the
+    # synthetic generator reads world-up from its "Z" entry
+    axes_3d: Tuple[Tuple[str, Tuple[int, float]], ...] = (
+        ("X", (0, 1.0)), ("Y", (2, 1.0)), ("Z", (1, -1.0)),
+    )
+
+    @property
+    def n_joints(self) -> int:
+        return len(COCO_JOINT_NAMES)
+
+    @property
+    def n_cameras(self) -> int:
+        return len(self.camera_names)
+
+    @property
+    def n_used_cameras(self) -> int:
+        return len(self.used_cameras)
+
+    @property
+    def n_matching_cameras(self) -> int:
+        return len(self.used_cameras_skeleton_matching)
+
+    @property
+    def lifter_input_dim(self) -> int:
+        """14 numbers per (used camera, joint)."""
+        return self.n_used_cameras * self.n_joints * self.numbers_per_joint
+
+    @property
+    def matcher_feature_dim(self) -> int:
+        """Alt-3 head-node feature width: 2 one-hot + 10 per (matching
+        camera, joint)."""
+        return 2 + self.n_matching_cameras * self.n_joints * 10
+
+    def used_camera_indices(self) -> Tuple[int, ...]:
+        return tuple(self.camera_names.index(c) for c in self.used_cameras)
+
+    def matching_camera_indices(self) -> Tuple[int, ...]:
+        return tuple(self.camera_names.index(c)
+                     for c in self.used_cameras_skeleton_matching)
+
+
+# CMU Panoptic, HD cameras 3/6/12/13/23 (reference: parameters.py:52-78)
+PANOPTIC = RigConfig(
+    name="PANOPTIC",
+    image_width=1920,
+    image_height=1080,
+    camera_names=("trackera", "trackerb", "trackerc", "trackerd", "trackere"),
+    fx=(1395.59, 1395.94, 1395.31, 1591.32, 1572.31),
+    fy=(1392.03, 1392.22, 1391.77, 1587.2, 1567.51),
+    cx=(950.046, 950.459, 966.65, 940.617, 942.938),
+    cy=(564.906, 547.877, 562.988, 560.913, 559.888),
+    kd0=(-0.28619, -0.279874, -0.284888, -0.232872, -0.237061),
+    kd1=(0.179547, 0.166215, 0.179936, 0.194125, 0.18403),
+    kd2=(-0.0451919, -0.035049, -0.0468637, 0.0125375, 0.0149481),
+    p1=(-0.00010526, -0.000189415, -0.000119731, 4.22e-05, -0.000448556),
+    p2=(6.45495e-05, 0.00107791, 0.000701704, 0.000877748, 0.00062731),
+    used_cameras=("trackera", "trackerb", "trackerc", "trackerd", "trackere"),
+    used_cameras_skeleton_matching=(
+        "trackera", "trackerb", "trackerc", "trackerd", "trackere"),
+    used_joints=(0, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17),
+    axes_3d=(("X", (0, 1.0)), ("Y", (2, 1.0)), ("Z", (1, -1.0))),
+)
+
+
+@dataclass(frozen=True)
+class MatcherConfig:
+    """GAT hyper-parameters (reference: train_skeleton_matching.py:40-57)."""
+
+    in_dim: int = 902
+    hidden: Tuple[int, ...] = (40, 40, 40, 30)
+    heads: Tuple[int, ...] = (10, 10, 8, 5)
+    n_classes: int = 1
+    alpha: float = 0.15             # attention LeakyReLU slope
+    residual: bool = False
+    bias: bool = True
+    hidden_slope: float = 0.01      # inter-layer LeakyReLU
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.hidden) + 1
+
+    def layer_dims(self):
+        """(in_dim, out_dim, n_heads) per layer (reference gat2.py:100-135)."""
+        dims, d_in = [], self.in_dim
+        for d_out, nh in zip(self.hidden, self.heads):
+            dims.append((d_in, d_out, nh))
+            d_in = d_out * nh
+        dims.append((d_in, self.n_classes, 1))
+        return dims
+
+
+@dataclass(frozen=True)
+class LifterConfig:
+    """MLP lifter hyper-parameters (reference: utils/mlp.py:3-31)."""
+
+    in_dim: int = 1260
+    out_dim: int = 54
+    widths: Tuple[int, ...] = (3072, 3072, 2048, 2048, 1024, 1024, 1024, 1024)
+    negative_slope: float = 0.1
+    # predict a correction to the triangulated prior packed into the input
+    # (fields 11:14, lifting/pack.py) instead of absolute coordinates
+    residual_prior: bool = False
+
+    def layer_dims(self):
+        dims = (self.in_dim, *self.widths, self.out_dim)
+        return list(zip(dims[:-1], dims[1:]))
+
+
+def config_from_meta(cls, meta_section: Dict[str, Any], default):
+    """Overlay a checkpoint meta's config dict on ``default``: fields the
+    meta stores override, serving-only keys the port does not model are
+    ignored, list values become tuples."""
+    known = {f.name for f in fields(cls)}
+    merged = {f.name: getattr(default, f.name) for f in fields(cls)}
+    for k, v in (meta_section or {}).items():
+        if k in known:
+            merged[k] = tuple(v) if isinstance(v, list) else v
+    return cls(**merged)
