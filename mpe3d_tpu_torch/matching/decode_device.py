@@ -58,6 +58,18 @@ def reference_pair_order(e1: np.ndarray, e2: np.ndarray):
     return a, b
 
 
+def decode_pairs(topo: PairTopology,
+                 reference_merge_quirk: bool = True) -> np.ndarray:
+    """[E, 4] int32 per pair: endpoint heads (a, b) in the decode's roles
+    and their cameras (a // S, b // S)."""
+    if reference_merge_quirk:
+        a, b = reference_pair_order(topo.e1, topo.e2)
+    else:
+        a, b = topo.e1, topo.e2
+    S = topo.n_slots
+    return np.stack([a, b, a // S, b // S], 1).astype(np.int32)
+
+
 def decode_person_proposals_device(
         scores: torch.Tensor, pair_mask: torch.Tensor, topo: PairTopology,
         min_views: int = 2, threshold: float = 0.5, max_persons: int = 0,
@@ -67,16 +79,26 @@ def decode_person_proposals_device(
     -1 = none; person_mask [P_max] bool), P_max = max_persons or
     H // min_views.  ``top_k`` bounds the loop to the K best candidates
     (0 = all E)."""
+    E, H = topo.n_pairs, topo.n_heads
+    pairs = torch.as_tensor(decode_pairs(topo, reference_merge_quirk),
+                            device=scores.device)
+    return greedy_decode(
+        scores, pair_mask, pairs, topo.n_cameras, topo.n_slots, min_views,
+        threshold, max_persons or max(H // max(min_views, 1), 1),
+        min(top_k, E) if top_k else E, reference_merge_quirk)
+
+
+def greedy_decode(scores: torch.Tensor, pair_mask: torch.Tensor,
+                  pairs: torch.Tensor, C: int, S: int, min_views: int,
+                  threshold: float, P_max: int, K: int,
+                  reference_merge_quirk: bool = True,
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode on explicit pairs [E, 4] (``decode_pairs``): at most K
+    trips; persons [P_max, C] int64 and person_mask [P_max]."""
     dev = scores.device
-    E, H, C, S = topo.n_pairs, topo.n_heads, topo.n_cameras, topo.n_slots
-    P_max = max_persons or max(H // max(min_views, 1), 1)
-    K = min(top_k, E) if top_k else E
-    if reference_merge_quirk:
-        pe1, pe2 = reference_pair_order(topo.e1, topo.e2)
-    else:
-        pe1, pe2 = topo.e1, topo.e2
-    ends = torch.as_tensor(np.stack([pe1, pe2], 1), dtype=torch.long,
-                           device=dev)                            # [E, 2]
+    H = C * S
+    ends = pairs[:, :2].long()                                    # [E, 2]
+    cams = pairs[:, 2:].long()
 
     eligible = (pair_mask > 0.5) & (scores > threshold)
     masked = torch.where(eligible, scores,
@@ -92,11 +114,12 @@ def decode_person_proposals_device(
     none_c = torch.zeros((C,), dtype=torch.bool, device=dev)
 
     oe = ends[order[:n_live]]                                     # [n, 2]
+    oc = cams[order[:n_live]]
     for i in range(n_live):
         ab = oe[i]
         a, b = ab[0], ab[1]
         oa, ob = iota_h == a, iota_h == b
-        oca, ocb = iota_c == a // S, iota_c == b // S
+        oca, ocb = iota_c == oc[i, 0], iota_c == oc[i, 1]
         kab = cluster[ab]
         ka, kb = kab[0], kab[1]
         a_has, b_has = ka >= 0, kb >= 0

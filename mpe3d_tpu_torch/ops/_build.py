@@ -47,6 +47,12 @@ _SIGNATURES = {
                           _P, _P, _P, _P, _P, _P, _P],
     # x, w, b, y, M, K, N, slope, act, stream
     "mlp_bf16_layer": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # scores, pmask, pairs, used_pos, kp, valid, prob, observed, cams,
+    # cam_world, E, C, S, J, Cu, P, threshold, min_views, k_cap, prior,
+    # gate_on, gate_px, img_w, img_h, persons, person_mask, net, gkp, gval,
+    # gobs, stream
+    "frame_decode_pack": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _I, _I]
+                         + [_F] * 3 + [_P] * 7,
 }
 
 

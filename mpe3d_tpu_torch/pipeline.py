@@ -2,12 +2,22 @@
 
 Port of the fused serving path of ``mpe3d_tpu/pipeline.py``
 (``PoseEstimationPipeline.infer_fused`` :1215, program body ``_fused_impl``
-:804-892, the branch without the whole-frame kernel): alt-3 features -> GAT
-pair scores -> greedy decode on the device -> per-person gather -> lifter
-input with its triangulated prior -> MLP lifter -> poses in metres plus the
-reprojection quality column.  The GAT stack and the MLP run through the
-port's hand-written CUDA kernels on a CUDA device, through their plain
-versions on the CPU.
+:804-892): alt-3 features -> GAT pair scores -> greedy decode on the device
+-> per-person gather -> lifter input with its triangulated prior -> MLP
+lifter -> poses in metres plus the reprojection quality column.
+
+Two paths, chosen by ``use_frame_kernel`` as the JAX package chooses its
+whole-frame kernel (``pipeline.py:515-537, 769-788``):
+
+* the frame path (``_run_frame``, the counterpart of
+  ``ops/frame_kernel.py::build_frame_program``'s "full" variant): the GAT
+  kernel, one decode + gather + pack kernel (``ops/frame_kernel.py``) and
+  the lifter kernel, issued on one stream with no host synchronisation
+  between the upload and the download;
+* the eager path (``_run``, the branch without the whole-frame kernel): the
+  same GAT and lifter kernels around a decode loop and packing in PyTorch.
+
+On a CUDA device the kernels run; on the CPU their plain versions.
 
 The GAT is true fp32: TF32 is switched off for matmuls and convolutions at
 import, because rounded operands change decodes (RESULTS.md:1265-1271,
@@ -29,14 +39,17 @@ from mpe3d_tpu_torch.config import (PANOPTIC, LifterConfig, MatcherConfig,
 from mpe3d_tpu_torch.data.frames import FrameArrays
 from mpe3d_tpu_torch.geometry.camera import CameraRig, project_points
 from mpe3d_tpu_torch.lifting.pack import pack_lifter_input
-from mpe3d_tpu_torch.matching.decode_device import \
-    decode_person_proposals_device
+from mpe3d_tpu_torch.matching.decode_device import (
+    decode_pairs, decode_person_proposals_device)
 from mpe3d_tpu_torch.matching.features import (PairTopology, build_topology,
                                                edge_node_features,
                                                head_features,
                                                pair_mask_from_present)
 from mpe3d_tpu_torch.models.gat import Matcher, gat_topology
 from mpe3d_tpu_torch.models.mlp import Lifter
+from mpe3d_tpu_torch.ops.frame_kernel import (cam_consts, cam_to_world,
+                                              frame_decode_pack,
+                                              frame_kernel_supported)
 from mpe3d_tpu_torch.weights import lifter_from_tree, matcher_from_tree
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -78,7 +91,13 @@ def _slot_view(a: np.ndarray, S: int) -> np.ndarray:
 
 
 class PoseEstimationPipeline:
-    """Frame -> poses with the learned lifter, on ``device``."""
+    """Frame -> poses with the learned lifter, on ``device``.
+
+    ``use_frame_kernel``: None ("auto") serves through the frame path on a
+    CUDA device when ``frame_kernel_supported`` holds, through the eager
+    path otherwise; True forces the frame path (raises if the configuration
+    is unsupported; on the CPU it runs the plain versions); False keeps the
+    eager path."""
 
     def __init__(self, rig_config: RigConfig, rig: CameraRig,
                  matcher: Matcher, lifter: Lifter,
@@ -87,6 +106,7 @@ class PoseEstimationPipeline:
                  threshold: float = 0.5, decode_top_k: int = 64,
                  lifter_prior: str = "mean",
                  prior_gate_px: Optional[float] = None,
+                 use_frame_kernel: Optional[bool] = None,
                  device="cuda"):
         if rig_config.graph_alternative != "3":
             raise NotImplementedError("only the alt-3 matcher graph is ported")
@@ -100,6 +120,7 @@ class PoseEstimationPipeline:
         self.decode_top_k = decode_top_k
         self.lifter_prior = lifter_prior
         self.prior_gate_px = prior_gate_px
+        self.use_frame_kernel = use_frame_kernel
         self.match_idx = rig_config.matching_camera_indices()
         self.used_idx = rig_config.used_camera_indices()
         self.match_rig = rig.select(self.match_idx).to(self.device)
@@ -112,6 +133,9 @@ class PoseEstimationPipeline:
         self._used_pos = torch.tensor(
             [match_names.index(c) if c in match_names else -1
              for c in used_names], dtype=torch.long, device=self.device)
+        self._used_pos32 = self._used_pos.to(torch.int32)
+        self._cams = cam_consts(self.used_rig).to(self.device)
+        self._cam_world = cam_to_world(self.used_rig).to(self.device)
         self._match_sel = torch.tensor(self.match_idx, device=self.device)
         self._used_sel = torch.tensor(self.used_idx, device=self.device)
         self._topos: Dict[int, tuple] = {}
@@ -156,28 +180,57 @@ class PoseEstimationPipeline:
         return self._bucket_state(slots)[0]
 
     def _bucket_state(self, slots: int):
-        """(topology, its index tensors, edge-node features) of a bucket."""
+        """(topology, its index tensors, edge-node features, decode pairs
+        [E, 4] int32) of a bucket."""
         if slots not in self._topos:
             topo = build_topology(len(self.match_idx), slots)
             self._topos[slots] = (
                 topo, gat_topology(topo, self.device),
                 edge_node_features(topo.n_pairs,
                                    self.rig_config.matcher_feature_dim,
-                                   device=self.device))
+                                   device=self.device),
+                torch.as_tensor(decode_pairs(topo), device=self.device))
         return self._topos[slots]
 
+    def frame_path_on(self) -> bool:
+        """Whether ``submit_fused`` serves through the frame path."""
+        if self.use_frame_kernel is False:
+            return False
+        supported = frame_kernel_supported(self)
+        if self.use_frame_kernel is True:
+            if not supported:
+                raise ValueError("use_frame_kernel=True, but the frame path "
+                                 "does not serve this configuration")
+            return True
+        return supported and self.device.type == "cuda"
+
     def _frame_tensors(self, frame: FrameArrays):
-        """Bucket the frame and move its buffers to the device."""
+        """Bucket the frame and move its five buffers to the device in one
+        copy: packed into one (pinned, on a CUDA device) host buffer,
+        uploaded with ``non_blocking=True``, viewed back on the device."""
         S = self._bucket(max(1, int(frame.present.sum(axis=1).max())))
-        args = [torch.from_numpy(np.ascontiguousarray(_slot_view(a, S)))
-                .to(self.device)
-                for a in (frame.kp, frame.valid, frame.prob, frame.in_view,
-                          frame.present)]
+        host = [np.ascontiguousarray(_slot_view(a, S), dtype=dt)
+                for a, dt in ((frame.kp, np.float32),
+                              (frame.valid, np.float32),
+                              (frame.prob, np.float32),
+                              (frame.in_view, np.bool_),
+                              (frame.present, np.bool_))]
+        buf = torch.empty(sum(a.nbytes for a in host), dtype=torch.uint8,
+                          pin_memory=self.device.type == "cuda")
+        flat, off = buf.numpy(), 0
+        for a in host:      # fp32 buffers first: every offset stays aligned
+            flat[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+            off += a.nbytes
+        dev, args, off = buf.to(self.device, non_blocking=True), [], 0
+        for a in host:
+            dt = torch.float32 if a.dtype == np.float32 else torch.bool
+            args.append(dev[off:off + a.nbytes].view(dt).view(a.shape))
+            off += a.nbytes
         return S, args
 
     def _match_inputs(self, S: int, kp, valid, prob, observed, present):
         """GAT node features [H+E, in_dim] and pair mask [E]."""
-        _, gtopo, efeats = self._bucket_state(S)
+        _, gtopo, efeats, _ = self._bucket_state(S)
         ms = self._match_sel
         hfeats, _ = head_features(kp[ms], valid[ms], prob[ms], observed[ms],
                                   present[ms], self.match_rig,
@@ -203,7 +256,7 @@ class PoseEstimationPipeline:
 
     @torch.inference_mode()
     def _run(self, S: int, kp, valid, prob, observed, present):
-        topo, gtopo, _ = self._bucket_state(S)
+        topo, gtopo, _, _ = self._bucket_state(S)
         p_max = self._p_max(S)
         x_all, pmask = self._match_inputs(S, kp, valid, prob, observed,
                                           present)
@@ -223,18 +276,60 @@ class PoseEstimationPipeline:
         return ((poses, persons, person_mask, scores, quality),
                 (x_all, pmask, gtopo, nets))
 
+    def _frame_decode_args(self, S: int, scores, pmask, kp, valid, prob,
+                           observed):
+        """(positional, keyword) arguments of ``frame_decode_pack``."""
+        topo, _, _, pairs = self._bucket_state(S)
+        us = self._used_sel
+        args = (scores, pmask, pairs, self._used_pos32, kp[us], valid[us],
+                prob[us], observed[us], self._cams, self._cam_world)
+        E, top_k = topo.n_pairs, self.decode_top_k
+        kw = dict(n_cameras=topo.n_cameras, threshold=self.threshold,
+                  min_views=self.rig_config.min_number_of_views,
+                  k_cap=min(top_k, E) if top_k else E, P=self._p_max(S),
+                  prior=self.lifter_prior, gate_px=self.prior_gate_px,
+                  image_size=self.image_size)
+        return args, kw
+
+    @torch.inference_mode()
+    def _run_frame(self, S: int, kp, valid, prob, observed, present):
+        """The frame path: features, the GAT kernel, the decode + gather +
+        pack kernel, the lifter kernel and the epilogue, with no host
+        synchronisation (``frame_kernel.py:883-1103``)."""
+        gtopo = self._bucket_state(S)[1]
+        x_all, pmask = self._match_inputs(S, kp, valid, prob, observed,
+                                          present)
+        scores = torch.sigmoid(self.matcher(x_all, pmask, gtopo)) * pmask
+        args, kw = self._frame_decode_args(S, scores, pmask, kp, valid, prob,
+                                           observed)
+        f = frame_decode_pack(*args, **kw)
+        # the residual prior (fields 11-13 of camera block 0) is added in
+        # Lifter.forward
+        poses = self.lifter(f.net).reshape(kw["P"], -1, 3) * 10.0
+        quality = pose_quality_px(poses, f.kp, f.valid, f.observed,
+                                  self.used_rig)
+        poses = poses * f.person_mask[:, None, None]
+        return (poses, f.persons, f.person_mask, scores, quality), (args, kw)
+
     def stage_inputs(self, frame: FrameArrays):
-        """The inputs the frame gives the two kernels on the serving path:
-        (GAT node features, pair weights, topology tensors, lifter input
-        rows).  For checks and measurements of the kernels alone."""
+        """The inputs the frame gives the kernels on the eager path: (GAT
+        node features, pair weights, topology tensors, lifter input rows).
+        For checks and measurements of the kernels alone."""
         S, args = self._frame_tensors(frame)
         return self._run(S, *args)[1]
+
+    def frame_stage_inputs(self, frame: FrameArrays):
+        """(positional arguments, keyword arguments) the frame path gives
+        ``frame_decode_pack`` for this frame."""
+        S, args = self._frame_tensors(frame)
+        return self._run_frame(S, *args)[1]
 
     def submit_fused(self, frame: FrameArrays):
         """Start one frame on the device; returns a ticket for
         :meth:`collect_fused`."""
         S, args = self._frame_tensors(frame)
-        return frame, self._run(S, *args)[0]
+        run = self._run_frame if self.frame_path_on() else self._run
+        return frame, run(S, *args)[0]
 
     def collect_fused(self, ticket) -> PipelineOutput:
         """Wait for a ticket's results and crop to the real persons."""
@@ -242,8 +337,8 @@ class PoseEstimationPipeline:
         poses, persons, person_mask, scores, quality = (
             t.cpu().numpy() for t in out)
         n = int(person_mask.sum())
-        return PipelineOutput(poses[:n], persons[:n], scores,
-                              int(frame.present.sum()), quality[:n])
+        return PipelineOutput(poses[:n], persons[:n].astype(np.int64),
+                              scores, int(frame.present.sum()), quality[:n])
 
     def infer_fused(self, frame: FrameArrays) -> PipelineOutput:
         """Full-frame inference."""
