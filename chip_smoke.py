@@ -14,7 +14,11 @@ failure raises, and the script exits non-zero):
    persons), with median times over 50 launches (CUDA events) beside the
    plain version's, the card's bound and a PyTorch yardstick where one
    exists.  The decode + gather + pack kernel is checked for every prior
-   (mean, median, IRLS) with and without the prior gate.
+   (mean, median, IRLS) with and without the prior gate.  The tiled GAT
+   kernels (K1, K2) are checked at Panoptic S=10 and S=16 with the trained
+   and a random matcher, on an ARPLAB-shaped 6 x 16 topology (head degree
+   80, past the stack kernel's cap), on a pruned, compacted edge set, and at
+   S=16 against the stack kernel too.
 4. main path: ``PoseEstimationPipeline.infer_fused`` on 16 synthetic frames
    on the card, once with the trained matcher and once with a numpy-seeded
    random matcher (the trained one scores near 0 on the synthetic ring rig;
@@ -28,6 +32,14 @@ failure raises, and the script exits non-zero):
    ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation);
    prints each path's median frame time and the frame path's per-stage
    times and device busy share.
+5. crowded path: ``infer_fused`` on the card against the CPU for S=10
+   through the default buckets ``(2, 4, 10)`` / ``(4, 8, 16)`` (frames of
+   6-9 people) and for S=16 through ``(16,)`` / ``(16,)`` (10-14 people),
+   with the trained and the random matcher, pair pruning off and on: the
+   split frame path (tiled GAT kernels, the decode + gather + pack kernel on
+   the compacted pairs under pruning, the lifter kernel).  Prints each
+   bucket's resolved serving path, the launches per frame and the median
+   frame ms, and the split path's stages.
 
 The last lines are the kernel table as one JSON object and the contract
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -49,7 +61,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEMO = os.path.join(ROOT, "models_demo", "pan_irls_bf16")
 
 N_FRAMES, N_WARMUP, N_TIMED = 16, 3, 50
+N_CROWDED = 6              # frames of each crowded run but the reported one
 RANDOM_MATCHER_SEED = 0    # its scores sit above the 0.5 threshold
+ARPLAB_MATCHER_SEED = 1
+PRUNE_DIST_M = 0.2         # pair_prune_dist of the pruned crowded runs
+GPU = "cuda"
 
 # H100 SXM peaks from NVIDIA's data sheet (dense, without sparsity)
 HBM_BYTES_PER_S = 3.35e12
@@ -80,6 +96,15 @@ FIELD_TOL, PRIOR_TOL, GATE_NEAR_PX = 1e-5, 1e-4, 1e-3
 # cascade above, times 10 for metres)
 SCORE_TOL = 1e-4
 POSE_TOL_M = 1e-2
+# Crowded runs pack the lifter input with the "mean" prior: on crowded
+# frames the decode groups skeletons of different people, and the IRLS
+# prior of such groups is ill-conditioned (a 1e-7 relative change of the
+# pixels moves IRLS poses by decimetres on the CPU alone,
+# tests/test_torch_crowded.py::test_crowded_prior_sensitivity), so no fp32
+# tolerance holds between the card and the CPU under it.  The IRLS prior of
+# the decode + gather + pack kernel is held at S=16 in phase 3 instead, on
+# groups of real people.
+CROWDED_PRIOR = "mean"
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -407,18 +432,204 @@ def check_frame_kernel(pipe, frame, crowded_pipe, crowded_frame, report):
           f"operations), library None")
 
 
+def tiled_costs(dims, H, E, edge_const):
+    """((bytes, operations) of the K1 calls, the same of the K2 calls) of
+    one tiled stack: each call's inputs read once and outputs written once;
+    operations of the fc products (layer 0 projects H+1 rows under
+    edge_const), attention terms, edge softmax, masked logits and head max
+    (K1), exp-shifted weights, head sums and epilogue (K2)."""
+    k1b = k1f = k2b = k2f = 0
+    for l, (d_in, d, nh) in enumerate(dims):
+        F, const = nh * d, edge_const and l == 0
+        rows = H + (1 if const else E)
+        k1f += 2 * rows * (d_in * d_in + d_in * F) + 4 * rows * F + 6 * E * F
+        k1b += 4 * (rows * d_in + d_in * d_in + d_in + d_in * F + 3 * F
+                    + 3 * E)
+        if l == len(dims) - 1:
+            k1b += 4 * E
+            continue
+        k1f += 6 * E * nh
+        k1b += 4 * (E * F + 2 * E * nh + H * nh)
+        k2f += 8 * E * nh + 4 * E * F + 4 * H * F
+        k2b += 4 * (2 * E * nh + 3 * E + (1 if const else E) * F + 2 * H * F
+                    + 3 * H * nh)
+    return (k1b, k1f), (k2b, k2f)
+
+
+def bound(bytes_, flops):
+    """(bound ms, what bounds it) at the H100's fp32 and memory peaks."""
+    t_b, t_f = bytes_ / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return 1e3 * max(t_b, t_f), "bytes" if t_b > t_f else "operations"
+
+
+def check_tiled_case(label, x, pw, gtopo, m, stack_topo=None):
+    """The tiled stack's kernels against its plain version on the card (and
+    against the stack kernel when ``stack_topo`` is given); prints the call
+    ms, the plain ms and the bound.  Returns (max |d logit|, logits)."""
+    import torch
+    from mpe3d_tpu_torch.ops import gat_kernel, gat_tiled
+    args = (x, pw, gtopo, m.flat, m.dims, m.cfg.alpha, m.cfg.hidden_slope)
+    got = gat_tiled.gat_stack_tiled(*args, edge_const=True)
+    ref = gat_tiled.gat_stack_tiled_plain(*args, edge_const=True)
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    if not bool(torch.isfinite(got).all()) or bool(
+            (err > GAT_RTOL * (1 + ref.abs())).any()):
+        raise AssertionError(f"tiled GAT {label}: kernels disagree with the "
+                             f"plain version: max |d logit| "
+                             f"{float(err.max()):.3g}")
+    # accuracy context (printed, not checked): each form's largest
+    # |d logit| / (1 + |logit|) from an fp64 evaluation of the plain version
+    exact = gat_tiled.gat_stack_tiled_plain(
+        x.double(), pw.double(), gtopo, m.flat.double(), m.dims, m.cfg.alpha,
+        m.cfg.hidden_slope, edge_const=True)
+    rel = lambda v: float(  # noqa: E731
+        ((v.double() - exact).abs() / (1 + exact.abs())).max())
+    note = f"; to fp64: kernels {rel(got):.3g}, plain {rel(ref):.3g}"
+    if stack_topo is not None:
+        st = gat_kernel.gat_stack(x, pw, stack_topo, m.flat, m.dims,
+                                  m.cfg.alpha, m.cfg.hidden_slope)
+        torch.cuda.synchronize()
+        serr = (got - st).abs()
+        if bool((serr > GAT_RTOL * (1 + st.abs())).any()):
+            raise AssertionError(f"tiled GAT {label}: disagrees with the "
+                                 f"stack kernel: max |d logit| "
+                                 f"{float(serr.max()):.3g}")
+        note += (f", gat_stack {rel(st):.3g}; against gat_stack max |d "
+                 f"logit| {float(serr.max()):.3g}")
+    (k1b, k1f), (k2b, k2f) = tiled_costs(m.dims, gtopo.n_heads,
+                                         gtopo.n_pairs, True)
+    ms = median_ms(lambda: gat_tiled.gat_stack_tiled(*args, edge_const=True))
+    plain = median_ms(lambda: gat_tiled.gat_stack_tiled_plain(
+        *args, edge_const=True))
+    b_ms, b_by = bound(k1b + k2b, k1f + k2f)
+    print(f"  gat_tiled {label}: H={gtopo.n_heads} E={gtopo.n_pairs}, max "
+          f"|d logit| {float(err.max()):.3g} (tol {GAT_RTOL:g} x "
+          f"(1+|logit|)){note}; stack {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}, {k1f + k2f} operations)")
+    return float(err.max())
+
+
+def time_tiled_kernels(label, x, pw, gtopo, m):
+    """Median ms of all K1 calls and of all K2 calls of one stack, and of
+    their plain versions on the same inputs; K1 and K2 report rows."""
+    from mpe3d_tpu_torch.ops import gat_tiled
+    args = (x, pw, gtopo, m.flat, m.dims, m.cfg.alpha, m.cfg.hidden_slope)
+    k1s, k2s, _ = gat_tiled.cuda_layer_calls(*args, edge_const=True)
+    for i, k1 in enumerate(k1s):
+        k1()
+        if i < len(k2s):
+            k2s[i]()
+    p1, p2 = gat_tiled.plain_layer_calls(*args, edge_const=True)
+    costs = tiled_costs(m.dims, gtopo.n_heads, gtopo.n_pairs, True)
+    rows = []
+    for name, calls, plain, (b, f) in (("gat_k1", k1s, p1, costs[0]),
+                                       ("gat_k2", k2s, p2, costs[1])):
+        b_ms, b_by = bound(b, f)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "mpe3d_tpu_torch/csrc/gat_tiled.cu",
+            "replaces": ("mpe3d_tpu/ops/gat_tiled.py:86" if name == "gat_k1"
+                         else "mpe3d_tpu/ops/gat_tiled.py:225"),
+            "launches": 0, "max_abs_err": None,
+            "ms": median_ms(lambda c=calls: [k() for k in c]),
+            "plain_ms": median_ms(lambda c=plain: [k() for k in c]),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        r = rows[-1]
+        print(f"  {name} {label} ({len(calls)} calls a stack): "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}: {b} bytes, {f} operations), "
+              f"library None")
+    return rows
+
+
+def check_tiled_kernels(pipes, frames, report):
+    """Phase 3, the tiled GAT kernels: Panoptic S=10 and S=16 with the
+    trained and the random matcher; S=16 against the stack kernel (D=64,
+    where both serve); a pruned, compacted S=16 call; an ARPLAB-shaped
+    6 x 16 topology (E=3840, head degree 80) with a numpy-seeded matcher of
+    in_dim 1082.  The K1/K2 rows come from the trained S=16 case."""
+    import numpy as np
+    import torch
+    from mpe3d_tpu_torch import weights
+    from mpe3d_tpu_torch.config import MatcherConfig
+    from mpe3d_tpu_torch.matching.features import (build_topology,
+                                                   edge_node_features)
+    from mpe3d_tpu_torch.models.gat import gat_topology
+
+    max_err, rows = 0.0, None
+    for (mlabel, S, prune), pipe in pipes.items():
+        x, pw, gtopo, form = pipe.gat_stage_inputs(frames[S])
+        if form != "tiled":
+            raise AssertionError(f"S={S}: resolved form {form!r}")
+        label = (f"Panoptic S={S}, {mlabel}"
+                 + (f", pruned to {gtopo.n_pairs} pairs" if prune else ""))
+        stack_topo = None
+        if S == 16 and not prune and mlabel == "trained":
+            stack_topo = gat_topology(pipe.topology(S), GPU, "stack")
+        max_err = max(max_err, check_tiled_case(label, x, pw, gtopo,
+                                                pipe.matcher, stack_topo))
+        if mlabel == "trained" and not prune:
+            r = time_tiled_kernels(f"S={S}", x, pw, gtopo, pipe.matcher)
+            rows = r if S == 16 else rows
+    cfg = MatcherConfig(in_dim=1082)
+    m = weights.matcher_from_tree(
+        weights.random_matcher_tree(cfg, ARPLAB_MATCHER_SEED), cfg, GPU)
+    topo = build_topology(6, 16)
+    rng = np.random.default_rng(ARPLAB_MATCHER_SEED)
+    heads = torch.tensor(rng.normal(size=(topo.n_heads, 1082)),
+                         dtype=torch.float32)
+    x = torch.cat([heads, edge_node_features(topo.n_pairs, 1082)]).to(GPU)
+    pw = torch.tensor(rng.random(topo.n_pairs) < 0.8,
+                      dtype=torch.float32).to(GPU)
+    max_err = max(max_err, check_tiled_case(
+        "ARPLAB-shaped 6 x 16 (D=80), random matcher", x, pw,
+        gat_topology(topo, GPU, "tiled"), m))
+    for r in rows:
+        r["max_abs_err"] = max_err
+    report.extend(rows)
+
+
 def reset_launches():
-    from mpe3d_tpu_torch.ops import fused_mlp, frame_kernel, gat_kernel
+    from mpe3d_tpu_torch.ops import (fused_mlp, frame_kernel, gat_kernel,
+                                     gat_tiled)
     gat_kernel.gat_stack.launches = 0
+    gat_tiled.gat_k1_layer.launches = 0
+    gat_tiled.gat_k2_layer.launches = 0
     frame_kernel.frame_decode_pack.launches = 0
     fused_mlp.mlp_layer.launches = 0
 
 
 def read_launches():
-    from mpe3d_tpu_torch.ops import fused_mlp, frame_kernel, gat_kernel
+    from mpe3d_tpu_torch.ops import (fused_mlp, frame_kernel, gat_kernel,
+                                     gat_tiled)
     return {"gat_stack": gat_kernel.gat_stack.launches,
+            "gat_k1": gat_tiled.gat_k1_layer.launches,
+            "gat_k2": gat_tiled.gat_k2_layer.launches,
             "frame_decode_pack": frame_kernel.frame_decode_pack.launches,
             "mlp_bf16_layer": fused_mlp.mlp_layer.launches}
+
+
+def frame_slots(pipe, frame) -> int:
+    """The slot bucket ``submit_fused`` serves a frame in."""
+    return pipe._bucket(max(1, int(frame.present.sum(axis=1).max())))
+
+
+def expected_launches(pipe, frames):
+    """Kernel launches the resolved serving paths give these frames."""
+    want = dict.fromkeys(("gat_stack", "gat_k1", "gat_k2",
+                          "frame_decode_pack", "mlp_bf16_layer"), 0)
+    n_gat = len(pipe.matcher.dims)
+    for f in frames:
+        form, frame_path = pipe.serving_path(frame_slots(pipe, f))
+        if form == "stack":
+            want["gat_stack"] += 1
+        else:
+            want["gat_k1"] += n_gat
+            want["gat_k2"] += n_gat - 1
+        want["frame_decode_pack"] += int(frame_path)
+        want["mlp_bf16_layer"] += pipe.lifter.n_layers
+    return want
 
 
 def check_no_host_sync(gpu, frame):
@@ -435,18 +646,21 @@ def check_no_host_sync(gpu, frame):
 
 
 def run_main_path(gpu, cpu, frames, label):
-    """Phase 4 for one matcher and one path: counters, finiteness, CPU
-    agreement.  Returns the launches and the median frame ms."""
+    """Phase 4 and 5 for one pipeline: counters, finiteness, CPU agreement.
+    Returns the launches, the median frame ms and the buckets' paths."""
     import numpy as np
     import torch
 
-    frame_path = gpu.frame_path_on()
-    if frame_path != cpu.frame_path_on():
+    buckets = sorted({frame_slots(gpu, f) for f in frames})
+    paths = {S: gpu.serving_path(S) for S in buckets}
+    if paths != {S: cpu.serving_path(S) for S in buckets}:
         raise AssertionError(f"{label}: the CPU reference runs another path")
+    frame_path = any(fp for _, fp in paths.values())
     for f in frames[:N_WARMUP]:
         gpu.infer_fused(f)
     if frame_path:
-        check_no_host_sync(gpu, frames[0])
+        check_no_host_sync(gpu, next(f for f in frames
+                                     if paths[frame_slots(gpu, f)][1]))
     reset_launches()
     outs, times = [], []
     for f in frames:
@@ -454,9 +668,7 @@ def run_main_path(gpu, cpu, frames, label):
         outs.append(gpu.infer_fused(f))
         times.append(1e3 * (time.perf_counter() - t0))
     launches = read_launches()
-    n, n_layers = len(frames), gpu.lifter.n_layers
-    want = {"gat_stack": n, "frame_decode_pack": n if frame_path else 0,
-            "mlp_bf16_layer": n_layers * n}
+    want = expected_launches(gpu, frames)
     if launches != want:
         raise AssertionError(f"{label}: kernel launches {launches}, expected "
                              f"{want}")
@@ -467,7 +679,8 @@ def run_main_path(gpu, cpu, frames, label):
             if not np.isfinite(a).all():
                 raise AssertionError(f"{label} frame {i}: non-finite output")
         near += int((np.abs(r.scores - gpu.threshold) < 1e-5).sum())
-        if not np.array_equal(o.persons, r.persons):
+        if not (np.array_equal(o.persons, r.persons)
+                and o.persons.dtype == r.persons.dtype == np.int32):
             raise AssertionError(f"{label} frame {i}: persons differ from "
                                  f"the CPU run:\n{o.persons}\n{r.persons}")
         max_ds = max(max_ds, float(np.abs(o.scores - r.scores).max()))
@@ -479,8 +692,13 @@ def run_main_path(gpu, cpu, frames, label):
                              f"(tol {POSE_TOL_M})")
     torch.cuda.synchronize()
     ms = statistics.median(times)
-    print(f"  {label}: persons per frame {[len(o.persons) for o in outs]}, "
-          f"launches {launches}"
+    per_frame = {k: v / len(frames) for k, v in launches.items() if v}
+    print(f"  {label}: buckets "
+          + ", ".join(f"S={S} -> {form} matcher, "
+                      + ("frame path" if fp else "eager path")
+                      for S, (form, fp) in paths.items())
+          + f"; persons per frame {[len(o.persons) for o in outs]}, "
+          f"launches {launches} ({per_frame} a frame)"
           + ("; submit_fused raised no sync error under "
              "set_sync_debug_mode('error')" if frame_path else "")
           + f"; vs CPU: persons equal, max |d score| {max_ds:.3g}, max "
@@ -488,12 +706,13 @@ def run_main_path(gpu, cpu, frames, label):
           f"threshold")
     print(f"  {label}: median frame {ms:.3f} ms (host clock, "
           f"{len(frames)} frames)", flush=True)
-    return launches, ms
+    return launches, ms, paths
 
 
 def frame_stage_times(pipe, frame):
     """Host ms of each stage of one frame-path frame, each stage ended by a
-    device synchronize (mirrors PoseEstimationPipeline._run_frame)."""
+    device synchronize (mirrors PoseEstimationPipeline._run_frame; the
+    scatter of pruned scores back to the bucket's pairs is left out)."""
     import torch
     from mpe3d_tpu_torch.ops.frame_kernel import frame_decode_pack
     from mpe3d_tpu_torch.pipeline import pose_quality_px
@@ -510,12 +729,12 @@ def frame_stage_times(pipe, frame):
     with torch.inference_mode():
         S, args = pipe._frame_tensors(frame)
         mark("upload")
-        x_all, pmask = pipe._match_inputs(S, *args)
-        mark("features")
-        gtopo = pipe._bucket_state(S)[1]
-        scores = torch.sigmoid(pipe.matcher(x_all, pmask, gtopo)) * pmask
+        x, pw, gtopo, pairs, _ = pipe._gat_inputs(S, *args)
+        mark("features" + (" + prune" if pipe.pair_prune_dist > 0 else ""))
+        scores = pipe._scores(pipe._bucket_state(S), x, pw, gtopo)
         mark("gat")
-        fargs, kw = pipe._frame_decode_args(S, scores, pmask, *args[:4])
+        fargs, kw = pipe._frame_decode_args(S, scores, pw, *args[:4],
+                                            pairs=pairs)
         f = frame_decode_pack(*fargs, **kw)
         mark("decode_gather_pack")
         poses = pipe.lifter(f.net).reshape(kw["P"], -1, 3) * 10.0
@@ -601,25 +820,37 @@ def main() -> int:
     rtree = weights.random_matcher_tree(mcfg, RANDOM_MATCHER_SEED)
     frames = [parse_frame(f, rig_config) for f in generate_frames(
         rig_config, rig, N_FRAMES, n_people=(2, 3), seed=1)]
+    frames10 = [parse_frame(f, rig_config) for f in generate_frames(
+        rig_config, rig, N_CROWDED, n_people=(6, 9), seed=3)]
+    frames16 = [parse_frame(f, rig_config, max_skeletons=16)
+                for f in generate_frames(rig_config, rig, N_FRAMES,
+                                         n_people=(10, 14), seed=2)]
 
-    def pipeline(tree, device, use_frame_kernel=None, slots=4, persons=8):
+    def pipeline(tree, device, use_frame_kernel=None, slots=(4,),
+                 persons=(8,), lifter_prior=prior, **kw):
         return PoseEstimationPipeline(
             rig_config, rig, weights.matcher_from_tree(tree, mcfg, device),
             weights.lifter_from_tree(ltree, lcfg, device),
-            slot_buckets=(slots,), person_buckets=(persons,),
-            lifter_prior=prior, use_frame_kernel=use_frame_kernel,
-            device=device)
+            slot_buckets=slots, person_buckets=persons,
+            lifter_prior=lifter_prior, use_frame_kernel=use_frame_kernel,
+            device=device, **kw)
 
-    gpu_r = pipeline(rtree, "cuda")
+    matchers = {"trained": mtree, "random": rtree}
+    gpu_r = pipeline(rtree, GPU)
     report = []
     check_kernels(gpu_r, frames[0], report)
-    crowded = parse_frame(generate_frames(rig_config, rig, 1,
-                                          n_people=(10, 14), seed=2)[0],
-                          rig_config, max_skeletons=16)
     check_frame_kernel(gpu_r, frames[0],
-                       pipeline(mtree, "cuda", slots=16, persons=16),
-                       crowded, report)
-    phase("kernels", t0, "all three kernels match their plain versions")
+                       pipeline(mtree, GPU, slots=(16,), persons=(16,)),
+                       frames16[0], report)
+    check_tiled_kernels(
+        {(m, S, prune): pipeline(
+            matchers[m], GPU, slots=(S,), persons=(16,),
+            pair_prune_dist=PRUNE_DIST_M if prune else 0.0)
+         for m, S, prune in (("trained", 10, False), ("random", 10, False),
+                             ("trained", 16, False), ("random", 16, False),
+                             ("trained", 16, True))},
+        {10: frames10[0], 16: frames16[0]}, report)
+    phase("kernels", t0, "all five kernels match their plain versions")
 
     t0 = time.perf_counter()
     print(f"  lifter weights: trained, models_demo/pan_irls_bf16; "
@@ -628,24 +859,58 @@ def main() -> int:
     for mlabel, tree in (("trained matcher", mtree),
                          (f"random matcher (numpy seed "
                           f"{RANDOM_MATCHER_SEED})", rtree)):
-        gpu = pipeline(tree, "cuda")
+        gpu = pipeline(tree, GPU)
         if not gpu.frame_path_on():
             raise AssertionError("the frame path is not the default on the "
                                  "card")
-        launches, ms = run_main_path(gpu, pipeline(tree, "cpu", True), frames,
-                                     f"{mlabel}, frame path")
+        launches, ms, _ = run_main_path(gpu, pipeline(tree, "cpu", True),
+                                        frames, f"{mlabel}, frame path")
         main_launches = main_launches or launches
-        _, ms_eager = run_main_path(pipeline(tree, "cuda", False),
-                                    pipeline(tree, "cpu", False), frames,
-                                    f"{mlabel}, eager path")
+        _, ms_eager, _ = run_main_path(pipeline(tree, GPU, False),
+                                       pipeline(tree, "cpu", False), frames,
+                                       f"{mlabel}, eager path")
         frame_ms[mlabel] = (ms, ms_eager)
         stage_table(gpu, frames, mlabel)
-    for k in report:
-        k["launches"] = main_launches[k["name"]]
     phase("main path", t0, "infer_fused on the card agrees with the CPU on "
           "both paths; median frame ms (frame path / eager path): "
           + "; ".join(f"{m} {a:.3f} / {b:.3f}"
                       for m, (a, b) in frame_ms.items()))
+
+    t0 = time.perf_counter()
+    print(f"  crowded runs: lifter prior {CROWDED_PRIOR!r}; pruning "
+          f"pair_prune_dist={PRUNE_DIST_M} m, cap auto max(256, E // 2)")
+    crowded_launches, crowded_ms = None, {}
+    for (blabel, slots, persons, cframes), mlabel, prune in (
+            (b, m, p) for b in (("S=16", (16,), (16,), frames16),
+                                ("S=10", (2, 4, 10), (4, 8, 16), frames10))
+            for m in ("trained", "random") for p in (False, True)):
+        kw = dict(slots=slots, persons=persons, lifter_prior=CROWDED_PRIOR,
+                  pair_prune_dist=PRUNE_DIST_M if prune else 0.0)
+        gpu = pipeline(matchers[mlabel], GPU, **kw)
+        run_frames = (cframes if (blabel, mlabel, prune)
+                      == ("S=16", "trained", False) else cframes[:N_CROWDED])
+        label = (f"{blabel} buckets {slots}/{persons}, {mlabel} matcher, "
+                 f"pruning {'on' if prune else 'off'}")
+        launches, ms, paths = run_main_path(
+            gpu, pipeline(matchers[mlabel], "cpu", True, **kw), run_frames,
+            label)
+        if not all(fp for _, fp in paths.values()):
+            raise AssertionError(f"{label}: a bucket is off the frame path")
+        if (blabel, mlabel, prune) == ("S=16", "trained", False):
+            crowded_launches = launches
+        crowded_ms[label] = ms
+        if mlabel == "trained":
+            stage_table(gpu, run_frames[:N_CROWDED], label)
+    for k in report:
+        k["launches"] = (crowded_launches if k["name"].startswith("gat_k")
+                         else main_launches)[k["name"]]
+    missing = [k["name"] for k in report if not k["launches"]]
+    if missing:
+        raise AssertionError(f"kernels never launched on their path: "
+                             f"{missing}")
+    phase("crowded path", t0, "infer_fused on the card agrees with the CPU "
+          "on every crowded bucket; median frame ms: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in crowded_ms.items()))
 
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -31,73 +31,15 @@
 // host call.  No tensor cores and no TF32: rounded operands move scores
 // across the 0.5 decision threshold.
 
-#include <cuda_runtime.h>
+#include "fp32_gemm.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 16;   // GEMM tile; 256 threads, 4x4 each
+using mpe3d::launch_gemm;
+using mpe3d::leaky;
+
 constexpr int MAX_NH = 16;                 // attention heads per layer
 constexpr int MAX_D = 64;                  // incident edges per head
-
-__device__ __forceinline__ float leaky(float v, float a) {
-  return v >= 0.f ? v : a * v;
-}
-
-// C[M, N] = act(A[M, K] B[K, N] + bias[N]); row-major, fp32 FMA, k ascending.
-__global__ void __launch_bounds__(256)
-gemm_bias_act(const float* __restrict__ A, const float* __restrict__ B,
-              const float* __restrict__ bias, float* __restrict__ C,
-              int M, int N, int K, float slope, int act) {
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = threadIdx.x; i < BM * BK; i += 256) {
-      const int m = i / BK, k = i % BK;
-      const int gr = row0 + m, gk = k0 + k;
-      As[k][m] = (gr < M && gk < K) ? A[(size_t)gr * K + gk] : 0.f;
-    }
-    for (int i = threadIdx.x; i < BK * BN; i += 256) {
-      const int k = i / BN, n = i % BN;
-      const int gk = k0 + k, gc = col0 + n;
-      Bs[k][n] = (gk < K && gc < N) ? B[(size_t)gk * N + gc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + 16 * j;
-      if (c >= N) continue;
-      float v = acc[i][j] + bias[c];
-      if (act) v = leaky(v, slope);
-      C[(size_t)r * N + c] = v;
-    }
-  }
-}
 
 // att[n, 0:nh] = a1, att[n, nh:2nh] = a2; one thread per (row, head).
 __global__ void attn_terms(const float* __restrict__ z,
@@ -218,10 +160,8 @@ extern "C" int gat_stack_forward(
     const bool last = l == n_layers - 1;
     float* xo = (l % 2 == 0) ? xa : xb;
 
-    gemm_bias_act<<<dim3((d_in + BN - 1) / BN, (N + BM - 1) / BM), 256, 0,
-                    stream>>>(x, w1, b1, h1, N, d_in, d_in, alpha, 1);
-    gemm_bias_act<<<dim3((F + BN - 1) / BN, (N + BM - 1) / BM), 256, 0,
-                    stream>>>(h1, w2, b2, z, N, F, d_in, 0.f, 0);
+    launch_gemm<float>(x, w1, b1, h1, N, d_in, d_in, alpha, 1, stream);
+    launch_gemm<float>(h1, w2, b2, z, N, F, d_in, 0.f, 0, stream);
     attn_terms<<<(N * nh + 127) / 128, 128, 0, stream>>>(z, al, ar, att, N,
                                                          nh, d);
     edge_out<<<(E * F + 127) / 128, 128, 0, stream>>>(

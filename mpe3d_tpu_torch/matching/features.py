@@ -3,7 +3,9 @@
 Port of ``mpe3d_tpu/matching/features.py``: ``PairTopology``,
 ``build_topology`` (:64, exact pair order), ``head_features`` for alt-3
 (:93, flipped y), ``edge_node_features`` (:145), ``pair_mask_from_present``
-(:156).  Every (camera, slot) is a potential head node and every
+(:156), and the crowded-bucket pair pruning ``pair_ray_distances`` (:163)
+and ``prune_pair_candidates`` (:224), plain PyTorch as they are XLA code in
+the reference.  Every (camera, slot) is a potential head node and every
 cross-camera slot pair a potential edge node, with presence masks.
 
 Head-node feature layout (alt-3): [0] head one-hot, [1] edge-node one-hot,
@@ -119,3 +121,67 @@ def pair_mask_from_present(present: torch.Tensor, e1: torch.Tensor,
     e1/e2 [E] head indices (tensors on present's device)."""
     flat = present.reshape(-1).to(torch.float32)
     return flat[e1.long()] * flat[e2.long()]
+
+
+def _index(a, device) -> torch.Tensor:
+    return torch.as_tensor(a, device=device).long()
+
+
+def pair_ray_distances(kp: torch.Tensor, shared: torch.Tensor,
+                       rig: CameraRig, topo: PairTopology) -> torch.Tensor:
+    """Triangulation-consistency distance per candidate pair, in metres
+    (``mpe3d_tpu/matching/features.py:163``): the mean closest-approach
+    distance between the raw-pixel world rays of the joints both skeletons
+    share.  kp [C, S, J, 2] raw pixels; shared [C, S, J] per-joint usability
+    (valid & observed); ``rig`` restricted to the matching cameras; the
+    topology's index arrays may be numpy or tensors on kp's device.
+    Returns d [E]; pairs with no shared joint get the sentinel 1e3.
+
+    The reference selects endpoints with 0/1 incidence matmuls (exact, one
+    nonzero a row) in a [3, J, E] layout for the TPU's lanes; here they are
+    gathered by index in [E, J, 3]."""
+    C, S, J, _ = kp.shape
+    dev = kp.device
+    e1, e2 = _index(topo.e1, dev), _index(topo.e2, dev)
+    cam1, cam2 = _index(topo.cam1, dev), _index(topo.cam2, dev)
+    rays = pixel_rays_world(kp, rig.K_inv[:, None, None],
+                            rig.T_cw[:, None, None]).reshape(C * S, J, 3)
+    sh = shared.reshape(C * S, J).to(kp.dtype)
+    v1, v2 = rays[e1], rays[e2]                                  # [E, J, 3]
+    both = sh[e1] * sh[e2]                                       # [E, J]
+    centers = cam_centers_world(rig.T_cw)                        # [C, 3]
+    dp = (centers[cam2] - centers[cam1])[:, None, :]             # [E, 1, 3]
+    n = torch.cross(v1, v2, dim=-1)
+    nn = torch.sqrt(torch.sum(n * n, -1))                        # [E, J]
+    d_skew = torch.abs(torch.sum(dp * n, -1)) / torch.clamp(nn, min=1e-9)
+    # (near-)parallel rays: perpendicular distance of the baseline to v1
+    v1n = v1 / torch.clamp(torch.sqrt(torch.sum(v1 * v1, -1)),
+                           min=1e-9)[..., None]
+    perp = dp - torch.sum(dp * v1n, -1)[..., None] * v1n
+    d = torch.where(nn > 1e-6, d_skew, torch.sqrt(torch.sum(perp * perp, -1)))
+    cnt = torch.sum(both, -1)
+    mean_d = torch.sum(d * both, -1) / torch.clamp(cnt, min=1.0)
+    return torch.where(cnt > 0, mean_d, torch.full_like(mean_d, 1e3))
+
+
+def prune_pair_candidates(kp: torch.Tensor, shared: torch.Tensor,
+                          rig: CameraRig, topo: PairTopology,
+                          pair_mask: torch.Tensor, prune_dist: float,
+                          cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Geometric candidate-pair gate and compaction for the crowded match
+    stage (``mpe3d_tpu/matching/features.py:224``).  Pairs whose mean ray
+    distance exceeds ``prune_dist`` metres are pruned; pairs with no shared
+    joint (the 1e3 sentinel) are kept, ranked last among the kept.  The
+    ``cap`` best-ranked pairs are gathered: ties go to the lower pair index,
+    as ``lax.top_k`` breaks them (a stable ascending sort, not
+    ``torch.topk``).  Returns (idx [cap] int64 indices into the E pairs,
+    w [cap] fp32: 1 for a live kept pair, 0 for a pruned or padding one)."""
+    E = pair_mask.shape[0]
+    cap = min(int(cap), E)
+    d = pair_ray_distances(kp, shared, rig, topo)
+    unknown = d >= 999.0
+    d_rank = torch.where(unknown, torch.full_like(d, prune_dist), d)
+    keep = (pair_mask > 0) & (d_rank <= prune_dist)
+    rank = torch.where(keep, d_rank, 1e6 + d_rank)
+    idx = torch.sort(rank, stable=True).indices[:cap]
+    return idx, keep[idx].to(torch.float32)

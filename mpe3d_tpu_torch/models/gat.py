@@ -7,9 +7,17 @@ node's in-neighbours are {itself, head1, head2}; a head's are {itself} and
 its incident live edge nodes, weighted by the pair weights), LeakyReLU
 (hidden_slope) between layers, sigmoid scores from the 1-class output.
 
-The whole stack runs in ``ops/gat_kernel.py::gat_stack``: the CUDA kernel for
-CUDA tensors, the plain version for CPU tensors.  The weights live packed in
-one flat fp32 buffer, the layout the kernel reads.
+The stack runs in one of two forms on the same packed weights (one flat
+fp32 buffer, the layout the kernels read), chosen by the caller (the
+pipeline resolves it per bucket, ``PoseEstimationPipeline.serving_path``):
+
+* ``"stack"``: ``ops/gat_kernel.py::gat_stack``, the whole stack in one
+  host call (small buckets; heads of at most 64 incident edges);
+* ``"tiled"``: ``ops/gat_tiled.py::gat_stack_tiled``, two kernels per
+  layer (crowded buckets, any head degree, compacted pruned edge sets).
+
+Each takes its CUDA kernels for CUDA tensors and its plain version for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -22,16 +30,23 @@ from torch import nn
 from mpe3d_tpu_torch.config import MatcherConfig
 from mpe3d_tpu_torch.matching.features import PairTopology, incident_edges
 from mpe3d_tpu_torch.ops.gat_kernel import GatTopology, gat_stack
+from mpe3d_tpu_torch.ops.gat_tiled import gat_stack_tiled
 
+FORMS = ("stack", "tiled")
 _LAYER_ORDER = ("w1", "b1", "w2", "b2", "attn_l", "attn_r")
 
 
-def gat_topology(topo: PairTopology, device) -> GatTopology:
-    """Index tensors of a pair topology on ``device``."""
+def gat_topology(topo: PairTopology, device,
+                 form: str = "stack") -> GatTopology:
+    """Index tensors of a pair topology on ``device``: the endpoints, and
+    for the stack form each head's incident edges."""
     as_t = lambda a: torch.as_tensor(a, dtype=torch.int32,  # noqa: E731
                                      device=device).contiguous()
-    return GatTopology(as_t(topo.e1), as_t(topo.e2),
-                       as_t(incident_edges(topo)))
+    if form not in FORMS:
+        raise ValueError(f"matcher form must be one of {FORMS}, got {form!r}")
+    return GatTopology(as_t(topo.e1), as_t(topo.e2), topo.n_heads,
+                       as_t(incident_edges(topo)) if form == "stack"
+                       else None)
 
 
 class Matcher(nn.Module):
@@ -61,12 +76,20 @@ class Matcher(nn.Module):
         self.register_buffer("flat", torch.cat(parts).contiguous())
 
     def forward(self, x_all: torch.Tensor, pair_w: torch.Tensor,
-                topo: GatTopology) -> torch.Tensor:
+                topo: GatTopology, form: str = "stack",
+                edge_const: bool = False) -> torch.Tensor:
         """Logits [E] for node features x_all [H+E, in_dim] and pair weights
-        pair_w [E] (0 = absent pair)."""
-        return gat_stack(x_all.contiguous(), pair_w.contiguous(), topo,
-                         self.flat, self.dims, self.cfg.alpha,
-                         self.cfg.hidden_slope)
+        pair_w [E] (0 = absent pair), through the stack or the tiled form.
+        ``edge_const`` (tiled form): every edge row of x_all is the same
+        vector, so layer 0 projects it once."""
+        args = (x_all.contiguous(), pair_w.contiguous(), topo, self.flat,
+                self.dims, self.cfg.alpha, self.cfg.hidden_slope)
+        if form == "tiled":
+            return gat_stack_tiled(*args, edge_const=edge_const)
+        if form != "stack":
+            raise ValueError(f"matcher form must be one of {FORMS}, got "
+                             f"{form!r}")
+        return gat_stack(*args)
 
 
 def apply_matcher(matcher: Matcher, head_feats: torch.Tensor,
@@ -75,3 +98,14 @@ def apply_matcher(matcher: Matcher, head_feats: torch.Tensor,
     """Sigmoid scores per candidate pair [E]."""
     x_all = torch.cat([head_feats, edge_feats], 0)
     return torch.sigmoid(matcher(x_all, pair_mask, topo))
+
+
+def apply_matcher_tiled(matcher: Matcher, head_feats: torch.Tensor,
+                        edge_feats: torch.Tensor, topo: GatTopology,
+                        pair_w: torch.Tensor,
+                        edge_const: bool = False) -> torch.Tensor:
+    """Sigmoid scores per candidate pair [E] through the tiled form
+    (``mpe3d_tpu/ops/gat_tiled.py::apply_matcher_tiled`` :363, with
+    ``edge_const`` stated by the caller)."""
+    x_all = torch.cat([head_feats, edge_feats], 0)
+    return torch.sigmoid(matcher(x_all, pair_w, topo, "tiled", edge_const))

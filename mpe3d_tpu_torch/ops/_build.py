@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels: one ``nvcc`` call, one shared
 library, bound with ``ctypes``.
 
-Every ``csrc/*.cu`` file exposes plain ``extern "C"`` functions (device
-pointers, sizes, a ``cudaStream_t``; they return ``cudaGetLastError()``
-after their launches), so the build needs neither PyTorch's headers nor
-``ninja``.  All sources compile in ONE call::
+Every ``csrc/*.cu`` file (with the shared ``csrc/*.cuh`` headers) exposes
+plain ``extern "C"`` functions (device pointers, sizes, a
+``cudaStream_t``; they return ``cudaGetLastError()`` after their
+launches), so the build needs neither PyTorch's headers nor ``ninja``.
+All sources compile in ONE call::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o _build/libmpe3d_kernels.so csrc/*.cu
@@ -45,6 +46,12 @@ _SIGNATURES = {
     "gat_stack_forward": [_P, _P, _P, _P, _P, _P, ctypes.POINTER(_I),
                           _I, _I, _I, _I, _F, _F,
                           _P, _P, _P, _P, _P, _P, _P],
+    # x, w1, b1, w2, b2, attn_l, attn_r, pw, e1, e2, H, E, d_in, nh, d,
+    # edge_const, alpha, slope, last, h1, z, att, l1m, l2m, m, xout, stream
+    "gat_k1_layer": [_P] * 10 + [_I] * 6 + [_F, _F, _I] + [_P] * 8,
+    # l1m, l2m, pw, e1, e2, z, att, m, H, E, nh, d, edge_const, alpha,
+    # slope, xout, stream
+    "gat_k2_layer": [_P] * 8 + [_I] * 5 + [_F, _F, _P, _P],
     # x, w, b, y, M, K, N, slope, act, stream
     "mlp_bf16_layer": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     # scores, pmask, pairs, used_pos, kp, valid, prob, observed, cams,
@@ -89,7 +96,7 @@ def library() -> KernelLibrary:
     sources = sorted(SRC_DIR.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {SRC_DIR}")
-    digest = _digest(sources)
+    digest = _digest(sources + sorted(SRC_DIR.glob("*.cuh")))
     stamp = BUILD_DIR / "libmpe3d_kernels.sha256"
     log = BUILD_DIR / "build.log"
     seconds = 0.0

@@ -27,7 +27,11 @@ slots, H = C*S heads) and the used cameras' per-slot buffers:
 
 It is the same function as ``decode_person_proposals_device`` followed by
 ``pack_lifter_input`` on the gathered observations, which
-``tests/test_torch_frame_kernel.py`` holds to the JAX package.
+``tests/test_torch_frame_kernel.py`` holds to the JAX package.  The split path
+with pair pruning calls it on the compacted pairs: E_k = cap rows of the
+pair table gathered by the kept indices, ``k_cap = min(k_cap, E_k)``
+(``frame_kernel.py:1067-1073``); the bucket's limits are in
+``frame_kernel_fits``.
 
 ``frame_decode_pack`` takes the plain version for CPU tensors and launches
 the kernel (``csrc/frame_decode_pack.cu``) for CUDA tensors;
@@ -215,12 +219,20 @@ def frame_decode_pack(
 frame_decode_pack.launches = 0
 
 
+def frame_kernel_fits(E: int, C: int, S: int) -> bool:
+    """Whether one slot bucket fits the kernel: its decode pairs (E, the
+    compacted count under pair pruning), heads C*S and matching cameras C.
+    The limits of ``frame_decode_pack`` that depend on the bucket; the rest
+    are per configuration (``frame_kernel_supported``)."""
+    return 1 <= E <= MAX_PAIRS and 1 <= C * S <= MAX_HEADS and C <= MAX_CAMERAS
+
+
 def frame_kernel_supported(pipe) -> bool:
     """Configurations the frame path serves (``frame_kernel.py:845-855`` for
     the ones the port has: it serves only the MLP backend, without geometric
     rerank): alt-3 graph, no GAT residual, a mean / median / IRLS prior,
     person buckets of at most 16 rows, and camera counts within the
-    kernel's limits."""
+    kernel's limits.  Each bucket must also fit (``frame_kernel_fits``)."""
     return (pipe.rig_config.graph_alternative == "3"
             and not pipe.matcher.cfg.residual
             and pipe.lifter_prior in PRIORS

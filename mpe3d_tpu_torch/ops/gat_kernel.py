@@ -28,7 +28,7 @@ kernel for CUDA tensors; ``gat_stack.launches`` counts the kernel calls.
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,16 +37,19 @@ from mpe3d_tpu_torch.ops import _build
 Dims = List[Tuple[int, int, int]]
 
 
+# incident edges a head may have in the stack kernel (csrc/gat_stack.cu)
+MAX_D = 64
+
+
 class GatTopology(NamedTuple):
-    """Index form of the alt-3 pair topology on one device."""
+    """Index form of the alt-3 pair topology on one device.  ``inc`` is
+    what the stack form reads; the tiled form (``ops/gat_tiled.py``) reads
+    only ``e1``/``e2``."""
 
     e1: torch.Tensor    # [E] int32 head index of endpoint 1
     e2: torch.Tensor    # [E] int32 head index of endpoint 2
-    inc: torch.Tensor   # [H, D] int32 incident edges of each head
-
-    @property
-    def n_heads(self) -> int:
-        return self.inc.shape[0]
+    n_heads: int
+    inc: Optional[torch.Tensor] = None   # [H, D] int32 incident edges
 
     @property
     def n_pairs(self) -> int:
@@ -142,7 +145,13 @@ def gat_stack(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
     if x.device.type != "cuda":
         raise ValueError(f"gat_stack: unsupported device {x.device}")
     H, E = topo.n_heads, topo.n_pairs
+    if topo.inc is None:
+        raise ValueError("gat_stack: the topology has no incidence list")
     N, D = H + E, topo.inc.shape[1]
+    if D > MAX_D:
+        raise ValueError(f"gat_stack: the kernel serves heads of at most "
+                         f"{MAX_D} incident edges, got {D}; serve this "
+                         f"bucket through ops/gat_tiled.py")
     dev = x.device
     _check(x, "x", torch.float32, (N, dims[0][0]), dev)
     _check(pw, "pw", torch.float32, (E,), dev)

@@ -348,6 +348,7 @@ def test_infer_fused_frame_path_matches_tpu_kernel(prior, gate,
         got = port.infer_fused(pf)
         n = int(pmask.sum())
         np.testing.assert_array_equal(got.persons, persons[:n])
+        assert got.persons.dtype == persons.dtype == np.int32
         np.testing.assert_allclose(got.scores, scores, atol=SCORE_TOL)
         np.testing.assert_allclose(got.poses, poses[:n], atol=POSE_TOL_M)
         np.testing.assert_allclose(got.quality, quality[:n],
@@ -387,7 +388,7 @@ def test_frame_path_matches_eager_path(trained_pipes, matcher):
     for f in frames:
         a, b = eager.infer_fused(f), frame.infer_fused(f)
         np.testing.assert_array_equal(b.persons, a.persons)
-        assert b.persons.dtype == a.persons.dtype
+        assert b.persons.dtype == a.persons.dtype == np.int32
         np.testing.assert_allclose(b.scores, a.scores, atol=SCORE_TOL)
         np.testing.assert_allclose(b.poses, a.poses, atol=POSE_TOL_M)
         np.testing.assert_allclose(b.quality, a.quality, atol=QUALITY_TOL_PX)

@@ -61,6 +61,7 @@ def _compare(port, ref_pipe, frames):
         near += int((np.abs(a.scores - 0.5) < 1e-5).sum())
         note = f"{near} scores within 1e-5 of the threshold"
         np.testing.assert_array_equal(b.persons, a.persons, err_msg=note)
+        assert b.persons.dtype == a.persons.dtype == np.int32
         np.testing.assert_allclose(b.scores, a.scores, atol=1e-5, err_msg=note)
         np.testing.assert_allclose(b.poses, a.poses, atol=1e-2)
         np.testing.assert_allclose(b.quality, a.quality, atol=0.5)
