@@ -18,7 +18,14 @@ failure raises, and the script exits non-zero):
    kernels (K1, K2) are checked at Panoptic S=10 and S=16 with the trained
    and a random matcher, on an ARPLAB-shaped 6 x 16 topology (head degree
    80, past the stack kernel's cap), on a pruned, compacted edge set, and at
-   S=16 against the stack kernel too.
+   S=16 against the stack kernel too.  The int8 layer kernel is checked on
+   each int8 layer of ``models_demo/pan_irls`` and ``pan_compact`` on the
+   serving path's lifter inputs (M=8) and at M=40 (row tiles), the whole
+   mixed net (8 int8 layers, a bf16 head) against its plain version; the
+   fused projection kernel on the trained matcher's five layer inputs at
+   S=4 and S=16, with its distance from an fp64 evaluation; the stack GAT
+   kernel on the trained matcher at S=4 and S=16, with its distance from
+   fp64 beside the tiled kernels'.
 4. main path: ``PoseEstimationPipeline.infer_fused`` on 16 synthetic frames
    on the card, once with the trained matcher and once with a numpy-seeded
    random matcher (the trained one scores near 0 on the synthetic ring rig;
@@ -31,7 +38,14 @@ failure raises, and the script exits non-zero):
    ``submit_fused`` of the frame path once under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation);
    prints each path's median frame time and the frame path's per-stage
-   times and device busy share.
+   times and device busy share.  Then the int8 pair ``models_demo/pan_irls``
+   (``from_checkpoint``): 16 frames on the frame path and 6 on the eager
+   path, trained and random matcher, against the same pipeline on the CPU,
+   8 int8 and 1 bf16 lifter launches a frame, beside the bf16 pair's frame
+   time; ``pan_compact`` on 6 frames of the frame path; and the per-layer
+   GAT form (``use_layer_matcher``) on the eager path at S=4 and at the
+   default buckets on the S=10 frames ("mean" prior), 5 projection launches
+   a frame and no stack or tiled GAT launch.
 5. crowded path: ``infer_fused`` on the card against the CPU for S=10
    through the default buckets ``(2, 4, 10)`` / ``(4, 8, 16)`` (frames of
    6-9 people) and for S=16 through ``(16,)`` / ``(16,)`` (10-14 people),
@@ -59,9 +73,12 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEMO = os.path.join(ROOT, "models_demo", "pan_irls_bf16")
+DEMO_INT8 = os.path.join(ROOT, "models_demo", "pan_irls")   # same recipe
+DEMO_COMPACT = os.path.join(ROOT, "models_demo", "pan_compact")
 
 N_FRAMES, N_WARMUP, N_TIMED = 16, 3, 50
 N_CROWDED = 6              # frames of each crowded run but the reported one
+N_SHORT = 6                # frames of the int8 eager, pan_compact and layer runs
 RANDOM_MATCHER_SEED = 0    # its scores sit above the 0.5 threshold
 ARPLAB_MATCHER_SEED = 1
 PRUNE_DIST_M = 0.2         # pair_prune_dist of the pruned crowded runs
@@ -80,9 +97,17 @@ BF16_TENSOR_FLOPS = 989e12
 #  * the whole 9-layer MLP: a last-bit fp32 difference flips the bf16
 #    rounding of a later layer's operand (2^-8 relative), and the flips
 #    cascade through the layers; 5e-3 decameters bounds that cascade.
+#  * the int8 layers are held to the same two: their products (bf16
+#    activation x int8 weight) are exact in fp32 as well, and the sums are
+#    fp32 in another order.
+#  * the fused GAT projection (fc1 -> LeakyReLU -> fc2): the kernel sums in
+#    fp64, the plain version (cuBLAS, no TF32) in fp32 over at most 902
+#    terms, about 1e-6 of the output's scale; bounded at
+#    1e-5 x (1 + max |out|) per layer.
 GAT_RTOL = 1e-4
 MLP_LAYER_TOL = 1e-5
 MLP_NET_TOL = 5e-3
+PROJ_RTOL = 1e-5
 # decode + gather + pack kernel against its plain version on the same
 # inputs: persons, masks and gathered observations exactly equal; fields 0-9
 # within 1e-5 (the same fp32 formulas, FMA contraction on the card); prior
@@ -135,20 +160,25 @@ def nvidia_smi_line() -> str:
     return out[0]
 
 
+def load_lifter(models_dir, rig_config):
+    """(tree, config, prior) of the lifter checkpoint of a models dir."""
+    from mpe3d_tpu_torch.checkpoint import load_lifter_checkpoint
+    from mpe3d_tpu_torch.config import LifterConfig
+    return load_lifter_checkpoint(
+        os.path.join(models_dir, "pose_estimator"),
+        LifterConfig(in_dim=rig_config.lifter_input_dim,
+                     out_dim=rig_config.n_joints * 3))
+
+
 def load_trees(rig_config):
     """Trained matcher and lifter trees of models_demo/pan_irls_bf16, their
     configs and the lifter's prior."""
-    from mpe3d_tpu_torch.checkpoint import (load_lifter_checkpoint,
-                                            load_matcher_checkpoint)
-    from mpe3d_tpu_torch.config import LifterConfig, MatcherConfig
+    from mpe3d_tpu_torch.checkpoint import load_matcher_checkpoint
+    from mpe3d_tpu_torch.config import MatcherConfig
     mtree, mcfg = load_matcher_checkpoint(
         os.path.join(DEMO, "skeleton_matching"),
         MatcherConfig(in_dim=rig_config.matcher_feature_dim))
-    ltree, lcfg, prior = load_lifter_checkpoint(
-        os.path.join(DEMO, "pose_estimator"),
-        LifterConfig(in_dim=rig_config.lifter_input_dim,
-                     out_dim=rig_config.n_joints * 3))
-    return mtree, mcfg, ltree, lcfg, prior
+    return (mtree, mcfg) + tuple(load_lifter(DEMO, rig_config))
 
 
 def gat_costs(x, n_weights, dims, E, D):
@@ -261,6 +291,230 @@ def check_kernels(pipe, frame, report):
         print(f"  {k['name']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} "
               f"ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "
               f"library {k['library_ms']}")
+
+
+def mlp_costs(layers, M):
+    """(bytes, operations) of the given packed lifter layers on M rows: each
+    layer's input rows, weights, scales and bias read once, its output
+    written once; 2 M K N operations a layer."""
+    bytes_ = flops = 0
+    for layer in layers:
+        K, N = layer[0].shape
+        bytes_ += (4 * M * K + 4 * M * N
+                   + sum(t.numel() * t.element_size() for t in layer))
+        flops += 2 * M * K * N
+    return bytes_, flops
+
+
+def check_int8_layers(label, lifter, x):
+    """Each int8 layer of ``lifter`` on the input the serving path gives it
+    (the plain version's output of the layer before) against its plain
+    version; returns the layers and their inputs."""
+    import torch
+    from mpe3d_tpu_torch.ops import fused_mlp, quant_matmul
+    slope = lifter.cfg.negative_slope
+    layers, inputs, h = lifter.packed_layers(), [], x.float().contiguous()
+    worst = 0.0
+    for i, layer in enumerate(layers[:-1]):
+        if not isinstance(layer, fused_mlp.Int8Layer):
+            raise AssertionError(f"{label}: layer {i} is not int8")
+        args = (h, layer.wq, layer.scale, layer.b, slope, layer.rscale)
+        y = quant_matmul.int8_weight_matmul(*args)
+        y_ref = quant_matmul.int8_matmul_plain(*args)
+        torch.cuda.synchronize()
+        lerr = float((y - y_ref).abs().max())
+        ltol = MLP_LAYER_TOL * max(1.0, float(y_ref.abs().max()))
+        if not (bool(torch.isfinite(y).all()) and lerr <= ltol):
+            raise AssertionError(f"{label}: int8 layer {i} ({tuple(h.shape)}"
+                                 f" x {tuple(layer.wq.shape)}): max err "
+                                 f"{lerr:.3g} > {ltol:.3g}")
+        worst = max(worst, lerr / ltol)
+        inputs.append(args)
+        h = y_ref
+    print(f"  mlp_int8_layer {label}: {len(inputs)} int8 layers on "
+          f"{x.shape[0]} rows, each within {MLP_LAYER_TOL:g} x max|out| of "
+          f"its plain version (largest error {worst:.3g} of the tolerance)")
+    return inputs
+
+
+def check_int8_kernels(pipe, frame, int8_lifter, compact_lifter, report,
+                       bf16_ms):
+    """Phase 3, the int8 layer kernel: each int8 layer of the pan_irls and
+    pan_compact lifters on the serving path's inputs (M=8 lifter rows of a
+    random-matcher frame), pan_irls also at M=40 (three 16-row tiles), and
+    the whole mixed pan_irls net against its plain version.  Reports the
+    8 int8 layers of pan_irls at M=8, beside the bf16 lifter's call."""
+    import numpy as np
+    import torch
+    from mpe3d_tpu_torch.ops import fused_mlp, quant_matmul
+
+    nets = pipe.stage_inputs(frame)[3].float().contiguous()
+    inputs = check_int8_layers("pan_irls", int8_lifter, nets)
+    rng = np.random.default_rng(40)
+    x40 = nets.repeat(5, 1) * torch.tensor(
+        rng.uniform(0.5, 1.5, (5 * nets.shape[0], 1)), dtype=torch.float32,
+        device=nets.device)
+    check_int8_layers("pan_irls, M=40", int8_lifter, x40)
+    compact_inputs = check_int8_layers("pan_compact", compact_lifter, nets)
+
+    cfg = int8_lifter.cfg
+    layers = int8_lifter.packed_layers()
+    got = fused_mlp.fused_mlp_forward(nets, layers, cfg.negative_slope,
+                                      cfg.out_dim)
+    ref = fused_mlp.fused_mlp_plain(nets, layers, cfg.negative_slope,
+                                    cfg.out_dim)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not (bool(torch.isfinite(got).all()) and err <= MLP_NET_TOL):
+        raise AssertionError(f"int8 MLP kernels disagree with their plain "
+                             f"version: max err {err:.3g} > {MLP_NET_TOL}")
+
+    def run(fn, ins):
+        return lambda: [fn(*a) for a in ins]
+
+    M = nets.shape[0]
+    bytes_, flops = mlp_costs(layers[:-1], M)
+    t_b, t_f = bytes_ / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS
+    report.append({
+        "name": "mlp_int8_layer", "route": "cuda",
+        "source": "mpe3d_tpu_torch/csrc/int8_mlp.cu",
+        "replaces": "mpe3d_tpu/ops/quant_matmul.py:73",
+        "launches": 0, "max_abs_err": err,
+        "ms": median_ms(run(quant_matmul.int8_weight_matmul, inputs)),
+        "plain_ms": median_ms(run(quant_matmul.int8_matmul_plain, inputs)),
+        "bound_ms": 1e3 * max(t_b, t_f),
+        "bound_by": "bytes" if t_b > t_f else "operations",
+        "library_ms": None})
+    k = report[-1]
+    net_ms = median_ms(lambda: fused_mlp.fused_mlp_forward(
+        nets, layers, cfg.negative_slope, cfg.out_dim))
+    c_bytes, _ = mlp_costs(compact_lifter.packed_layers()[:-1], M)
+    c_ms = median_ms(run(quant_matmul.int8_weight_matmul, compact_inputs))
+    print(f"  mlp_int8_layer (also replaces mpe3d_tpu/ops/fused_mlp.py:57, "
+          f"int8 kind): pan_irls, 8 int8 layers on {M} rows: {k['ms']:.4f} "
+          f"ms, plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms "
+          f"({k['bound_by']}: {bytes_} bytes), library None (no single "
+          f"PyTorch call); whole int8 net (8 int8 + 1 bf16 launches) "
+          f"{net_ms:.4f} ms against the bf16 net of pan_irls_bf16 (9 bf16 "
+          f"launches, the same recipe) {bf16_ms:.4f} ms; max err of the "
+          f"int8 net {err:.3g} (tol {MLP_NET_TOL:g} decameters); "
+          f"pan_compact 8 int8 layers {c_ms:.4f} ms, bound "
+          f"{1e3 * c_bytes / HBM_BYTES_PER_S:.5f} ms ({c_bytes} bytes)")
+
+
+def proj_layer_inputs(x, pw, gtopo, m):
+    """The five (x, w1, b1, w2, b2, alpha) calls the per-layer form makes
+    on these GAT inputs (the plain stack's own layer inputs)."""
+    from mpe3d_tpu_torch.ops import fused_proj, gat_kernel
+    calls = []
+
+    def record(*a):
+        calls.append(a)
+        return fused_proj.proj_plain(*a)
+
+    gat_kernel.gat_stack_plain(x, pw, gtopo, m.flat, m.dims, m.cfg.alpha,
+                               m.cfg.hidden_slope, proj=record)
+    return calls
+
+
+def check_proj_kernel(cases, report):
+    """Phase 3, the fused projection kernel against its plain version on
+    the trained matcher's five layer inputs of each case (label -> GAT
+    inputs with incidence lists), with each one's distance from an fp64
+    evaluation; the first case gives the report row."""
+    import torch
+    import torch.nn.functional as tf
+    from mpe3d_tpu_torch.ops import fused_proj
+
+    for label, (x, pw, gtopo, m) in cases.items():
+        calls = proj_layer_inputs(x, pw, gtopo, m)
+        errs, d_kernel, d_plain = [], 0.0, 0.0
+        for i, a in enumerate(calls):
+            got = fused_proj.fused_linear_leaky_linear(*a)
+            ref = fused_proj.proj_plain(*a)
+            exact = fused_proj.proj_plain(*(t.double() for t in a[:5]), a[5])
+            torch.cuda.synchronize()
+            scale = 1.0 + float(exact.abs().max())
+            err = float((got - ref).abs().max())
+            if not (bool(torch.isfinite(got).all())
+                    and err <= PROJ_RTOL * (1.0 + float(ref.abs().max()))):
+                raise AssertionError(
+                    f"gat_fused_proj {label} layer {i} ({tuple(a[0].shape)} "
+                    f"-> {tuple(a[3].shape)}): max err {err:.3g}")
+            errs.append(err)
+            d_kernel = max(d_kernel,
+                           float((got.double() - exact).abs().max()) / scale)
+            d_plain = max(d_plain,
+                          float((ref.double() - exact).abs().max()) / scale)
+        bytes_ = sum(4 * (a[0].numel() + a[1].numel() + a[2].numel()
+                          + a[3].numel() + a[4].numel()
+                          + a[0].shape[0] * a[3].shape[1]) for a in calls)
+        flops = sum(2 * a[0].shape[0] * a[1].shape[0]
+                    * (a[1].shape[1] + a[3].shape[1]) for a in calls)
+        b_ms, b_by = bound(bytes_, flops)
+
+        def library(calls=calls):
+            return [torch.addmm(b2, tf.leaky_relu(torch.addmm(b1, x_, w1),
+                                                  alpha), w2)
+                    for x_, w1, b1, w2, b2, alpha in calls]
+
+        row = {
+            "name": "gat_fused_proj", "route": "cuda",
+            "source": "mpe3d_tpu_torch/csrc/fused_proj.cu",
+            "replaces": "mpe3d_tpu/ops/fused_proj.py:48",
+            "launches": 0, "max_abs_err": max(errs),
+            "ms": median_ms(lambda c=calls: [
+                fused_proj.fused_linear_leaky_linear(*a) for a in c]),
+            "plain_ms": median_ms(lambda c=calls: [
+                fused_proj.proj_plain(*a) for a in c]),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": median_ms(library)}
+        if not any(r["name"] == "gat_fused_proj" for r in report):
+            report.append(row)
+        print(f"  gat_fused_proj {label}: {x.shape[0]} rows, 5 layers, max "
+              f"err per layer {', '.join(f'{e:.3g}' for e in errs)} (tol "
+              f"{PROJ_RTOL:g} x (1 + max|out|)); to fp64: kernel "
+              f"{d_kernel:.3g}, plain {d_plain:.3g} (x (1 + max|out|)); "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"library (torch.addmm -> leaky_relu -> torch.addmm a layer, "
+              f"TF32 off) {row['library_ms']:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}: {flops} operations)")
+
+
+def check_stack_trained(label, x, pw, gtopo, m, tiled_topo=None):
+    """The stack GAT kernel against its plain version on the trained
+    matcher, with each one's largest |d logit| / (1 + |logit|) from an fp64
+    evaluation (and the tiled kernels' on the same call when
+    ``tiled_topo`` is given); prints the call ms."""
+    import torch
+    from mpe3d_tpu_torch.ops import gat_kernel, gat_tiled
+    args = (x, pw, gtopo, m.flat, m.dims, m.cfg.alpha, m.cfg.hidden_slope)
+    got = gat_kernel.gat_stack(*args)
+    ref = gat_kernel.gat_stack_plain(*args)
+    exact = gat_kernel.gat_stack_plain(x.double(), pw.double(), gtopo,
+                                       m.flat.double(), m.dims, m.cfg.alpha,
+                                       m.cfg.hidden_slope)
+    torch.cuda.synchronize()
+    rel = lambda v: float(  # noqa: E731
+        ((v.double() - exact).abs() / (1 + exact.abs())).max())
+    err = (got - ref).abs()
+    note = f"to fp64: kernel {rel(got):.3g}, plain {rel(ref):.3g}"
+    if tiled_topo is not None:
+        tiled = gat_tiled.gat_stack_tiled(x, pw, tiled_topo, m.flat, m.dims,
+                                          m.cfg.alpha, m.cfg.hidden_slope,
+                                          edge_const=True)
+        torch.cuda.synchronize()
+        note += (f", tiled kernels {rel(tiled):.3g} (stack / tiled "
+                 f"{rel(got) / max(rel(tiled), 1e-30):.3g})")
+    ms = median_ms(lambda: gat_kernel.gat_stack(*args))
+    print(f"  gat_stack {label}, trained matcher: H+E={x.shape[0]}, max "
+          f"|d logit| {float(err.max()):.3g} (tol {GAT_RTOL:g} x "
+          f"(1+|logit|)); {note}; {ms:.4f} ms")
+    if not bool(torch.isfinite(got).all()) or bool(
+            (err > GAT_RTOL * (1 + ref.abs())).any()):
+        raise AssertionError(f"gat_stack {label}, trained matcher: disagrees "
+                             f"with its plain version: max |d logit| "
+                             f"{float(err.max()):.3g}")
 
 
 def frame_costs(args, kw, out):
@@ -590,24 +844,26 @@ def check_tiled_kernels(pipes, frames, report):
     report.extend(rows)
 
 
+def launch_counters():
+    """Kernel name -> the wrapper function that counts its launches."""
+    from mpe3d_tpu_torch.ops import (fused_mlp, fused_proj, frame_kernel,
+                                     gat_kernel, gat_tiled, quant_matmul)
+    return {"gat_stack": gat_kernel.gat_stack,
+            "gat_k1": gat_tiled.gat_k1_layer,
+            "gat_k2": gat_tiled.gat_k2_layer,
+            "frame_decode_pack": frame_kernel.frame_decode_pack,
+            "mlp_bf16_layer": fused_mlp.mlp_layer,
+            "mlp_int8_layer": quant_matmul.mlp_int8_layer,
+            "gat_fused_proj": fused_proj.fused_linear_leaky_linear}
+
+
 def reset_launches():
-    from mpe3d_tpu_torch.ops import (fused_mlp, frame_kernel, gat_kernel,
-                                     gat_tiled)
-    gat_kernel.gat_stack.launches = 0
-    gat_tiled.gat_k1_layer.launches = 0
-    gat_tiled.gat_k2_layer.launches = 0
-    frame_kernel.frame_decode_pack.launches = 0
-    fused_mlp.mlp_layer.launches = 0
+    for fn in launch_counters().values():
+        fn.launches = 0
 
 
 def read_launches():
-    from mpe3d_tpu_torch.ops import (fused_mlp, frame_kernel, gat_kernel,
-                                     gat_tiled)
-    return {"gat_stack": gat_kernel.gat_stack.launches,
-            "gat_k1": gat_tiled.gat_k1_layer.launches,
-            "gat_k2": gat_tiled.gat_k2_layer.launches,
-            "frame_decode_pack": frame_kernel.frame_decode_pack.launches,
-            "mlp_bf16_layer": fused_mlp.mlp_layer.launches}
+    return {k: fn.launches for k, fn in launch_counters().items()}
 
 
 def frame_slots(pipe, frame) -> int:
@@ -617,18 +873,21 @@ def frame_slots(pipe, frame) -> int:
 
 def expected_launches(pipe, frames):
     """Kernel launches the resolved serving paths give these frames."""
-    want = dict.fromkeys(("gat_stack", "gat_k1", "gat_k2",
-                          "frame_decode_pack", "mlp_bf16_layer"), 0)
+    from mpe3d_tpu_torch.ops.fused_mlp import Bf16Layer, Int8Layer
+    want = dict.fromkeys(launch_counters(), 0)
     n_gat = len(pipe.matcher.dims)
     for f in frames:
         form, frame_path = pipe.serving_path(frame_slots(pipe, f))
         if form == "stack":
             want["gat_stack"] += 1
+        elif form == "layer":
+            want["gat_fused_proj"] += n_gat
         else:
             want["gat_k1"] += n_gat
             want["gat_k2"] += n_gat - 1
         want["frame_decode_pack"] += int(frame_path)
-        want["mlp_bf16_layer"] += pipe.lifter.n_layers
+        want["mlp_bf16_layer"] += pipe.lifter.kinds.count(Bf16Layer)
+        want["mlp_int8_layer"] += pipe.lifter.kinds.count(Int8Layer)
     return want
 
 
@@ -647,7 +906,8 @@ def check_no_host_sync(gpu, frame):
 
 def run_main_path(gpu, cpu, frames, label):
     """Phase 4 and 5 for one pipeline: counters, finiteness, CPU agreement.
-    Returns the launches, the median frame ms and the buckets' paths."""
+    Returns the launches, the median frame ms, the buckets' paths and the
+    outputs."""
     import numpy as np
     import torch
 
@@ -706,7 +966,7 @@ def run_main_path(gpu, cpu, frames, label):
           f"threshold")
     print(f"  {label}: median frame {ms:.3f} ms (host clock, "
           f"{len(frames)} frames)", flush=True)
-    return launches, ms, paths
+    return launches, ms, paths, outs
 
 
 def frame_stage_times(pipe, frame):
@@ -784,6 +1044,7 @@ def stage_table(pipe, frames, label):
 
 
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -795,6 +1056,7 @@ def main() -> int:
     from mpe3d_tpu_torch.data.frames import parse_frame
     from mpe3d_tpu_torch.data.synthetic import (generate_frames,
                                                 synthetic_ring_rig)
+    from mpe3d_tpu_torch.models.gat import gat_topology
     from mpe3d_tpu_torch.ops import _build
     from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
 
@@ -827,54 +1089,149 @@ def main() -> int:
                                          n_people=(10, 14), seed=2)]
 
     def pipeline(tree, device, use_frame_kernel=None, slots=(4,),
-                 persons=(8,), lifter_prior=prior, **kw):
+                 persons=(8,), lifter_prior=prior, lifter=(ltree, lcfg),
+                 **kw):
         return PoseEstimationPipeline(
             rig_config, rig, weights.matcher_from_tree(tree, mcfg, device),
-            weights.lifter_from_tree(ltree, lcfg, device),
+            weights.lifter_from_tree(*lifter, device),
             slot_buckets=slots, person_buckets=persons,
             lifter_prior=lifter_prior, use_frame_kernel=use_frame_kernel,
             device=device, **kw)
 
+    def int8_pipeline(tree, device, use_frame_kernel=None):
+        """The int8-stored pair models_demo/pan_irls through from_checkpoint,
+        served with the given matcher (pan_irls ships the matcher of
+        pan_irls_bf16)."""
+        pipe = PoseEstimationPipeline.from_checkpoint(
+            DEMO_INT8, rig, rig_config, device=device, slot_buckets=(4,),
+            person_buckets=(8,), use_frame_kernel=use_frame_kernel)
+        pipe.matcher = weights.matcher_from_tree(tree, mcfg, device)
+        return pipe
+
+    # pan_compact's lifter (its matcher, the same file again, is left out of
+    # chip copies)
+    ctree, ccfg, cprior = load_lifter(DEMO_COMPACT, rig_config)
+
     matchers = {"trained": mtree, "random": rtree}
     gpu_r = pipeline(rtree, GPU)
+    trained4 = pipeline(mtree, GPU)
+    trained16 = pipeline(mtree, GPU, slots=(16,), persons=(16,))
     report = []
     check_kernels(gpu_r, frames[0], report)
-    check_frame_kernel(gpu_r, frames[0],
-                       pipeline(mtree, GPU, slots=(16,), persons=(16,)),
-                       frames16[0], report)
+    irls_gpu = int8_pipeline(rtree, GPU)
+    check_int8_kernels(gpu_r, frames[0], irls_gpu.lifter,
+                       weights.lifter_from_tree(ctree, ccfg, GPU), report,
+                       report[-1]["ms"])
+    x4, pw4, topo4, _ = trained4.stage_inputs(frames[0])
+    x16, pw16, tiled16, _ = trained16.gat_stage_inputs(frames16[0])
+    stack16 = gat_topology(trained16.topology(16), GPU, "stack")
+    check_proj_kernel({"S=4, trained matcher": (x4, pw4, topo4,
+                                                trained4.matcher),
+                       "S=16, trained matcher": (x16, pw16, stack16,
+                                                 trained16.matcher)}, report)
+    check_frame_kernel(gpu_r, frames[0], trained16, frames16[0], report)
     check_tiled_kernels(
-        {(m, S, prune): pipeline(
-            matchers[m], GPU, slots=(S,), persons=(16,),
-            pair_prune_dist=PRUNE_DIST_M if prune else 0.0)
+        {(m, S, prune): trained16 if (m, S, prune) == ("trained", 16, False)
+         else pipeline(matchers[m], GPU, slots=(S,), persons=(16,),
+                       pair_prune_dist=PRUNE_DIST_M if prune else 0.0)
          for m, S, prune in (("trained", 10, False), ("random", 10, False),
                              ("trained", 16, False), ("random", 16, False),
                              ("trained", 16, True))},
         {10: frames10[0], 16: frames16[0]}, report)
-    phase("kernels", t0, "all five kernels match their plain versions")
+    check_stack_trained("S=4", x4, pw4, topo4, trained4.matcher)
+    check_stack_trained("S=16", x16, pw16, stack16, trained16.matcher,
+                        tiled_topo=tiled16)
+    phase("kernels", t0, f"all {len(report)} kernels match their plain "
+          f"versions")
 
     t0 = time.perf_counter()
     print(f"  lifter weights: trained, models_demo/pan_irls_bf16; "
           f"prior {prior!r}")
-    main_launches, frame_ms = None, {}
-    for mlabel, tree in (("trained matcher", mtree),
-                         (f"random matcher (numpy seed "
-                          f"{RANDOM_MATCHER_SEED})", rtree)):
+    main_launches, frame_ms, bf16_outs = None, {}, {}
+    for mlabel, tree in matchers.items():
         gpu = pipeline(tree, GPU)
         if not gpu.frame_path_on():
             raise AssertionError("the frame path is not the default on the "
                                  "card")
-        launches, ms, _ = run_main_path(gpu, pipeline(tree, "cpu", True),
-                                        frames, f"{mlabel}, frame path")
+        launches, ms, _, bf16_outs[mlabel] = run_main_path(
+            gpu, pipeline(tree, "cpu", True), frames,
+            f"{mlabel} matcher, frame path")
         main_launches = main_launches or launches
-        _, ms_eager, _ = run_main_path(pipeline(tree, GPU, False),
-                                       pipeline(tree, "cpu", False), frames,
-                                       f"{mlabel}, eager path")
+        _, ms_eager, _, _ = run_main_path(pipeline(tree, GPU, False),
+                                          pipeline(tree, "cpu", False),
+                                          frames, f"{mlabel} matcher, eager "
+                                          f"path")
         frame_ms[mlabel] = (ms, ms_eager)
         stage_table(gpu, frames, mlabel)
     phase("main path", t0, "infer_fused on the card agrees with the CPU on "
           "both paths; median frame ms (frame path / eager path): "
-          + "; ".join(f"{m} {a:.3f} / {b:.3f}"
+          + "; ".join(f"{m} matcher {a:.3f} / {b:.3f}"
                       for m, (a, b) in frame_ms.items()))
+
+    t0 = time.perf_counter()
+    print("  lifter weights: int8-stored models_demo/pan_irls (8 int8 "
+          "layers, a bf16 head; the recipe of pan_irls_bf16) and "
+          "models_demo/pan_compact")
+    int8_launches, int8_ms = None, {}
+    for mlabel, tree in matchers.items():
+        gpu = irls_gpu if mlabel == "random" else int8_pipeline(tree, GPU)
+        if gpu.serve_dtype != "int8" or not gpu.frame_path_on():
+            raise AssertionError(f"pan_irls serves {gpu.serve_dtype}, frame "
+                                 f"path {gpu.frame_path_on()}")
+        launches, ms, _, outs = run_main_path(
+            gpu, int8_pipeline(tree, "cpu", True), frames,
+            f"pan_irls (int8), {mlabel} matcher, frame path")
+        if (launches["mlp_int8_layer"], launches["mlp_bf16_layer"]) != (
+                8 * len(frames), len(frames)):
+            raise AssertionError(f"pan_irls: lifter launches {launches}")
+        int8_launches = int8_launches or launches
+        _, ms_eager, _, _ = run_main_path(
+            int8_pipeline(tree, GPU, False), int8_pipeline(tree, "cpu", False),
+            frames[:N_SHORT], f"pan_irls (int8), {mlabel} matcher, eager "
+            f"path")
+        d_pose = max([float(np.abs(a.poses - b.poses).max())
+                      for a, b in zip(outs, bf16_outs[mlabel])
+                      if len(a.poses)] or [0.0])
+        print(f"  pan_irls (int8) against pan_irls_bf16 on the same frames, "
+              f"{mlabel} matcher (information, not a check): max |d pose| "
+              f"{d_pose:.4g} m")
+        int8_ms[mlabel] = (ms, ms_eager)
+        compact = dict(lifter=(ctree, ccfg), lifter_prior=cprior)
+        run_main_path(pipeline(tree, GPU, **compact),
+                      pipeline(tree, "cpu", True, **compact),
+                      frames[:N_SHORT],
+                      f"pan_compact (int8), {mlabel} matcher, frame path")
+    phase("int8 path", t0, "int8 pairs on the card agree with the CPU; "
+          "median frame ms, frame path / eager path (bf16 pair, frame path, "
+          "same call): "
+          + "; ".join(f"{m} matcher {a:.3f} / {b:.3f} ({frame_ms[m][0]:.3f})"
+                      for m, (a, b) in int8_ms.items()))
+
+    t0 = time.perf_counter()
+    layer_launches, layer_ms = None, {}
+    for (blabel, kw, lframes), mlabel in (
+            (b, m) for b in (("S=4", {}, frames[:N_SHORT]),
+                             ("S=10 buckets (2, 4, 10)/(4, 8, 16)",
+                              dict(slots=(2, 4, 10), persons=(4, 8, 16),
+                                   lifter_prior=CROWDED_PRIOR), frames10))
+            for m in matchers):
+        label = f"layer form {blabel}, {mlabel} matcher, eager path"
+        launches, ms, paths, _ = run_main_path(
+            pipeline(matchers[mlabel], GPU, False, use_layer_matcher=True,
+                     **kw),
+            pipeline(matchers[mlabel], "cpu", False, use_layer_matcher=True,
+                     **kw), lframes, label)
+        if (any(form != "layer" for form, _ in paths.values())
+                or launches["gat_fused_proj"] != 5 * len(lframes)
+                or launches["gat_stack"] + launches["gat_k1"]
+                + launches["gat_k2"]):
+            raise AssertionError(f"{label}: paths {paths}, launches "
+                                 f"{launches}")
+        layer_launches = layer_launches or launches
+        layer_ms[label] = ms
+    phase("layer path", t0, "the per-layer GAT form on the card agrees with "
+          "the CPU; median frame ms: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in layer_ms.items()))
 
     t0 = time.perf_counter()
     print(f"  crowded runs: lifter prior {CROWDED_PRIOR!r}; pruning "
@@ -891,7 +1248,7 @@ def main() -> int:
                       == ("S=16", "trained", False) else cframes[:N_CROWDED])
         label = (f"{blabel} buckets {slots}/{persons}, {mlabel} matcher, "
                  f"pruning {'on' if prune else 'off'}")
-        launches, ms, paths = run_main_path(
+        launches, ms, paths, _ = run_main_path(
             gpu, pipeline(matchers[mlabel], "cpu", True, **kw), run_frames,
             label)
         if not all(fp for _, fp in paths.values()):
@@ -901,9 +1258,12 @@ def main() -> int:
         crowded_ms[label] = ms
         if mlabel == "trained":
             stage_table(gpu, run_frames[:N_CROWDED], label)
+    path_launches = {"gat_k1": crowded_launches, "gat_k2": crowded_launches,
+                     "mlp_int8_layer": int8_launches,
+                     "gat_fused_proj": layer_launches}
     for k in report:
-        k["launches"] = (crowded_launches if k["name"].startswith("gat_k")
-                         else main_launches)[k["name"]]
+        k["launches"] = path_launches.get(k["name"],
+                                          main_launches)[k["name"]]
     missing = [k["name"] for k in report if not k["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "

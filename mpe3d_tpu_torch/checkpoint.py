@@ -7,7 +7,11 @@ matcher layer's leaves come as ``attn_l, attn_r, b1, b2, w1, w2`` and a
 lifter layer's as ``b, w`` — plus the meta JSON as a uint8 leaf
 ``__meta_json__``; ``<stem>.json`` is a sidecar copy of the meta.  bf16
 servable exports (meta ``"stored": "bf16"``) store the weight bit patterns as
-uint16, which are viewed back as bfloat16 here, never cast.
+uint16, which are viewed back as bfloat16 here, never cast.  int8 servable
+exports (``"stored": "int8"``) hold the tree of
+``quantize_lifter_weights`` with its defaults: every layer but the last as
+``b, rscale, scale, wq`` (int8 ``wq`` unpadded, fp32 scales), the last as
+``b, w`` (fp32).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from mpe3d_tpu_torch.config import LifterConfig, MatcherConfig, config_from_meta
 
 _MATCHER_KEYS = ("attn_l", "attn_r", "b1", "b2", "w1", "w2")
 _LIFTER_KEYS = ("b", "w")
+_INT8_KEYS = ("b", "rscale", "scale", "wq")
 
 
 def read_checkpoint(stem: str) -> Tuple[List[np.ndarray], Dict[str, Any]]:
@@ -75,16 +80,26 @@ def load_matcher_checkpoint(stem: str, default_cfg: MatcherConfig
 def load_lifter_checkpoint(stem: str, default_cfg: LifterConfig
                            ) -> Tuple[Dict[str, Any], LifterConfig, str]:
     """Lifter tree ``{"layers": [{"b", "w"}, ...]}`` (bf16 weights as
-    bfloat16 tensors, everything else numpy), the architecture stored in the
-    meta, and the packing prior (meta key ``prior``)."""
+    bfloat16 tensors, everything else numpy; int8 exports: ``{"b", "rscale",
+    "scale", "wq"}`` layers and a ``{"b", "w"}`` head), the architecture
+    stored in the meta, and the packing prior (meta key ``prior``)."""
     leaves, meta = read_checkpoint(stem)
     cfg = config_from_meta(LifterConfig, meta.get("lifter_config"),
                            default_cfg)
     stored = meta.get("stored", "fp32")
+    n_layers = len(cfg.widths) + 1
+    if stored == "int8":
+        n_q = len(_INT8_KEYS) * (n_layers - 1)
+        tree = _unflatten(leaves[:n_q], _INT8_KEYS, n_layers - 1, stem)
+        tree["layers"] += _unflatten(leaves[n_q:], _LIFTER_KEYS, 1,
+                                     stem)["layers"]
+        if any(layer["wq"].dtype != np.int8 for layer in tree["layers"][:-1]):
+            raise ValueError(f"{stem}: stored int8 layers without int8 wq")
+        return tree, cfg, meta.get("prior", "mean")
     if stored not in ("fp32", "bf16"):
         raise NotImplementedError(
             f"{stem}: stored={stored!r} lifters are not ported")
-    tree = _unflatten(leaves, _LIFTER_KEYS, len(cfg.widths) + 1, stem)
+    tree = _unflatten(leaves, _LIFTER_KEYS, n_layers, stem)
     if stored == "bf16":
         for layer in tree["layers"]:
             layer["w"] = bf16_from_bits(layer["w"])

@@ -2,8 +2,8 @@
 // LeakyReLU and a tiled GEMM of fp32 operands with a fused bias + LeakyReLU
 // epilogue.  No tensor cores, no TF32, no bf16: rounded operands move pair
 // scores across the 0.5 decision threshold.  The accumulator type is a
-// template parameter: float (fp32 FMA, gat_stack.cu) or double (gat_tiled.cu:
-// every fp32 product is exact in fp64, the sum is rounded to fp32 once).
+// template parameter; both GAT kernels instantiate double (every fp32
+// product is exact in fp64, the sum is rounded to fp32 once).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,9 +19,6 @@ __device__ __forceinline__ float leaky(float v, float a) {
   return v >= 0.f ? v : a * v;
 }
 
-__device__ __forceinline__ float fma_acc(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
 __device__ __forceinline__ double fma_acc(double a, double b, double c) {
   return fma(a, b, c);
 }

@@ -25,11 +25,18 @@
 // 180 rows x 2 x 1.96 M weights = 0.70 GFLOP of fp32 FMA, 10.5 us at the
 // 67 TFLOP/s non-tensor-core peak; the 7.8 MB of fp32 weights are 2.3 us at
 // 3.35 TB/s.  Compute-bound.  This first version is simple and right: a
-// tiled fp32 GEMM with a fused bias + LeakyReLU epilogue for fc1 and fc2,
-// then three small kernels per layer (attention terms, edge destinations,
-// head destinations) -- 24 launches for the 5-layer stack, issued from one
-// host call.  No tensor cores and no TF32: rounded operands move scores
-// across the 0.5 decision threshold.
+// tiled GEMM with a fused bias + LeakyReLU epilogue for fc1 and fc2, then
+// three small kernels per layer (attention terms, edge destinations, head
+// destinations) -- 24 launches for the 5-layer stack, issued from one host
+// call.  No tensor cores and no TF32: rounded operands move scores across
+// the 0.5 decision threshold.
+//
+// Precision, as in gat_tiled.cu: fp32 operands and stored activations; the
+// sums -- the fc products, the attention terms and the head sums -- are
+// accumulated in fp64 (each fp32 product is exact there) and rounded to
+// fp32 once.  With fp32 sums along k this kernel was 1e-4-level from an fp64
+// evaluation on the trained matcher's logits at S=16, ten times the tiled
+// kernels' (chip_smoke.py phase 3 prints both).
 
 #include "fp32_gemm.cuh"
 
@@ -50,13 +57,13 @@ __global__ void attn_terms(const float* __restrict__ z,
   if (t >= N * nh) return;
   const int n = t / nh, k = t % nh;
   const float* zr = z + (size_t)n * nh * d + k * d;
-  float s1 = 0.f, s2 = 0.f;
+  double s1 = 0.0, s2 = 0.0;
   for (int j = 0; j < d; ++j) {
-    s1 = fmaf(zr[j], attn_l[k * d + j], s1);
-    s2 = fmaf(zr[j], attn_r[k * d + j], s2);
+    s1 = fma(double(zr[j]), double(attn_l[k * d + j]), s1);
+    s2 = fma(double(zr[j]), double(attn_r[k * d + j]), s2);
   }
-  att[(size_t)n * 2 * nh + k] = s1;
-  att[(size_t)n * 2 * nh + nh + k] = s2;
+  att[(size_t)n * 2 * nh + k] = float(s1);
+  att[(size_t)n * 2 * nh + nh + k] = float(s2);
 }
 
 // Edge destinations: one thread per (edge, feature).  Writes the next
@@ -108,7 +115,7 @@ __global__ void head_out(const float* __restrict__ z,
         m = fmaxf(m, leaky(att[(size_t)(H + e) * 2 * nh + k] + a2h, alpha));
     }
     const float es = expf(ls - m);
-    float den = es;
+    double den = es;
     for (int i = 0; i < D; ++i) {
       const int e = hinc[i];
       float x = 0.f;
@@ -119,15 +126,16 @@ __global__ void head_out(const float* __restrict__ z,
       den += x;
     }
     wself[k] = es;
-    denom[k] = den;
+    denom[k] = float(den);
   }
   __syncthreads();
   for (int f = threadIdx.x; f < F; f += blockDim.x) {
     const int k = f / d;
-    float num = wself[k] * z[(size_t)h * F + f];
+    double num = double(wself[k]) * z[(size_t)h * F + f];
     for (int i = 0; i < D; ++i)
-      num = fmaf(wedge[i][k], z[(size_t)(H + hinc[i]) * F + f], num);
-    xout[(size_t)h * F + f] = leaky(num / denom[k], slope);
+      num = fma(double(wedge[i][k]), double(z[(size_t)(H + hinc[i]) * F + f]),
+                num);
+    xout[(size_t)h * F + f] = leaky(float(num) / denom[k], slope);
   }
 }
 
@@ -160,8 +168,8 @@ extern "C" int gat_stack_forward(
     const bool last = l == n_layers - 1;
     float* xo = (l % 2 == 0) ? xa : xb;
 
-    launch_gemm<float>(x, w1, b1, h1, N, d_in, d_in, alpha, 1, stream);
-    launch_gemm<float>(h1, w2, b2, z, N, F, d_in, 0.f, 0, stream);
+    launch_gemm<double>(x, w1, b1, h1, N, d_in, d_in, alpha, 1, stream);
+    launch_gemm<double>(h1, w2, b2, z, N, F, d_in, 0.f, 0, stream);
     attn_terms<<<(N * nh + 127) / 128, 128, 0, stream>>>(z, al, ar, att, N,
                                                          nh, d);
     edge_out<<<(E * F + 127) / 128, 128, 0, stream>>>(

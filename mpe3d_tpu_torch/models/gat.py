@@ -14,7 +14,16 @@ pipeline resolves it per bucket, ``PoseEstimationPipeline.serving_path``):
 * ``"stack"``: ``ops/gat_kernel.py::gat_stack``, the whole stack in one
   host call (small buckets; heads of at most 64 incident edges);
 * ``"tiled"``: ``ops/gat_tiled.py::gat_stack_tiled``, two kernels per
-  layer (crowded buckets, any head degree, compacted pruned edge sets).
+  layer (crowded buckets, any head degree, compacted pruned edge sets);
+* ``"layer"``: the per-layer form of the reference's XLA program
+  (``_gat_layer`` :132 in the loop of ``apply_matcher`` :310-330, without
+  dropout and residual): per layer one projection of the concatenated
+  ``[heads; edges]`` rows through ``ops/fused_proj.py::
+  fused_linear_leaky_linear`` (one kernel launch), then the attention
+  terms, endpoint gathers, pair-weighted softmaxes and the inter-layer
+  LeakyReLU in PyTorch: the plain stack's own per-layer math
+  (``ops/gat_kernel.py::gat_stack_plain``) with the kernel as its
+  projection.  It projects every edge row.
 
 Each takes its CUDA kernels for CUDA tensors and its plain version for CPU
 tensors.
@@ -29,24 +38,26 @@ from torch import nn
 
 from mpe3d_tpu_torch.config import MatcherConfig
 from mpe3d_tpu_torch.matching.features import PairTopology, incident_edges
-from mpe3d_tpu_torch.ops.gat_kernel import GatTopology, gat_stack
+from mpe3d_tpu_torch.ops.fused_proj import fused_linear_leaky_linear
+from mpe3d_tpu_torch.ops.gat_kernel import (GatTopology, gat_stack,
+                                            gat_stack_plain)
 from mpe3d_tpu_torch.ops.gat_tiled import gat_stack_tiled
 
-FORMS = ("stack", "tiled")
+FORMS = ("stack", "tiled", "layer")
 _LAYER_ORDER = ("w1", "b1", "w2", "b2", "attn_l", "attn_r")
 
 
 def gat_topology(topo: PairTopology, device,
                  form: str = "stack") -> GatTopology:
     """Index tensors of a pair topology on ``device``: the endpoints, and
-    for the stack form each head's incident edges."""
+    for the stack and layer forms each head's incident edges."""
     as_t = lambda a: torch.as_tensor(a, dtype=torch.int32,  # noqa: E731
                                      device=device).contiguous()
     if form not in FORMS:
         raise ValueError(f"matcher form must be one of {FORMS}, got {form!r}")
     return GatTopology(as_t(topo.e1), as_t(topo.e2), topo.n_heads,
-                       as_t(incident_edges(topo)) if form == "stack"
-                       else None)
+                       None if form == "tiled"
+                       else as_t(incident_edges(topo)))
 
 
 class Matcher(nn.Module):
@@ -79,13 +90,15 @@ class Matcher(nn.Module):
                 topo: GatTopology, form: str = "stack",
                 edge_const: bool = False) -> torch.Tensor:
         """Logits [E] for node features x_all [H+E, in_dim] and pair weights
-        pair_w [E] (0 = absent pair), through the stack or the tiled form.
-        ``edge_const`` (tiled form): every edge row of x_all is the same
-        vector, so layer 0 projects it once."""
+        pair_w [E] (0 = absent pair), through the stack, tiled or layer
+        form.  ``edge_const`` (tiled form): every edge row of x_all is the
+        same vector, so layer 0 projects it once."""
         args = (x_all.contiguous(), pair_w.contiguous(), topo, self.flat,
                 self.dims, self.cfg.alpha, self.cfg.hidden_slope)
         if form == "tiled":
             return gat_stack_tiled(*args, edge_const=edge_const)
+        if form == "layer":
+            return gat_stack_plain(*args, proj=fused_linear_leaky_linear)
         if form != "stack":
             raise ValueError(f"matcher form must be one of {FORMS}, got "
                              f"{form!r}")

@@ -54,6 +54,10 @@ _SIGNATURES = {
     "gat_k2_layer": [_P] * 8 + [_I] * 5 + [_F, _F, _P, _P],
     # x, w, b, y, M, K, N, slope, act, stream
     "mlp_bf16_layer": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # x, wq, scale, rscale, b, y, M, K, N, alpha, act, stream
+    "mlp_int8_layer": [_P] * 6 + [_I] * 3 + [_F, _I, _P],
+    # x, w1, b1, w2, b2, out, N, D, F, alpha, stream
+    "gat_fused_proj": [_P] * 6 + [_I] * 3 + [_F, _P],
     # scores, pmask, pairs, used_pos, kp, valid, prob, observed, cams,
     # cam_world, E, C, S, J, Cu, P, threshold, min_views, k_cap, prior,
     # gate_on, gate_px, img_w, img_h, persons, person_mask, net, gkp, gval,

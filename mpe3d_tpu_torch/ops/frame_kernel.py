@@ -231,9 +231,12 @@ def frame_kernel_supported(pipe) -> bool:
     """Configurations the frame path serves (``frame_kernel.py:845-855`` for
     the ones the port has: it serves only the MLP backend, without geometric
     rerank): alt-3 graph, no GAT residual, a mean / median / IRLS prior,
-    person buckets of at most 16 rows, and camera counts within the
-    kernel's limits.  Each bucket must also fit (``frame_kernel_fits``)."""
+    person buckets of at most 16 rows, camera counts within the kernel's
+    limits, and a bf16 or int8 lifter (an fp32 lifter, the reference's
+    ``serve_dtype=None`` off the TPU, takes the eager path).  Each bucket
+    must also fit (``frame_kernel_fits``)."""
     return (pipe.rig_config.graph_alternative == "3"
+            and pipe.lifter.serve_dtype != "fp32"
             and not pipe.matcher.cfg.residual
             and pipe.lifter_prior in PRIORS
             and pipe.person_buckets[-1] <= MAX_ROWS

@@ -10,8 +10,9 @@ Bound on an H100 SXM at the serving bucket (H=20 heads, E=160 pairs,
 (180 rows x 2 x 1.96 M weights) is 10.5 us at the 67 TFLOP/s
 non-tensor-core peak, against 2.3 us for the 7.8 MB of weights at
 3.35 TB/s: compute-bound.  The CUDA version (``csrc/gat_stack.cu``) is the
-simple, right first form: a tiled fp32 GEMM with a fused bias + LeakyReLU
-epilogue for fc1/fc2 and three small attention kernels per layer, 24
+simple, right first form: a tiled GEMM of fp32 operands with fp64 sums and
+a fused bias + LeakyReLU epilogue for fc1/fc2 and three small attention
+kernels per layer (attention terms and head sums also in fp64), 24
 launches from one host call; no tensor cores and no TF32, because rounded
 operands move scores across the decision threshold.
 
@@ -33,6 +34,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from mpe3d_tpu_torch.ops import _build
+from mpe3d_tpu_torch.ops.fused_proj import proj_plain
 
 Dims = List[Tuple[int, int, int]]
 
@@ -84,8 +86,11 @@ def _leaky(v: torch.Tensor, a: float) -> torch.Tensor:
 
 def gat_stack_plain(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
                     flat: torch.Tensor, dims: Dims, alpha: float,
-                    slope: float) -> torch.Tensor:
-    """Plain PyTorch version: x [H+E, in_dim], pw [E] -> logits [E]."""
+                    slope: float, proj=proj_plain) -> torch.Tensor:
+    """Plain PyTorch version: x [H+E, in_dim], pw [E] -> logits [E].  Each
+    layer projects all rows with ``proj(x, w1, b1, w2, b2, alpha)``: the
+    plain fc1 -> LeakyReLU -> fc2, or the fused projection kernel
+    (``ops/fused_proj.py``) in the per-layer form (``models/gat.py``)."""
     H, E = topo.n_heads, topo.n_pairs
     e1, e2 = topo.e1.long(), topo.e2.long()
     inc = topo.inc.long()
@@ -95,7 +100,7 @@ def gat_stack_plain(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
     layers = layer_views(flat, dims)
     for l, ((d_in, d, nh), (w1, b1, w2, b2, al, ar)) in enumerate(
             zip(dims, layers)):
-        z = _leaky(x @ w1 + b1, alpha) @ w2 + b2              # [N, F]
+        z = proj(x, w1, b1, w2, b2, alpha)                    # [N, F]
         zr = z.view(-1, nh, d)
         a1 = (zr * al).sum(-1)                                # [N, nh]
         a2 = (zr * ar).sum(-1)

@@ -26,7 +26,17 @@ package probes its kernels per bucket (``pipeline.py:59-164``):
 * else the eager path (``_run``, the branch without the whole-frame
   kernel): the same GAT form and lifter kernel around a decode loop and
   packing in PyTorch, all pairs (no pruning), as the reference falls back
-  to its two-stage program.
+  to its two-stage program.  With ``use_layer_matcher`` (the reference's
+  ``use_pallas_matcher=False``, :354-373) the eager path's GAT takes the
+  per-layer form ``"layer"`` instead: one fused projection kernel a layer
+  (``ops/fused_proj.py``) and the attention in PyTorch, as the reference's
+  XLA program runs ``_gat_layer``; the frame path keeps its own GAT.
+
+The lifter serves in the dtype its weights were loaded for
+(``weights.lifter_from_tree``, ``from_checkpoint(serve_dtype=...)``, as
+``mpe3d_tpu/pipeline.py:412-456`` resolves it): bf16 by default, int8 for
+int8-stored exports or on request, fp32 on request (then the eager path,
+as the reference's frame kernel serves only bf16 and int8 lifters).
 
 On a CUDA device the kernels run; on the CPU their plain versions.
 
@@ -106,21 +116,25 @@ def prune_cap(n_pairs: int, cap: int) -> int:
 
 
 def resolve_serving_path(n_cameras: int, slots: int, *, prune: bool,
-                         cap: int = 0, frame_ok: bool = True
-                         ) -> Tuple[str, bool]:
+                         cap: int = 0, frame_ok: bool = True,
+                         layer: bool = False) -> Tuple[str, bool]:
     """(matcher form, frame path on) of a slot bucket of ``n_cameras``
-    matching cameras and ``slots`` slots.  The form is "tiled" when the
-    bucket has E >= TILED_MIN_PAIRS pairs, a head degree D = (C-1)*S above
-    the stack kernel's MAX_D, or pruning on, else "stack".  The frame path
-    is on when the configuration allows it (``frame_ok``) and the bucket
-    fits ``frame_decode_pack`` with the pairs its decode gets (the
-    compacted ``cap`` under pruning)."""
+    matching cameras and ``slots`` slots.  The frame path is on when the
+    configuration allows it (``frame_ok``) and the bucket fits
+    ``frame_decode_pack`` with the pairs its decode gets (the compacted
+    ``cap`` under pruning).  The form is "layer" on the eager path when
+    ``layer`` is asked for; else "tiled" when the bucket has
+    E >= TILED_MIN_PAIRS pairs, a head degree D = (C-1)*S above the stack
+    kernel's MAX_D, or pruning on; else "stack"."""
     E = n_cameras * (n_cameras - 1) // 2 * slots * slots
     D = (n_cameras - 1) * slots
+    E_dec = prune_cap(E, cap) if prune else E
+    frame = frame_ok and frame_kernel_fits(E_dec, n_cameras, slots)
+    if layer and not frame:
+        return "layer", frame
     form = ("tiled" if E >= TILED_MIN_PAIRS or D > MAX_D or prune
             else "stack")
-    E_dec = prune_cap(E, cap) if prune else E
-    return form, frame_ok and frame_kernel_fits(E_dec, n_cameras, slots)
+    return form, frame
 
 
 class _Bucket(NamedTuple):
@@ -130,7 +144,7 @@ class _Bucket(NamedTuple):
     gtopo: GatTopology       # index tensors for the matcher form
     efeats: torch.Tensor     # [E, in_dim] edge-node features
     pairs: torch.Tensor      # [E, 4] int32 decode pairs
-    form: str                # "stack" or "tiled"
+    form: str                # "stack", "tiled" or "layer"
     dtopo: PairTopology      # the topology's arrays as device tensors
 
 
@@ -158,7 +172,13 @@ class PoseEstimationPipeline:
     (``mpe3d_tpu/pipeline.py:321-336``): pairs whose mean ray distance
     exceeds the distance score exactly 0, and the GAT and the decode run on
     the ``prune_cap`` best-ranked pairs.  Opt-in: pruned edges leave the
-    head softmax, so surviving scores move."""
+    head softmax, so surviving scores move.
+
+    ``use_layer_matcher``: the eager path's GAT runs in the per-layer form
+    (module header); ``serving_path(S)`` reports it.
+
+    The lifter's dtype is the one it was built for (``Lifter.serve_dtype``,
+    also ``self.serve_dtype``); ``from_checkpoint`` takes ``serve_dtype``."""
 
     def __init__(self, rig_config: RigConfig, rig: CameraRig,
                  matcher: Matcher, lifter: Lifter,
@@ -169,7 +189,7 @@ class PoseEstimationPipeline:
                  prior_gate_px: Optional[float] = None,
                  use_frame_kernel: Optional[bool] = None,
                  pair_prune_dist: float = 0.0, pair_prune_cap: int = 0,
-                 device="cuda"):
+                 use_layer_matcher: bool = False, device="cuda"):
         if rig_config.graph_alternative != "3":
             raise NotImplementedError("only the alt-3 matcher graph is ported")
         if pair_prune_dist < 0:
@@ -188,6 +208,8 @@ class PoseEstimationPipeline:
         self.lifter_prior = lifter_prior
         self.prior_gate_px = prior_gate_px
         self.use_frame_kernel = use_frame_kernel
+        self.use_layer_matcher = bool(use_layer_matcher)
+        self.serve_dtype = self.lifter.serve_dtype
         self.match_idx = rig_config.matching_camera_indices()
         self.used_idx = rig_config.used_camera_indices()
         self.match_rig = rig.select(self.match_idx).to(self.device)
@@ -210,10 +232,13 @@ class PoseEstimationPipeline:
     @classmethod
     def from_checkpoint(cls, models_dir: str, rig: CameraRig,
                         rig_config: RigConfig = PANOPTIC, device="cuda",
+                        serve_dtype: Optional[str] = None,
                         **kwargs) -> "PoseEstimationPipeline":
         """Matcher ``skeleton_matching`` and lifter ``pose_estimator`` from
         a models directory; architecture, ``residual_prior`` and the packing
-        ``prior`` come from the checkpoint meta."""
+        ``prior`` come from the checkpoint meta.  The lifter serves in
+        ``serve_dtype`` (``weights.lifter_from_tree``: int8 exports always
+        in int8)."""
         mtree, mcfg = load_matcher_checkpoint(
             os.path.join(models_dir, "skeleton_matching"),
             MatcherConfig(in_dim=rig_config.matcher_feature_dim))
@@ -222,7 +247,8 @@ class PoseEstimationPipeline:
             LifterConfig(in_dim=rig_config.lifter_input_dim,
                          out_dim=rig_config.n_joints * 3))
         return cls(rig_config, rig, matcher_from_tree(mtree, mcfg, device),
-                   lifter_from_tree(ltree, lcfg, device), lifter_prior=prior,
+                   lifter_from_tree(ltree, lcfg, device, serve_dtype),
+                   lifter_prior=prior,
                    device=device, **kwargs)
 
     def _bucket(self, n: int) -> int:
@@ -250,8 +276,10 @@ class PoseEstimationPipeline:
         """The device state of a bucket (``_Bucket``)."""
         if slots not in self._topos:
             topo = build_topology(len(self.match_idx), slots)
-            form = resolve_serving_path(topo.n_cameras, slots,
-                                        prune=self.pair_prune_dist > 0)[0]
+            form = resolve_serving_path(
+                topo.n_cameras, slots, prune=self.pair_prune_dist > 0,
+                cap=self.pair_prune_cap, frame_ok=self.frame_path_on(),
+                layer=self.use_layer_matcher)[0]
             as_t = lambda a: torch.as_tensor(  # noqa: E731
                 a, dtype=torch.int32, device=self.device)
             self._topos[slots] = _Bucket(
@@ -272,7 +300,8 @@ class PoseEstimationPipeline:
         and the frame path does not serve the bucket."""
         form, frame = resolve_serving_path(
             len(self.match_idx), slots, prune=self.pair_prune_dist > 0,
-            cap=self.pair_prune_cap, frame_ok=self.frame_path_on())
+            cap=self.pair_prune_cap, frame_ok=self.frame_path_on(),
+            layer=self.use_layer_matcher)
         if self.use_frame_kernel is True and not frame:
             raise ValueError(f"use_frame_kernel=True, but the frame path "
                              f"does not serve the S={slots} bucket (it "

@@ -6,9 +6,15 @@ same numbers:
 
 * matcher ``{"layers": [{attn_l, attn_r, b1, b2, w1, w2}, ...]}`` -> ``Matcher``
   (fp32);
-* lifter ``{"layers": [{"w", "b"}, ...]}`` -> ``Lifter``, weights as bf16:
-  bf16 arrays (ml_dtypes ``bfloat16`` or uint16 bit patterns) are taken bit
-  for bit, fp32 ones rounded to nearest even as ``astype(bfloat16)`` does.
+* lifter ``{"layers": [...]}`` -> ``Lifter``, served in the dtype
+  ``serve_dtype`` resolves to (``mpe3d_tpu/pipeline.py:412-456``): a tree
+  with int8 layers (``{"wq", "scale", "rscale", "b"}``) always serves int8;
+  ``"int8"`` quantises a plain tree (``quantize_lifter_weights``); ``"fp32"``
+  keeps fp32 weights; ``None`` serves bf16 weights, the reference's TPU
+  default.  Under int8 the kept-fp head is served in bf16, as the
+  reference's int8 serving sets ``compute_dtype=bfloat16``.  bf16 arrays
+  (ml_dtypes ``bfloat16`` or uint16 bit patterns) are taken bit for bit,
+  fp32 ones rounded to nearest even as ``astype(bfloat16)`` does.
 
 Also numpy-seeded random trees in the JAX layout (the same distribution
 families as ``init_matcher``/``init_lifter``), for runs without trained
@@ -17,7 +23,7 @@ weights.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -25,7 +31,9 @@ import torch
 from mpe3d_tpu_torch.checkpoint import bf16_from_bits
 from mpe3d_tpu_torch.config import LifterConfig, MatcherConfig
 from mpe3d_tpu_torch.models.gat import Matcher
-from mpe3d_tpu_torch.models.mlp import Lifter
+from mpe3d_tpu_torch.models.mlp import (Lifter, cast_lifter_weights,
+                                        lifter_is_quantized,
+                                        quantize_lifter_weights)
 
 Tree = Dict[str, Any]
 
@@ -36,13 +44,21 @@ def _f32(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def _bf16(a) -> torch.Tensor:
+def _weight(a) -> torch.Tensor:
+    """A weight matrix as a CPU tensor: bf16 kept bit for bit, int8 kept,
+    anything else fp32."""
     if torch.is_tensor(a):
-        return a.detach().cpu().to(torch.bfloat16)
+        a = a.detach().cpu()
+        return a if a.dtype in (torch.bfloat16, torch.int8) else a.float()
     a = np.asarray(a)
     if a.dtype == np.uint16 or a.dtype.name == "bfloat16":
         return bf16_from_bits(a.view(np.uint16))
-    return torch.from_numpy(np.array(a, dtype=np.float32)).to(torch.bfloat16)
+    if a.dtype == np.int8:
+        return torch.from_numpy(np.array(a))
+    return _f32(a)
+
+
+SERVE_DTYPES = (None, "fp32", "int8")   # None: bf16 weights
 
 
 def matcher_from_tree(tree: Tree, cfg: MatcherConfig, device) -> Matcher:
@@ -51,9 +67,27 @@ def matcher_from_tree(tree: Tree, cfg: MatcherConfig, device) -> Matcher:
     return Matcher(cfg, layers).to(device)
 
 
-def lifter_from_tree(tree: Tree, cfg: LifterConfig, device) -> Lifter:
-    layers = [(_bf16(layer["w"]), _f32(layer["b"]))
-              for layer in tree["layers"]]
+def lifter_from_tree(tree: Tree, cfg: LifterConfig, device,
+                     serve_dtype: Optional[str] = None) -> Lifter:
+    """The lifter of a JAX-layout tree, served in ``serve_dtype`` (None for
+    bf16, "fp32", "int8"; module header).  ``Lifter.serve_dtype`` holds the
+    resolved dtype ("bf16", "fp32" or "int8")."""
+    if serve_dtype not in SERVE_DTYPES:
+        raise ValueError(f"serve_dtype must be one of {SERVE_DTYPES}, got "
+                         f"{serve_dtype!r}")
+    tree = {"layers": [{k: (_weight(v) if k in ("w", "wq") else _f32(v))
+                        for k, v in layer.items()}
+                       for layer in tree["layers"]]}
+    if lifter_is_quantized(tree) or serve_dtype == "int8":
+        tree = quantize_lifter_weights(tree)
+        layers = [layer if "wq" in layer
+                  else cast_lifter_weights({"layers": [layer]},
+                                           torch.bfloat16)["layers"][0]
+                  for layer in tree["layers"]]
+    else:
+        layers = cast_lifter_weights(
+            tree, torch.float32 if serve_dtype == "fp32"
+            else torch.bfloat16)["layers"]
     return Lifter(cfg, layers).to(device)
 
 

@@ -32,7 +32,9 @@ names = [m.name for m in pkgutil.walk_packages(mpe3d_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 for n in ("mpe3d_tpu_torch.ops.gat_tiled", "mpe3d_tpu_torch.ops.gat_kernel",
-          "mpe3d_tpu_torch.ops.frame_kernel", "mpe3d_tpu_torch.pipeline"):
+          "mpe3d_tpu_torch.ops.frame_kernel", "mpe3d_tpu_torch.pipeline",
+          "mpe3d_tpu_torch.ops.quant_matmul",
+          "mpe3d_tpu_torch.ops.fused_proj"):
     assert n in names, n
 spec = importlib.util.spec_from_file_location("chip_smoke",
                                               sys.argv[1] + "/chip_smoke.py")
