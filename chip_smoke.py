@@ -8,7 +8,9 @@ failure raises, and the script exits non-zero):
 
 1. env: torch/CUDA versions, the card's name and power limit.
 2. build: the one ``nvcc`` call that builds the CUDA kernels of
-   ``mpe3d_tpu_torch/csrc`` (0 s when the build cache matches).
+   ``mpe3d_tpu_torch/csrc`` (0 s when the build cache matches), and
+   ptxas's registers, shared memory and spills of the fused projection's
+   GEMM and the bf16 lifter's run kernel.
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the inputs the serving path gives it (Panoptic rig, S=4 slots, P=8
    persons), with median times over 50 launches (CUDA events) beside the
@@ -21,9 +23,14 @@ failure raises, and the script exits non-zero):
    S=16 against the stack kernel too.  The int8 layer kernel is checked on
    each int8 layer of ``models_demo/pan_irls`` and ``pan_compact`` on the
    serving path's lifter inputs (M=8) and at M=40 (row tiles), the whole
-   mixed net (8 int8 layers, a bf16 head) against its plain version; the
-   fused projection kernel on the trained matcher's five layer inputs at
-   S=4 and S=16, with its distance from an fp64 evaluation; the stack GAT
+   mixed net (8 int8 layers, a bf16 head) against its plain version.  The
+   bf16 lifter's run kernel is checked on each layer alone (a run of one
+   layer) and on the whole 9-layer net (one launch) at M=8 and M=16, two
+   launches bit-equal; the fused projection kernel on the trained matcher's
+   five layer inputs at S=4 and S=16, two calls bit-equal, with its
+   distance from an fp64 evaluation.  These two are timed in turns with
+   their PyTorch yardsticks (kernel, yardstick, yardstick, kernel).  The
+   stack GAT
    kernel on the trained matcher at S=4 and S=16, with its distance from
    fp64 beside the tiled kernels'.
 4. main path: ``PoseEstimationPipeline.infer_fused`` on 16 synthetic frames
@@ -41,7 +48,7 @@ failure raises, and the script exits non-zero):
    times and device busy share.  Then the int8 pair ``models_demo/pan_irls``
    (``from_checkpoint``): 16 frames on the frame path and 6 on the eager
    path, trained and random matcher, against the same pipeline on the CPU,
-   8 int8 and 1 bf16 lifter launches a frame, beside the bf16 pair's frame
+   8 int8 and 1 bf16-run lifter launches a frame, beside the bf16 pair's frame
    time; ``pan_compact`` on 6 frames of the frame path; and the per-layer
    GAT form (``use_layer_matcher``) on the eager path at S=4 and at the
    default buckets on the S=10 frames ("mean" prior), 5 projection launches
@@ -108,6 +115,10 @@ GAT_RTOL = 1e-4
 MLP_LAYER_TOL = 1e-5
 MLP_NET_TOL = 5e-3
 PROJ_RTOL = 1e-5
+# the fused projection against an fp64 evaluation of the same function: its
+# sums are fp64, so only the two fp32 roundings (h and out) remain, about
+# 6e-8 of the output's scale; bounded at 1e-7 x (1 + max |out|)
+PROJ_FP64_TOL = 1e-7
 # decode + gather + pack kernel against its plain version on the same
 # inputs: persons, masks and gathered observations exactly equal; fields 0-9
 # within 1e-5 (the same fp32 formulas, FMA contraction on the card); prior
@@ -152,12 +163,52 @@ def median_ms(fn, n: int = N_TIMED) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, n: int = 20) -> float:
+    """Device time of one call of ``fn``: the kernels and copies it runs, as
+    torch.profiler records them, over ``n`` calls (no host time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(max(ev.device_time_total, ev.self_device_time_total)
+               for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA) / 1e3 / n
+
+
+def in_turns(kernel, yardstick, n: int = N_TIMED):
+    """(kernel ms, yardstick ms), each the median of its two runs of ``n``
+    timed calls, taken in turns in one call: kernel, yardstick, yardstick,
+    kernel (times drift between calls)."""
+    k1 = median_ms(kernel, n)
+    y1, y2 = median_ms(yardstick, n), median_ms(yardstick, n)
+    k2 = median_ms(kernel, n)
+    return statistics.median([k1, k2]), statistics.median([y1, y2])
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()
     return out[0]
+
+
+def ptxas_report(output: str, kernel: str):
+    """ptxas's lines (registers, shared memory, spills) for each compiled
+    instance of the kernel whose mangled name contains ``kernel``."""
+    lines, keep = [], False
+    for ln in output.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            keep = kernel in ln
+            continue
+        if keep and ("Used" in ln or "spill" in ln):
+            lines.append(ln.split(":", 1)[-1].strip())
+    return lines or ["not found in the compiler output"]
 
 
 def load_lifter(models_dir, rig_config):
@@ -199,6 +250,7 @@ def gat_costs(x, n_weights, dims, E, D):
 
 def check_kernels(pipe, frame, report):
     """Phase 3: each kernel against its plain version on the card."""
+    import numpy as np
     import torch
     from mpe3d_tpu_torch.ops import fused_mlp, gat_kernel
 
@@ -230,67 +282,88 @@ def check_kernels(pipe, frame, report):
     print(f"  gat_stack: H+E={x_all.shape[0]} rows, max |d logit| "
           f"{float(err.max()):.3g} (tol {GAT_RTOL:g} x (1+|logit|))")
 
-    layers = pipe.lifter.packed_layers()
-    slope, out_dim = pipe.lifter.cfg.negative_slope, pipe.lifter.cfg.out_dim
-    h = nets.float().contiguous()
-    for i, (w, b) in enumerate(layers):
-        act = i < len(layers) - 1
-        y = fused_mlp.mlp_layer(h, w, b, slope, act)
-        y_ref = fused_mlp.mlp_layer_plain(h, w, b, slope, act)
+    lifter = pipe.lifter
+    layers = lifter.packed_layers()
+    slope, out_dim = lifter.cfg.negative_slope, lifter.cfg.out_dim
+    if fused_mlp.launch_plan(layers) != [("bf16", 0, len(layers))]:
+        raise AssertionError("the bf16 lifter is not one run")
+    acts = [i < len(layers) - 1 for i in range(len(layers))]
+    h, one_ms = nets.float().contiguous(), []
+    for i, layer in enumerate(layers):
+        # the run kernel on this layer alone (a run of one layer)
+        one = lambda h=h, i=i: fused_mlp.bf16_run(  # noqa: E731
+            h, [layers[i]], slope, [acts[i]])
+        y = one()
+        y_ref = fused_mlp.mlp_layer_plain(h, *layer, slope, acts[i])
         torch.cuda.synchronize()
         lerr = float((y - y_ref).abs().max())
         ltol = MLP_LAYER_TOL * max(1.0, float(y_ref.abs().max()))
-        if not lerr <= ltol:
+        if not (bool(torch.isfinite(y).all()) and lerr <= ltol):
             raise AssertionError(f"MLP layer {i}: max err {lerr:.3g} > "
                                  f"{ltol:.3g}")
+        one_ms.append((median_ms(one, 20), device_ms(one)))
         h = y_ref
-    got = fused_mlp.fused_mlp_forward(nets, layers, slope, out_dim)
-
-    def plain_net():
-        hp = nets.float()
-        for i, (w, b) in enumerate(layers):
-            hp = fused_mlp.mlp_layer_plain(hp, w, b, slope,
-                                           i < len(layers) - 1)
-        return hp[:, :out_dim]
-
-    ref = plain_net()
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    if not (bool(torch.isfinite(got).all()) and err <= MLP_NET_TOL):
-        raise AssertionError(f"MLP kernel disagrees with its plain version: "
-                             f"max err {err:.3g} > {MLP_NET_TOL}")
+    rng = np.random.default_rng(16)
+    x16 = (nets.float().repeat(2, 1) * torch.tensor(
+        rng.uniform(0.5, 1.5, (2 * nets.shape[0], 1)), dtype=torch.float32,
+        device=nets.device)).contiguous()
     wb = [w.to(torch.bfloat16) for w, _ in layers]
+    rows = {}
+    for x in (nets.float().contiguous(), x16):
+        M = x.shape[0]
+        run = lambda x=x: fused_mlp.fused_mlp_forward(  # noqa: E731
+            x, layers, slope, out_dim)
+        got, again = run(), run()
+        ref = fused_mlp.fused_mlp_plain(x, layers, slope, out_dim)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if not (bool(torch.isfinite(got).all()) and err <= MLP_NET_TOL):
+            raise AssertionError(f"MLP run kernel, M={M}: max err {err:.3g} "
+                                 f"> {MLP_NET_TOL}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"MLP run kernel, M={M}: two launches on "
+                                 f"the same input differ")
 
-    def library():
-        hb = nets.to(torch.bfloat16)
-        for w in wb:
-            hb = torch.matmul(hb, w)
-        return hb
+        def library(x=x):
+            hb = x.to(torch.bfloat16)
+            for w in wb:
+                hb = torch.matmul(hb, w)
+            return hb
 
-    M = nets.shape[0]
-    bytes_ = (4 * nets.numel() + 4 * M * out_dim
-              + sum(w.numel() * 2 + b.numel() * 4 for w, b in layers))
-    flops = sum(2 * M * w.shape[0] * w.shape[1] for w, _ in layers)
-    report.append({
-        "name": "mlp_bf16_layer", "route": "cuda",
-        "source": "mpe3d_tpu_torch/csrc/fused_mlp.cu",
-        "replaces": "mpe3d_tpu/ops/fused_mlp.py:57",
-        "launches": 0, "max_abs_err": err,
-        "ms": median_ms(lambda: fused_mlp.fused_mlp_forward(
-            nets, layers, slope, out_dim)),
-        "plain_ms": median_ms(plain_net),
-        "bound_ms": 1e3 * max(bytes_ / HBM_BYTES_PER_S,
-                              flops / BF16_TENSOR_FLOPS),
-        "bound_by": ("bytes" if bytes_ / HBM_BYTES_PER_S
-                     > flops / BF16_TENSOR_FLOPS else "operations"),
-        "library_ms": median_ms(library)})
-    print(f"  mlp: {M} rows x 9 layers, per-layer max err within "
-          f"{MLP_LAYER_TOL:g} x max|out|; whole net max err {err:.3g} "
-          f"(tol {MLP_NET_TOL:g} decameters)")
-    for k in report[-2:]:
-        print(f"  {k['name']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} "
-              f"ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "
-              f"library {k['library_ms']}")
+        ms, lib_ms = in_turns(run, library)
+        # x read once, y written once, every weight and bias read once
+        bytes_ = (4 * x.numel() + 4 * M * layers[-1].w.shape[1]
+                  + sum(w.numel() * 2 + b.numel() * 4 for w, b in layers))
+        flops = sum(2 * M * w.shape[0] * w.shape[1] for w, _ in layers)
+        t_b, t_f = bytes_ / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS
+        rows[M] = {
+            "name": "mlp_bf16_run", "route": "cuda",
+            "source": "mpe3d_tpu_torch/csrc/fused_mlp.cu",
+            "replaces": "mpe3d_tpu/ops/fused_mlp.py:57",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": median_ms(lambda x=x: fused_mlp.fused_mlp_plain(
+                x, layers, slope, out_dim)),
+            "bound_ms": 1e3 * max(t_b, t_f),
+            "bound_by": "bytes" if t_b > t_f else "operations",
+            "library_ms": lib_ms}
+        k = rows[M]
+        print(f"  mlp_bf16_run: whole net ({len(layers)} layers, one launch) "
+              f"on {M} rows: max err {err:.3g} (tol {MLP_NET_TOL:g} "
+              f"decameters), two launches bit-equal; {k['ms']:.4f} ms, "
+              f"library ({len(layers)} chained bf16 torch.matmul) "
+              f"{lib_ms:.4f} ms (in turns), plain {k['plain_ms']:.4f} ms, "
+              f"bound {k['bound_ms']:.5f} ms ({k['bound_by']}: {bytes_} "
+              f"bytes); device time alone (profiler): kernel "
+              f"{device_ms(run):.4f} ms, library {device_ms(library):.4f} ms")
+    report.append(rows[nets.shape[0]])
+    print(f"  mlp_bf16_run: each of the {len(layers)} layers alone within "
+          f"{MLP_LAYER_TOL:g} x max|out| of its plain version; each "
+          f"one-layer run (M={nets.shape[0]}), ms / device ms: "
+          + ", ".join(f"{t:.4f} / {d:.4f}" for t, d in one_ms))
+    k = report[0]
+    print(f"  {k['name']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
+          f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library "
+          f"{k['library_ms']}")
 
 
 def mlp_costs(layers, M):
@@ -395,8 +468,8 @@ def check_int8_kernels(pipe, frame, int8_lifter, compact_lifter, report,
           f"ms, plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms "
           f"({k['bound_by']}: {bytes_} bytes), library None (no single "
           f"PyTorch call); whole int8 net (8 int8 + 1 bf16 launches) "
-          f"{net_ms:.4f} ms against the bf16 net of pan_irls_bf16 (9 bf16 "
-          f"launches, the same recipe) {bf16_ms:.4f} ms; max err of the "
+          f"{net_ms:.4f} ms against the bf16 net of pan_irls_bf16 (one run "
+          f"launch, the same recipe) {bf16_ms:.4f} ms; max err of the "
           f"int8 net {err:.3g} (tol {MLP_NET_TOL:g} decameters); "
           f"pan_compact 8 int8 layers {c_ms:.4f} ms, bound "
           f"{1e3 * c_bytes / HBM_BYTES_PER_S:.5f} ms ({c_bytes} bytes)")
@@ -431,6 +504,7 @@ def check_proj_kernel(cases, report):
         errs, d_kernel, d_plain = [], 0.0, 0.0
         for i, a in enumerate(calls):
             got = fused_proj.fused_linear_leaky_linear(*a)
+            again = fused_proj.fused_linear_leaky_linear(*a)
             ref = fused_proj.proj_plain(*a)
             exact = fused_proj.proj_plain(*(t.double() for t in a[:5]), a[5])
             torch.cuda.synchronize()
@@ -441,11 +515,18 @@ def check_proj_kernel(cases, report):
                 raise AssertionError(
                     f"gat_fused_proj {label} layer {i} ({tuple(a[0].shape)} "
                     f"-> {tuple(a[3].shape)}): max err {err:.3g}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"gat_fused_proj {label} layer {i}: two "
+                                     f"calls on the same input differ")
             errs.append(err)
             d_kernel = max(d_kernel,
                            float((got.double() - exact).abs().max()) / scale)
             d_plain = max(d_plain,
                           float((ref.double() - exact).abs().max()) / scale)
+        if not d_kernel <= PROJ_FP64_TOL:
+            raise AssertionError(f"gat_fused_proj {label}: {d_kernel:.3g} x "
+                                 f"(1 + max|out|) from fp64, past "
+                                 f"{PROJ_FP64_TOL:g}")
         bytes_ = sum(4 * (a[0].numel() + a[1].numel() + a[2].numel()
                           + a[3].numel() + a[4].numel()
                           + a[0].shape[0] * a[3].shape[1]) for a in calls)
@@ -458,27 +539,38 @@ def check_proj_kernel(cases, report):
                                                   alpha), w2)
                     for x_, w1, b1, w2, b2, alpha in calls]
 
+        ms, lib_ms = in_turns(lambda c=calls: [
+            fused_proj.fused_linear_leaky_linear(*a) for a in c], library)
         row = {
             "name": "gat_fused_proj", "route": "cuda",
             "source": "mpe3d_tpu_torch/csrc/fused_proj.cu",
             "replaces": "mpe3d_tpu/ops/fused_proj.py:48",
-            "launches": 0, "max_abs_err": max(errs),
-            "ms": median_ms(lambda c=calls: [
-                fused_proj.fused_linear_leaky_linear(*a) for a in c]),
+            "launches": 0, "max_abs_err": max(errs), "ms": ms,
             "plain_ms": median_ms(lambda c=calls: [
                 fused_proj.proj_plain(*a) for a in c]),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": median_ms(library)}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
         if not any(r["name"] == "gat_fused_proj" for r in report):
             report.append(row)
-        print(f"  gat_fused_proj {label}: {x.shape[0]} rows, 5 layers, max "
-              f"err per layer {', '.join(f'{e:.3g}' for e in errs)} (tol "
-              f"{PROJ_RTOL:g} x (1 + max|out|)); to fp64: kernel "
-              f"{d_kernel:.3g}, plain {d_plain:.3g} (x (1 + max|out|)); "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        plans = [fused_proj.proj_plan(a[0].shape[0], a[1].shape[0],
+                                      a[3].shape[1]) for a in calls]
+        per_call = [device_ms(lambda a=a: fused_proj.fused_linear_leaky_linear(
+            *a)) for a in calls]
+        dev_ms = device_ms(lambda c=calls: [
+            fused_proj.fused_linear_leaky_linear(*a) for a in c])
+        print(f"  gat_fused_proj {label}: {x.shape[0]} rows, 5 layers (a "
+              f"call: 2 GEMM launches; blocks fc1/fc2 "
+              f"{', '.join(f'{p.fc1.blocks}/{p.fc2.blocks}' for p in plans)}"
+              f"), max err per layer {', '.join(f'{e:.3g}' for e in errs)} "
+              f"(tol {PROJ_RTOL:g} x (1 + max|out|)), two calls bit-equal; "
+              f"to fp64: kernel {d_kernel:.3g} (tol {PROJ_FP64_TOL:g}), "
+              f"plain {d_plain:.3g} (x (1 + max|out|)); {row['ms']:.4f} ms, "
               f"library (torch.addmm -> leaky_relu -> torch.addmm a layer, "
-              f"TF32 off) {row['library_ms']:.4f} ms, bound {b_ms:.5f} ms "
-              f"({b_by}: {flops} operations)")
+              f"TF32 off) {row['library_ms']:.4f} ms (in turns), plain "
+              f"{row['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
+              f"{flops} operations); device time alone (profiler): "
+              f"kernel {dev_ms:.4f} ms (calls "
+              + ", ".join(f"{t:.4f}" for t in per_call)
+              + f"), library {device_ms(library):.4f} ms")
 
 
 def check_stack_trained(label, x, pw, gtopo, m, tiled_topo=None):
@@ -852,7 +944,7 @@ def launch_counters():
             "gat_k1": gat_tiled.gat_k1_layer,
             "gat_k2": gat_tiled.gat_k2_layer,
             "frame_decode_pack": frame_kernel.frame_decode_pack,
-            "mlp_bf16_layer": fused_mlp.mlp_layer,
+            "mlp_bf16_run": fused_mlp.mlp_bf16_run,
             "mlp_int8_layer": quant_matmul.mlp_int8_layer,
             "gat_fused_proj": fused_proj.fused_linear_leaky_linear}
 
@@ -873,9 +965,10 @@ def frame_slots(pipe, frame) -> int:
 
 def expected_launches(pipe, frames):
     """Kernel launches the resolved serving paths give these frames."""
-    from mpe3d_tpu_torch.ops.fused_mlp import Bf16Layer, Int8Layer
+    from mpe3d_tpu_torch.ops.fused_mlp import launch_plan
     want = dict.fromkeys(launch_counters(), 0)
     n_gat = len(pipe.matcher.dims)
+    steps = [kind for kind, _, _ in launch_plan(pipe.lifter.packed_layers())]
     for f in frames:
         form, frame_path = pipe.serving_path(frame_slots(pipe, f))
         if form == "stack":
@@ -886,8 +979,8 @@ def expected_launches(pipe, frames):
             want["gat_k1"] += n_gat
             want["gat_k2"] += n_gat - 1
         want["frame_decode_pack"] += int(frame_path)
-        want["mlp_bf16_layer"] += pipe.lifter.kinds.count(Bf16Layer)
-        want["mlp_int8_layer"] += pipe.lifter.kinds.count(Int8Layer)
+        want["mlp_bf16_run"] += steps.count("bf16")
+        want["mlp_int8_layer"] += steps.count("int8")
     return want
 
 
@@ -1072,6 +1165,9 @@ def main() -> int:
     spills = [ln.strip() for ln in lib.compiler_output.splitlines()
               if "spill" in ln and not ln.strip().startswith(
                   "0 bytes stack frame, 0 bytes spill")]
+    for name in ("proj_gemm_kernel", "mlp_bf16_run_kernel"):
+        print(f"  ptxas, {name}: " + "; ".join(ptxas_report(
+            lib.compiler_output, name)), flush=True)
     phase("build", t0, f"nvcc {lib.build_seconds:.1f} s; ptxas: "
           + ("; ".join(spills) if spills else "no spills"))
 
@@ -1181,7 +1277,7 @@ def main() -> int:
         launches, ms, _, outs = run_main_path(
             gpu, int8_pipeline(tree, "cpu", True), frames,
             f"pan_irls (int8), {mlabel} matcher, frame path")
-        if (launches["mlp_int8_layer"], launches["mlp_bf16_layer"]) != (
+        if (launches["mlp_int8_layer"], launches["mlp_bf16_run"]) != (
                 8 * len(frames), len(frames)):
             raise AssertionError(f"pan_irls: lifter launches {launches}")
         int8_launches = int8_launches or launches

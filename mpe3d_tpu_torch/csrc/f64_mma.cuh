@@ -1,0 +1,224 @@
+// An fp64 tensor-core tile product of fp32 operands for Hopper (sm_90):
+//   acc[64 x 64] += A[row0 :, k] B[k, col0 :]  over a range of k,
+// A [M, K] and B [K, N] row-major fp32, acc in fp64 registers.  Every fp32
+// product is exact in fp64 and every sum is an fp64 sum, so a caller that
+// rounds acc + bias to fp32 once gets the fp64-summed result of the
+// reference's precision="highest" product, with no TF32 or bf16 rounding.
+//
+// Why the tensor cores: the H100 runs fp64 mma.sync at 67 TFLOP/s (SXM data
+// sheet), the same rate as its fp32 SIMT peak and twice its fp64 SIMT FMA,
+// so fp64 sums no longer cost 2x.
+//
+// Shape: a block of 128 threads (4 warps, 2 x 2) owns a 64 x 64 tile; a warp
+// owns 32 x 32 = 2 m16 x 4 n8 fragments of mma.sync.m16n8k8.f64 (sm_90);
+// 64 x 32 warp tiles (128 x 64 blocks) spilled registers and ran slower on
+// the H100 (PERF.md PR 8).  k advances in stages of BK = 32 through a
+// 4-deep cp.async ring of fp32 tiles, A stored [m][k] (row stride 36
+// floats) and B [k][n] (72 floats), strides at which the fragment loads hit
+// 32 distinct banks.  Each fragment element is loaded as fp32 and converted
+// to fp64 in registers: on the H100 that beat converting each stage once
+// into an fp64 tile, which doubled the shared-memory bytes of every
+// fragment load and cost a second barrier a stage (PERF.md PR 8).  Rows of
+// A and of B are copied in
+// 16-byte pieces where the row stride and the base allow (the scratch h of
+// the projection is padded for it), else in 8-byte pieces (even strides:
+// the GAT widths 902 and 150), else in 4-byte ones.  Out-of-range rows,
+// columns and k are zero-filled by the copy itself.
+//
+// Used by fused_proj.cu; meant for the fc GEMMs of gat_stack.cu and
+// gat_tiled.cu (K1), which still run the fp64 SIMT GEMM of fp32_gemm.cuh.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mpe3d {
+namespace {
+
+constexpr int F64_BM = 64, F64_BN = 64, F64_BK = 32, F64_STAGES = 4;
+constexpr int F64_THREADS = 128;
+constexpr int F64_WM = 32, F64_WN = 32;   // warp tile
+constexpr int F64_MI = F64_WM / 16, F64_NI = F64_WN / 8;
+constexpr int F64_LDA = F64_BK + 4;       // floats: [m][k] rows of A
+constexpr int F64_LDB = F64_BN + 8;       // floats: [k][n] rows of B
+
+// 73.7 KB of dynamic shared memory (three blocks an SM)
+struct F64Smem {
+  float a32[F64_STAGES][F64_BM * F64_LDA];
+  float b32[F64_STAGES][F64_BK * F64_LDB];
+};
+
+// a warp's accumulators: F64_MI x F64_NI fragments of 4 doubles
+using F64Acc = double[F64_MI][F64_NI][4];
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 4 or 16 bytes global -> shared; ``bytes`` < size zero-fills the rest
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// d += a b for one m16n8k8 fp64 fragment: a0 (g, t), a1 (g+8, t),
+// a2 (g, t+4), a3 (g+8, t+4); b0 (t, g), b1 (t+4, g); d0/d1 (g, 2t / 2t+1),
+// d2/d3 (g+8, 2t / 2t+1), with g = lane / 4 and t = lane % 4.
+__device__ __forceinline__ void mma_f64_16x8x8(double (&d)[4],
+                                               const double (&a)[4],
+                                               const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// Copy the floats [c, c + V) of a row of ``len`` floats (zero past ``len``
+// or when the row is out of range) in one V * 4-byte piece
+template <int V>
+__device__ __forceinline__ void copy_piece(uint32_t dst, const float* row,
+                                           int c, int len, bool row_ok) {
+  const int valid = row_ok ? max(0, min(V, len - c)) : 0;
+  const float* src = valid ? row + c : row;
+  if (V == 4)
+    cp_async16(dst, src, 4 * valid);
+  else if (V == 2)
+    cp_async8(dst, src, 4 * valid);
+  else
+    cp_async4(dst, src, 4 * valid);
+}
+
+// rows x cols floats of ``src`` (row stride ld; rows from r0 < R, columns
+// from c0 < C) into ``dst`` (row stride dld) in V-float pieces
+template <int V>
+__device__ __forceinline__ void copy_tile(uint32_t dst, int dld,
+                                          const float* __restrict__ src,
+                                          size_t ld, int rows, int cols,
+                                          int r0, int R, int c0, int C) {
+  for (int i = threadIdx.x; i < rows * cols / V; i += F64_THREADS) {
+    const int r = i / (cols / V), c = (i % (cols / V)) * V;
+    copy_piece<V>(dst + 4 * (r * dld + c), src + (size_t)(r0 + r) * ld, c0 + c,
+                  C, r0 + r < R);
+  }
+}
+
+// Issue the copies of k-stage ``ks`` (k in [32 ks, 32 ks + 32)) into ring
+// slot ``slot``: A rows row0.. (row stride lda) as [m][k], B columns
+// col0.. as [k][n]; av, bv: the piece width (floats) each operand allows.
+__device__ __forceinline__ void f64_issue_stage(
+    F64Smem& s, int slot, const float* __restrict__ A, int lda,
+    const float* __restrict__ B, int M, int N, int K, int row0, int col0,
+    int ks, int av, int bv) {
+  const int k0 = ks * F64_BK;
+  const uint32_t a = smem_u32(s.a32[slot]), b = smem_u32(s.b32[slot]);
+  if (av == 4)
+    copy_tile<4>(a, F64_LDA, A, lda, F64_BM, F64_BK, row0, M, k0, K);
+  else if (av == 2)
+    copy_tile<2>(a, F64_LDA, A, lda, F64_BM, F64_BK, row0, M, k0, K);
+  else
+    copy_tile<1>(a, F64_LDA, A, lda, F64_BM, F64_BK, row0, M, k0, K);
+  if (bv == 4)
+    copy_tile<4>(b, F64_LDB, B, N, F64_BK, F64_BN, k0, K, col0, N);
+  else if (bv == 2)
+    copy_tile<2>(b, F64_LDB, B, N, F64_BK, F64_BN, k0, K, col0, N);
+  else
+    copy_tile<1>(b, F64_LDB, B, N, F64_BK, F64_BN, k0, K, col0, N);
+}
+
+// widest piece (4, 2 or 1 floats) rows of stride ld at base p allow
+__device__ __forceinline__ int piece_width(const float* p, int ld) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  return (ld % 4 == 0 && a % 16 == 0) ? 4 : (ld % 2 == 0 && a % 8 == 0) ? 2
+                                                                        : 1;
+}
+
+// acc (a warp's 32 x 32 fragments, see mma_f64_16x8x8) += the product
+// over k-stages [ks0, ks1) of the 64 x 64 tile at (row0, col0); A has row
+// stride lda.  Must be called by all F64_THREADS threads of the block;
+// leaves the ring drained.
+__device__ __forceinline__ void f64_tile_product(
+    F64Smem& s, const float* __restrict__ A, int lda,
+    const float* __restrict__ B, int M, int N, int K, int row0, int col0,
+    int ks0, int ks1, F64Acc& acc) {
+  const int av = piece_width(A, lda), bv = piece_width(B, N);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp >> 1) * F64_WM, wn = (warp & 1) * F64_WN;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int s0 = 0; s0 < F64_STAGES - 1; ++s0) {
+    if (ks0 + s0 < ks1)
+      f64_issue_stage(s, s0, A, lda, B, M, N, K, row0, col0, ks0 + s0, av,
+                      bv);
+    cp_async_commit();
+  }
+  for (int ks = ks0; ks < ks1; ++ks) {
+    const int slot = (ks - ks0) % F64_STAGES;
+    cp_async_wait<F64_STAGES - 2>();
+    // every thread's copies of this stage landed; every warp is done with
+    // the slot refilled below (read in the iteration before)
+    __syncthreads();
+    const int nxt = ks + F64_STAGES - 1;
+    if (nxt < ks1)
+      f64_issue_stage(s, (nxt - ks0) % F64_STAGES, A, lda, B, M, N, K, row0,
+                      col0, nxt, av, bv);
+    cp_async_commit();
+#pragma unroll
+    for (int kk = 0; kk < F64_BK; kk += 8) {
+      const float* ak = s.a32[slot] + (wm + g) * F64_LDA + kk + t;
+      const float* bk = s.b32[slot] + (kk + t) * F64_LDB + wn + g;
+      double a[F64_MI][4], b[F64_NI][2];
+#pragma unroll
+      for (int mi = 0; mi < F64_MI; ++mi) {
+        a[mi][0] = double(ak[(mi * 16) * F64_LDA]);
+        a[mi][1] = double(ak[(mi * 16 + 8) * F64_LDA]);
+        a[mi][2] = double(ak[(mi * 16) * F64_LDA + 4]);
+        a[mi][3] = double(ak[(mi * 16 + 8) * F64_LDA + 4]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < F64_NI; ++ni) {
+        b[ni][0] = double(bk[ni * 8]);
+        b[ni][1] = double(bk[4 * F64_LDB + ni * 8]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < F64_MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < F64_NI; ++ni)
+          mma_f64_16x8x8(acc[mi][ni], a[mi], b[ni]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Tile coordinates of accumulator element e (0..3) of fragment (mi, ni) of
+// this thread: row and column offsets inside the 64 x 64 tile.
+__device__ __forceinline__ int f64_acc_row(int mi, int e) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  return (warp >> 1) * F64_WM + mi * 16 + (lane >> 2) + (e >> 1) * 8;
+}
+__device__ __forceinline__ int f64_acc_col(int ni, int e) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  return (warp & 1) * F64_WN + ni * 8 + (lane & 3) * 2 + (e & 1);
+}
+
+}  // namespace
+}  // namespace mpe3d

@@ -1,26 +1,64 @@
-// One lifter layer for Hopper: y = act(bf16(x) W + b), bf16 weights, fp32
-// accumulation, for at most 16 rows.
+// A run of consecutive bf16 lifter layers for Hopper, in ONE persistent
+// launch: for each layer, y = act(bf16(x) W + b), bf16 weights, fp32 sums,
+// for at most 16 rows.  A bf16 lifter is one run (9 layers, 1 launch a
+// frame); an int8 lifter's bf16 head is a run of one layer.
 //
 // Replaces the bf16 layer kind of the TPU kernel
-// mpe3d_tpu/ops/fused_mlp.py::_fused_mlp_call (pallas_call at :143; entry
-// fused_mlp_forward :223, packing pack_fused_layers :154).  Python side and
-// plain PyTorch version: mpe3d_tpu_torch/ops/fused_mlp.py.
+// mpe3d_tpu/ops/fused_mlp.py::_fused_mlp_call (:57, pallas_call at :143;
+// entry fused_mlp_forward :223, packing pack_fused_layers :154), which also
+// runs the whole network in one launch with the weights streamed in
+// double-buffered K-tiles.  Python side, tile plan and plain PyTorch
+// version: mpe3d_tpu_torch/ops/fused_mlp.py.
 //
-// Numerics follow the TPU kernel (fused_mlp.py:114-117): activations stay
-// fp32 between layers and are rounded to bf16 (round to nearest even) as
-// operands; bf16 x bf16 products are exact in fp32 and summed in fp32.
+// Numerics follow the TPU kernel (fused_mlp.py:114-117): activations are
+// rounded to bf16 (round to nearest even) as operands, bf16 x bf16 products
+// are exact and summed in fp32 (mma.sync.m16n8k16 bf16 -> fp32), bias and
+// LeakyReLU in fp32.  Between layers only the bf16-rounded activation is
+// kept: it is all the next layer reads, and it is rounded once, by the
+// block that produces it.
 //
 // Bound on an H100 SXM: the serving lifter (1260->3072->3072->2048->2048->
 // 1024x4->54) streams 58.3 MB of bf16 weights per frame for 8 rows of
 // activations -- 17.4 us at 3.35 TB/s, against 0.47 GFLOP (0.5 us of the
-// bf16 tensor-core peak).  Weight streaming is everything.  Design: each
-// block owns a slab of 16 output columns; lane pairs read one 32-byte sector
-// of a weight row as two 16-byte vector loads, so every weight byte is read
-// once, coalesced; 128 K-rows are in flight per block; the <=16 input rows
-// sit in shared memory in chunks of 512 K; partial sums are reduced with warp
-// shuffles and then across the block's 8 warps in a fixed order.  The wrapper
-// launches it once per layer (9 launches per frame); one persistent launch for
-// the whole network is later work.
+// bf16 tensor-core peak).  Weight streaming is everything, and it must not
+// stop at layer boundaries: no weight depends on an activation.
+//
+// Design:
+// * The plan (ops/fused_mlp.py::plan_bf16_run) cuts every layer into tiles
+//   of 64 output columns (a slab) x a K-chunk of whole 16-row k-blocks, and
+//   gives each of the grid's blocks (one an SM, co-resident: cooperative
+//   launch) a contiguous range of each layer's tiles, chunk-major, so a
+//   block's tiles in a layer mostly share one activation chunk.  Layers with
+//   fewer slabs than blocks split K (the plan's split count balances the
+//   weight bytes per block).  The tile list comes from the device table the
+//   wrapper builds once per packed run and row count.
+// * Weights stream through a 10-stage ring of 16 KB stages (128 rows x 64
+//   columns, 16-byte cp.async, rows XOR-swizzled for conflict-free
+//   ldmatrix.trans).  All threads issue the stage 9 ahead of the one they
+//   consume, walking the block's tile list across layer boundaries, so while
+//   a block waits for the previous layer's activations up to 144 KB of its
+//   next weights (about a whole layer's share) are already in flight.
+// * Compute: the transposed product y^T = W^T x^T, so the weights are the
+//   m16 operand (ldmatrix.x4.trans from the ring) and the <=16 activation
+//   rows the n8 operand (one or two n8 tiles, straight 32-bit loads from the
+//   staged chunk).  The 8 warps split a stage's 128 rows; a tile's warp sums
+//   are added in a fixed tree order.
+// * Split-K: a split tile stores its fp32 partial [M x 64] in scratch.  When
+//   a block leaves a layer it counts its split tiles in per-slab counters
+//   (integer atomics); the block that completes a slab loads the slab's
+//   partials into shared memory at once (one round trip; the plan keeps
+//   them within 32 KB), sums them in chunk order, adds the bias, applies
+//   LeakyReLU and writes the bf16 activation (fp32 output for the run's last
+//   layer): the same bits from run to run.  Then it arrives at the layer's
+//   grid barrier; a block waits on that barrier only when it starts a tile
+//   of the next layer.  Barrier and slab counters are words of the caller's
+//   workspace, zeroed on the stream before the launch: no device globals,
+//   so two calls on two streams do not collide.  Each block loads its tile
+//   records and the layer table into shared memory once, so no loop waits
+//   on a global load to find its next tile.
+// * What bounds it on the card: not the stream but the chain at each layer
+//   boundary (partials, counters, barrier, activations: several dependent
+//   L2 round trips), a few microseconds a layer; PERF.md PR 8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -28,106 +66,457 @@
 
 namespace {
 
-constexpr int COLS = 16;      // output columns per block
-constexpr int KC = 512;       // K rows of x staged in shared memory at a time
-constexpr int THREADS = 256;  // 8 warps; 128 K-rows x 2 column groups
+constexpr int THREADS = 256;              // 8 warps
+constexpr int WARPS = THREADS / 32;
+constexpr int SLAB = 64;                  // output columns of a tile
+constexpr int SROWS = 128;                // weight rows of a ring stage
+constexpr int STAGES = 10;                // 16 KB stages
+constexpr int KC_MAX = 1024;              // rows of a tile's K-chunk
+constexpr int XS_LD = KC_MAX + 8;         // bf16 stride of a staged row
+constexpr int MAX_LAYER_TILES = 64;       // tiles of one layer a block owns
+constexpr int MAX_BLOCK_TILES = 96;       // tiles a block owns in a run
+constexpr int MAX_RUN_LAYERS = 16;        // layers of a run
+constexpr int X_BATCH = 8;                // loads in flight a thread
+constexpr int R_BATCH = 16;               // partial loads in flight a thread
+// a slab's partials (splits x M x 64 floats) fit the activation buffer
+constexpr int MAX_PARTIAL_FLOATS = 8192;
+constexpr size_t RING_BYTES = (size_t)STAGES * SROWS * SLAB * 2;
+constexpr size_t XS_BYTES = 16 * XS_LD * 2;
+constexpr size_t RED_BYTES = (size_t)(WARPS / 2) * 4 * 2 * 4 * 32 * 4;
+constexpr size_t SMEM_BYTES = RING_BYTES + XS_BYTES + RED_BYTES;
+static_assert(MAX_PARTIAL_FLOATS * 4 <= XS_BYTES, "partials fit xs");
 
-__device__ __forceinline__ void unpack_bf16x8(const uint4 v, float* f) {
-  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(u[i] << 16);            // lower address
-    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+struct Layer {
+  const __nv_bfloat16* w;   // [K, N] row-major
+  const float* b;           // [N]
+  int K, N, act;
+  long long in_off;         // bf16 elements into acts; -1: the run's x
+  long long out_off;        // bf16 elements into acts; -1: the run's y
+};
+
+struct Tile {
+  int layer, n0, r0, r1;    // columns [n0, n0 + 64), rows [r0, r1)
+  int part;                 // float offset of its partial; -1: not split
+  int cnt;                  // sync word of its slab
+  int nsplit;               // K-chunks of its slab
+  int pbase;                // float offset of its slab's first partial
+};
+
+__device__ __forceinline__ Layer load_layer(const long long* t, int l) {
+  const long long* p = t + 8 * l;
+  return {reinterpret_cast<const __nv_bfloat16*>(p[0]),
+          reinterpret_cast<const float*>(p[1]), (int)p[2], (int)p[3],
+          (int)p[4], p[5], p[6]};
+}
+
+__device__ __forceinline__ Tile load_tile(const int* t, int i) {
+  const int4 a = *reinterpret_cast<const int4*>(t + 8 * i);
+  const int4 b = *(reinterpret_cast<const int4*>(t + 8 * i) + 1);
+  return {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// physical byte offset of 16-byte chunk c (0..7) of ring row ``row``
+__device__ __forceinline__ uint32_t ring_off(int row, int c) {
+  return (uint32_t)(row * SLAB + ((c ^ (row & 7)) << 3)) * 2;
+}
+
+// copies of weight rows [r, min(r + SROWS, t.r1)) of tile t into a stage;
+// rows past K and columns past N are zero-filled
+__device__ __forceinline__ void issue_stage(uint32_t slot, const Layer& L,
+                                            const Tile& t, int r) {
+  const int rows = min(SROWS, t.r1 - r);
+  for (int i = threadIdx.x; i < rows * 8; i += THREADS) {
+    const int row = i >> 3, c = i & 7;
+    const int k = r + row, n = t.n0 + c * 8;
+    const bool ok = k < L.K && n < L.N;
+    cp_async16(slot + ring_off(row, c),
+               ok ? static_cast<const void*>(L.w + (size_t)k * L.N + n)
+                  : static_cast<const void*>(L.w),
+               ok ? 16 : 0);
   }
 }
 
-template <int MR>
-__global__ void __launch_bounds__(THREADS)
-mlp_bf16_layer_kernel(const float* __restrict__ x,
-                      const __nv_bfloat16* __restrict__ w,
-                      const float* __restrict__ b, float* __restrict__ y,
-                      int M, int K, int N, float slope, int act) {
-  __shared__ float xs[MR][KC];
-  __shared__ float red[THREADS / 32][MR][COLS];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int cg = lane & 1;                  // which 8 columns of the slab
-  const int kr = warp * 16 + (lane >> 1);   // this thread's K row, 0..127
-  const int n0 = blockIdx.x * COLS + cg * 8;
-
-  float acc[MR][8];
+template <int NT>
+__device__ __forceinline__ void mma_stage(uint32_t slot,
+                                          const __nv_bfloat16* xs, int xk0,
+                                          int rows, float (&acc)[4][NT][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kr = warp * 16;
+  if (kr >= rows) return;
+  // A = W^T: matrices (cols 0-7 | 8-15) x (k 0-7 | 8-15) of each m16 tile
+  const int j = lane >> 3;
+  const int row = kr + (lane & 7) + ((j >> 1) << 3);
+  uint32_t a[4][4];
 #pragma unroll
-  for (int m = 0; m < MR; ++m)
+  for (int mt = 0; mt < 4; ++mt) {
+    const uint32_t addr = slot + ring_off(row, mt * 2 + (j & 1));
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+        "[%4];\n"
+        : "=r"(a[mt][0]), "=r"(a[mt][1]), "=r"(a[mt][2]), "=r"(a[mt][3])
+        : "r"(addr));
+  }
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
+  for (int nt = 0; nt < NT; ++nt) {
+    const __nv_bfloat16* p = xs + (nt * 8 + g) * XS_LD + xk0 + kr + 2 * t;
+    const uint32_t b0 = *reinterpret_cast<const uint32_t*>(p);
+    const uint32_t b1 = *reinterpret_cast<const uint32_t*>(p + 8);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+          : "+f"(acc[mt][nt][0]), "+f"(acc[mt][nt][1]),
+            "+f"(acc[mt][nt][2]), "+f"(acc[mt][nt][3])
+          : "r"(a[mt][0]), "r"(a[mt][1]), "r"(a[mt][2]), "r"(a[mt][3]),
+            "r"(b0), "r"(b1));
+  }
+}
 
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    const int kc = min(KC, K - k0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < MR * KC; i += THREADS) {
-      const int m = i / KC, k = i % KC;
-      const float v = (m < M && k < kc) ? x[(size_t)m * K + k0 + k] : 0.f;
-      xs[m][k] = __bfloat162float(__float2bfloat16_rn(v));
+// rows [r0, r1) of the layer input, rows m < 8 NT of them (zero past M and
+// past K), as bf16 into xs; the run's x is fp32 and rounded here, later
+// layers' inputs are already bf16
+template <int NT>
+__device__ void stage_x(__nv_bfloat16* xs, const float* __restrict__ x,
+                        const __nv_bfloat16* acts, const Layer& L, int M,
+                        int r0, int r1) {
+  const int kc = r1 - r0;
+  if (L.in_off < 0) {
+    const int total = NT * 8 * kc;
+    for (int base = 0; base < total; base += THREADS * X_BATCH) {
+      float v[X_BATCH];
+#pragma unroll
+      for (int q = 0; q < X_BATCH; ++q) {
+        const int i = base + q * THREADS + threadIdx.x;
+        const int m = i / kc, k = r0 + i % kc;
+        v[q] = (i < total && m < M && k < L.K) ? x[(size_t)m * L.K + k]
+                                               : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < X_BATCH; ++q) {
+        const int i = base + q * THREADS + threadIdx.x;
+        if (i < total)
+          xs[(i / kc) * XS_LD + i % kc] = __float2bfloat16_rn(v[q]);
+      }
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = kr; k < kc; k += 128) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          w + (size_t)(k0 + k) * N + n0);
-      float wf[8];
-      unpack_bf16x8(raw, wf);
+  } else {   // K and the offsets are multiples of 16: 16-byte pieces
+    const int per_row = kc / 8, total = NT * 8 * per_row;
+    const __nv_bfloat16* in = acts + L.in_off;
+    for (int base = 0; base < total; base += THREADS * X_BATCH) {
+      uint4 v[X_BATCH];
 #pragma unroll
-      for (int m = 0; m < MR; ++m) {
-        const float xv = xs[m][k];
+      for (int q = 0; q < X_BATCH; ++q) {
+        const int i = base + q * THREADS + threadIdx.x;
+        const int m = i / per_row, k = r0 + (i % per_row) * 8;
+        v[q] = (i < total && m < M && k < L.K)
+                   ? __ldcg(reinterpret_cast<const uint4*>(
+                         in + (size_t)m * L.K + k))
+                   : make_uint4(0, 0, 0, 0);
+      }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(xv, wf[j], acc[m][j]);
+      for (int q = 0; q < X_BATCH; ++q) {
+        const int i = base + q * THREADS + threadIdx.x;
+        if (i < total)
+          *reinterpret_cast<uint4*>(xs + (i / per_row) * XS_LD +
+                                    (i % per_row) * 8) = v[q];
       }
     }
   }
+}
 
-  // lanes sharing a column group differ in lane bits 1..4
-#pragma unroll
-  for (int off = 2; off < 32; off <<= 1)
-#pragma unroll
-    for (int m = 0; m < MR; ++m)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        acc[m][j] += __shfl_xor_sync(0xffffffffu, acc[m][j], off);
-  if ((lane >> 1) == 0) {
-#pragma unroll
-    for (int m = 0; m < MR; ++m)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) red[warp][m][cg * 8 + j] = acc[m][j];
-  }
+__device__ __forceinline__ void store_out(const Layer& L, float* y,
+                                          __nv_bfloat16* acts, int m,
+                                          int col, float v, float slope) {
+  v += L.b[col];
+  if (L.act) v = v >= 0.f ? v : slope * v;
+  if (L.out_off < 0)
+    y[(size_t)m * L.N + col] = v;
+  else
+    acts[L.out_off + (size_t)m * L.N + col] = __float2bfloat16_rn(v);
+}
+
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+mlp_bf16_run_kernel(const float* __restrict__ x, float* __restrict__ y,
+                    const long long* __restrict__ layers,
+                    const int* __restrict__ tiles,
+                    const int* __restrict__ block_tiles,
+                    __nv_bfloat16* acts, float* parts, int* sync, int M,
+                    int n_layers, float slope) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t ring = smem_u32(smem);
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + RING_BYTES);
+  float* red = reinterpret_cast<float*>(smem + RING_BYTES + XS_BYTES);
+  __shared__ int last[MAX_LAYER_TILES];
+  __shared__ int any_last;
+  // the block's tile records and the layer table, loaded once: the loops
+  // below then never wait on a global load to find their next tile
+  __shared__ __align__(16) int tile_tab[MAX_BLOCK_TILES * 8];
+  __shared__ long long layer_tab[MAX_RUN_LAYERS * 8];
+  constexpr int NACC = 4 * NT * 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t0 = block_tiles[blockIdx.x];
+  const int n_tiles = block_tiles[blockIdx.x + 1] - t0;
+  for (int i = threadIdx.x; i < n_tiles * 8; i += THREADS)
+    tile_tab[i] = tiles[8 * t0 + i];
+  for (int i = threadIdx.x; i < n_layers * 8; i += THREADS)
+    layer_tab[i] = layers[i];
   __syncthreads();
-  for (int i = threadIdx.x; i < M * COLS; i += THREADS) {
-    const int m = i / COLS, c = i % COLS;
-    float s = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < THREADS / 32; ++wi) s += red[wi][m][c];
-    const int n = blockIdx.x * COLS + c;
-    float v = s + b[n];
-    if (act) v = v >= 0.f ? v : slope * v;
-    y[(size_t)m * N + n] = v;
+  // tile indices below are the block's own, 0..n_tiles
+  const int t_beg = 0, t_end = n_tiles;
+
+  // issue cursor: tile it, next row ir
+  int it = t_beg, ir = 0;
+  Tile itile;
+  Layer ilayer;
+  if (it < t_end) {
+    itile = load_tile(tile_tab, it);
+    ilayer = load_layer(layer_tab, itile.layer);
+    ir = itile.r0;
   }
+  int islot = 0;
+  auto issue_next = [&]() {
+    if (it < t_end) {
+      issue_stage(ring + islot * (SROWS * SLAB * 2), ilayer, itile, ir);
+      ir += SROWS;
+      if (ir >= itile.r1 && ++it < t_end) {
+        itile = load_tile(tile_tab, it);
+        ilayer = load_layer(layer_tab, itile.layer);
+        ir = itile.r0;
+      }
+    }
+    cp_async_commit();
+    islot = islot + 1 == STAGES ? 0 : islot + 1;
+  };
+  for (int s = 0; s < STAGES - 1; ++s) issue_next();
+
+  // the block leaves layer ``cur`` (its tiles [lt0, lt_end)) and every
+  // layer before ``upto`` it has no tile in
+  int cur = -1, lt0 = t_beg;
+  auto leave = [&](int upto, int lt_end) {
+    if (cur >= 0) {
+      __threadfence();
+      __syncthreads();
+      const int n = lt_end - lt0;
+      if (threadIdx.x == 0) any_last = 0;
+      __syncthreads();
+      if (threadIdx.x < n) {
+        const Tile t = load_tile(tile_tab, lt0 + threadIdx.x);
+        const int done =
+            t.nsplit > 1 && atomicAdd(&sync[t.cnt], 1) == t.nsplit - 1;
+        last[threadIdx.x] = done;
+        if (done) any_last = 1;
+      }
+      __syncthreads();
+      if (any_last) {
+        // the slab's partials into shared memory (the staged activations'
+        // space, free until the next layer), R_BATCH loads in flight a
+        // thread, then each output summed over them in chunk order
+        __threadfence();
+        const Layer L = load_layer(layer_tab, cur);
+        const int per = M * SLAB;
+        float* buf = reinterpret_cast<float*>(xs);
+        for (int i = 0; i < n; ++i) {
+          if (!last[i]) continue;
+          const Tile t = load_tile(tile_tab, lt0 + i);
+          const int total = t.nsplit * per;
+          for (int base = 0; base < total; base += THREADS * R_BATCH) {
+            float v[R_BATCH];
+#pragma unroll
+            for (int q = 0; q < R_BATCH; ++q) {
+              const int k = base + q * THREADS + threadIdx.x;
+              v[q] = k < total ? __ldcg(parts + t.pbase + k) : 0.f;
+            }
+#pragma unroll
+            for (int q = 0; q < R_BATCH; ++q) {
+              const int k = base + q * THREADS + threadIdx.x;
+              if (k < total) buf[k] = v[q];
+            }
+          }
+          __syncthreads();
+          for (int e = threadIdx.x; e < per; e += THREADS) {
+            const int col = t.n0 + e % SLAB;
+            if (col >= L.N) continue;
+            float s = buf[e];
+            for (int p = 1; p < t.nsplit; ++p) s += buf[p * per + e];
+            store_out(L, y, acts, e / SLAB, col, s, slope);
+          }
+          __syncthreads();
+        }
+      }
+      __threadfence();
+      __syncthreads();
+    }
+    if (threadIdx.x == 0)
+      for (int l = cur < 0 ? 0 : cur; l < upto; ++l) atomicAdd(&sync[l], 1);
+  };
+
+  int x_layer = -1, x_r0 = -1;
+  int slot = 0;
+  for (int ti = t_beg; ti < t_end; ++ti) {
+    const Tile t = load_tile(tile_tab, ti);
+    const Layer L = load_layer(layer_tab, t.layer);
+    if (t.layer != cur) {
+      leave(t.layer, ti);
+      cur = t.layer;
+      lt0 = ti;
+      if (t.layer > 0 && threadIdx.x == 0) {
+        while (ld_acquire(&sync[t.layer - 1]) < (int)gridDim.x)
+          __nanosleep(32);
+      }
+      __syncthreads();
+    }
+    if (t.layer != x_layer || t.r0 != x_r0) {
+      __syncthreads();
+      stage_x<NT>(xs, x, acts, L, M, t.r0, t.r1);
+      __syncthreads();
+      x_layer = t.layer;
+      x_r0 = t.r0;
+    }
+    float acc[4][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    for (int r = t.r0; r < t.r1; r += SROWS) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      mma_stage<NT>(ring + slot * (SROWS * SLAB * 2), xs, r - t.r0,
+                    min(SROWS, t.r1 - r), acc);
+      issue_next();
+      slot = slot + 1 == STAGES ? 0 : slot + 1;
+    }
+    // warp sums in a fixed tree: w += w + h for h = 4, 2, 1
+#pragma unroll
+    for (int h = WARPS / 2; h >= 1; h >>= 1) {
+      if (warp >= h && warp < 2 * h) {
+        float* dst = red + (size_t)(warp - h) * NACC * 32 + lane;
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dst[((mt * NT + nt) * 4 + e) * 32] = acc[mt][nt][e];
+      }
+      __syncthreads();
+      if (warp < h) {
+        const float* src = red + (size_t)warp * NACC * 32 + lane;
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[mt][nt][e] += src[((mt * NT + nt) * 4 + e) * 32];
+      }
+      __syncthreads();
+    }
+    if (warp == 0) {
+      const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = mt * 16 + g + (e >> 1) * 8;   // column in the slab
+            const int m = nt * 8 + q * 2 + (e & 1);      // activation row
+            if (m >= M) continue;
+            if (t.part >= 0)
+              parts[t.part + m * SLAB + c] = acc[mt][nt][e];
+            else if (t.n0 + c < L.N)
+              store_out(L, y, acts, m, t.n0 + c, acc[mt][nt][e], slope);
+          }
+    }
+  }
+  leave(n_layers, t_end);
 }
 
 }  // namespace
 
-// x [M, K] fp32, w [K, N] bf16 (16-byte aligned), b [N] fp32, y [M, N] fp32;
-// M <= 16, N a multiple of 16.
-extern "C" int mlp_bf16_layer(const float* x, const void* w, const float* b,
-                              float* y, int M, int K, int N, float slope,
-                              int act, cudaStream_t stream) {
-  if (M < 1 || M > 16 || N % COLS != 0 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+// blocks of the persistent grid on this device: resident blocks per SM
+// (occupancy at the kernel's shared memory) x SMs; sets the shared-memory
+// attribute of both row variants once per process
+extern "C" int mlp_bf16_run_blocks() {
+  static int cached = 0;
+  if (cached) return cached;
+  int dev, sms, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return -1;
+  if (cudaFuncSetAttribute(mlp_bf16_run_kernel<1>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)SMEM_BYTES) != cudaSuccess ||
+      cudaFuncSetAttribute(mlp_bf16_run_kernel<2>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)SMEM_BYTES) != cudaSuccess)
+    return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, mlp_bf16_run_kernel<2>, THREADS, SMEM_BYTES) !=
+          cudaSuccess || per_sm < 1)
+    return -1;
+  cached = per_sm * sms;
+  return cached;
+}
+
+// x [M, K0] fp32, y [M, N_last] fp32, M in 1..16; layers [L][8] int64,
+// tiles [T][8] int32, block_tiles [n_blocks + 1] int32 (device tables of
+// plan_bf16_run); ws: n_sync int32 sync words (zeroed here), then the bf16
+// activations at acts_off bytes and the fp32 partials at parts_off bytes.
+// One cooperative launch of n_blocks blocks (refused if they cannot all be
+// resident); returns the CUDA error code.
+extern "C" int mlp_bf16_run(const float* x, float* y, const long long* layers,
+                            const int* tiles, const int* block_tiles,
+                            void* ws, int n_sync, long long acts_off,
+                            long long parts_off, int M, int n_layers,
+                            int n_blocks, float slope, cudaStream_t stream) {
+  if (M < 1 || M > 16 || n_layers < 1 || n_layers > MAX_RUN_LAYERS ||
+      n_blocks < 1 ||
+      mlp_bf16_run_blocks() < 1)
     return cudaErrorInvalidValue;
-  const dim3 grid(N / COLS);
-  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
-  if (M <= 8)
-    mlp_bf16_layer_kernel<8><<<grid, THREADS, 0, stream>>>(x, wb, b, y, M, K,
-                                                           N, slope, act);
-  else
-    mlp_bf16_layer_kernel<16><<<grid, THREADS, 0, stream>>>(x, wb, b, y, M,
-                                                            K, N, slope, act);
+  int* sync = static_cast<int*>(ws);
+  cudaError_t err =
+      cudaMemsetAsync(sync, 0, sizeof(int) * (size_t)n_sync, stream);
+  if (err != cudaSuccess) return err;
+  __nv_bfloat16* acts = reinterpret_cast<__nv_bfloat16*>(
+      static_cast<char*>(ws) + acts_off);
+  float* parts =
+      reinterpret_cast<float*>(static_cast<char*>(ws) + parts_off);
+  void* args[] = {&x, &y, &layers, &tiles, &block_tiles, &acts, &parts,
+                  &sync, &M, &n_layers, &slope};
+  const void* fn = M <= 8 ? (const void*)mlp_bf16_run_kernel<1>
+                          : (const void*)mlp_bf16_run_kernel<2>;
+  err = cudaLaunchCooperativeKernel(fn, dim3(n_blocks), dim3(THREADS), args,
+                                    SMEM_BYTES, stream);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

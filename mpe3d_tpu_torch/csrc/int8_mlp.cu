@@ -20,8 +20,8 @@
 // Bound on an H100 SXM: the 8 int8 layers of the 29.1 M-param serving lifter
 // stream 29.0 MB of weights per frame for at most 16 rows of activations,
 // 8.7 us at 3.35 TB/s; their 0.47 GFLOP at 8 rows is far below any compute
-// peak.  Weight streaming is everything.  Design, as the bf16 layer kernel
-// (fused_mlp.cu): each block owns a slab of 32 output columns, so one
+// peak.  Weight streaming is everything.  Design: each block owns a slab
+// of 32 output columns, so one
 // 32-byte sector of a weight row; lane quads read a sector as four 8-byte
 // loads, so every weight byte is read once, coalesced; 64 K-rows are in
 // flight per block step; the input rows sit in shared memory in chunks of

@@ -4,7 +4,8 @@ Port of ``mpe3d_tpu/models/mlp.py``: ``apply_lifter`` (:77-131), whose
 layers run here in one of three kinds per layer (``ops/fused_mlp.py``):
 
 * bf16 weights, bf16 operands, fp32 sums (``compute_dtype=bfloat16``,
-  :121-126): the ``mlp_bf16_layer`` kernel on CUDA;
+  :121-126): on CUDA each run of consecutive bf16 layers is one launch of
+  the ``mlp_bf16_run`` kernel;
 * int8 weights ``wq`` with fp32 ``scale`` / ``rscale`` (the per-layer int8
   path, :113-118, ``ops/quant_matmul.py``): the ``mlp_int8_layer`` kernel on
   CUDA;
@@ -146,13 +147,23 @@ class Lifter(nn.Module):
             self.kinds.append(type(packed))
             k_in = packed[0].shape[1]
         self.n_layers = len(dims)
+        self._packed = None
         self.serve_dtype = ("int8" if Int8Layer in self.kinds else
                             "fp32" if Fp32Layer in self.kinds else "bf16")
 
     def packed_layers(self):
-        """The packed layers (``Bf16Layer``, ``Int8Layer``, ``Fp32Layer``)."""
-        return [kind(*(getattr(self, f"{name}{i}") for name in kind._fields))
+        """The packed layers (``Bf16Layer``, ``Int8Layer``, ``Fp32Layer``),
+        built once (a frame's worth of host time) and again only after the
+        buffers move (``_apply``: ``.to()``, ``.cuda()``, ...)."""
+        if self._packed is None:
+            self._packed = [
+                kind(*(getattr(self, f"{name}{i}") for name in kind._fields))
                 for i, kind in enumerate(self.kinds)]
+        return self._packed
+
+    def _apply(self, fn, *args, **kwargs):
+        self._packed = None
+        return super()._apply(fn, *args, **kwargs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [M, in_dim] packed inputs (fp32) -> [M, out_dim] decameters."""

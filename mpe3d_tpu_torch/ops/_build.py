@@ -52,12 +52,15 @@ _SIGNATURES = {
     # l1m, l2m, pw, e1, e2, z, att, m, H, E, nh, d, edge_const, alpha,
     # slope, xout, stream
     "gat_k2_layer": [_P] * 8 + [_I] * 5 + [_F, _F, _P, _P],
-    # x, w, b, y, M, K, N, slope, act, stream
-    "mlp_bf16_layer": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # x, y, layers, tiles, block_tiles, ws, n_sync, acts_off, parts_off,
+    # M, n_layers, n_blocks, slope, stream
+    "mlp_bf16_run": [_P] * 6 + [_I, ctypes.c_longlong, ctypes.c_longlong]
+                    + [_I] * 3 + [_F, _P],
+    "mlp_bf16_run_blocks": [],
     # x, wq, scale, rscale, b, y, M, K, N, alpha, act, stream
     "mlp_int8_layer": [_P] * 6 + [_I] * 3 + [_F, _I, _P],
-    # x, w1, b1, w2, b2, out, N, D, F, alpha, stream
-    "gat_fused_proj": [_P] * 6 + [_I] * 3 + [_F, _P],
+    # x, w1, b1, w2, b2, out, h, ldh, N, D, F, alpha, s1, s2, stream
+    "gat_fused_proj": [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P],
     # scores, pmask, pairs, used_pos, kp, valid, prob, observed, cams,
     # cam_world, E, C, S, J, Cu, P, threshold, min_views, k_cap, prior,
     # gate_on, gate_px, img_w, img_h, persons, person_mask, net, gkp, gval,
