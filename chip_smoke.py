@@ -9,8 +9,9 @@ failure raises, and the script exits non-zero):
 1. env: torch/CUDA versions, the card's name and power limit.
 2. build: the one ``nvcc`` call that builds the CUDA kernels of
    ``mpe3d_tpu_torch/csrc`` (0 s when the build cache matches), and
-   ptxas's registers, shared memory and spills of the fused projection's
-   GEMM and the bf16 lifter's run kernel.
+   ptxas's registers, shared memory and spills of the fp64 tensor-core GEMM
+   shared by the three GAT kernels (one copy in each of their sources), the
+   stack kernel's output kernel and the bf16 lifter's run kernel.
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the inputs the serving path gives it (Panoptic rig, S=4 slots, P=8
    persons), with median times over 50 launches (CUDA events) beside the
@@ -30,9 +31,12 @@ failure raises, and the script exits non-zero):
    five layer inputs at S=4 and S=16, two calls bit-equal, with its
    distance from an fp64 evaluation.  These two are timed in turns with
    their PyTorch yardsticks (kernel, yardstick, yardstick, kernel).  The
-   stack GAT
-   kernel on the trained matcher at S=4 and S=16, with its distance from
-   fp64 beside the tiled kernels'.
+   stack GAT kernel with and without ``edge_const`` (the shared edge row
+   projected once, as the pipeline serves it), two calls bit-equal; on the
+   trained matcher at S=4 and S=16 with its distance from fp64 beside the
+   tiled kernels', both held to ``GAT_FP64_TOL`` and bit-equal across
+   calls.  The GAT kernels' rows also print their device time and CUDA
+   launches a call (torch.profiler).
 4. main path: ``PoseEstimationPipeline.infer_fused`` on 16 synthetic frames
    on the card, once with the trained matcher and once with a numpy-seeded
    random matcher (the trained one scores near 0 on the synthetic ring rig;
@@ -119,6 +123,12 @@ PROJ_RTOL = 1e-5
 # sums are fp64, so only the two fp32 roundings (h and out) remain, about
 # 6e-8 of the output's scale; bounded at 1e-7 x (1 + max |out|)
 PROJ_FP64_TOL = 1e-7
+# the GAT stack (stack kernel, tiled kernels) on the trained matcher against
+# an fp64 evaluation of the same function: fp64 sums, fp32 operands and
+# stored activations, whose roundings the trained logits (to |130|, heavy
+# cancellation near 0) amplify: 1.64e-6 at S=4, 8.16e-6 at S=16 before the
+# tensor-core GEMM; bounded at 1e-5 x (1 + |logit|)
+GAT_FP64_TOL = 1e-5
 # decode + gather + pack kernel against its plain version on the same
 # inputs: persons, masks and gathered observations exactly equal; fields 0-9
 # within 1e-5 (the same fp32 formulas, FMA contraction on the card); prior
@@ -163,21 +173,17 @@ def median_ms(fn, n: int = N_TIMED) -> float:
     return statistics.median(times)
 
 
+def device_profile(fn, n: int = 20):
+    """(device ms, CUDA kernel launches) of one call of ``fn``: the kernels
+    and copies it runs, as torch.profiler records them, over ``n`` calls
+    (no host time); launches count kernels only, not copies or memsets."""
+    from mpe3d_tpu_torch.tools import gat_timing
+    return gat_timing.device_profile(fn, n)[:2]
+
+
 def device_ms(fn, n: int = 20) -> float:
-    """Device time of one call of ``fn``: the kernels and copies it runs, as
-    torch.profiler records them, over ``n`` calls (no host time)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(max(ev.device_time_total, ev.self_device_time_total)
-               for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA) / 1e3 / n
+    """Device time of one call of ``fn`` (``device_profile``)."""
+    return device_profile(fn, n)[0]
 
 
 def in_turns(kernel, yardstick, n: int = N_TIMED):
@@ -232,16 +238,20 @@ def load_trees(rig_config):
     return (mtree, mcfg) + tuple(load_lifter(DEMO, rig_config))
 
 
-def gat_costs(x, n_weights, dims, E, D):
+def gat_costs(x, n_weights, dims, E, D, edge_const):
     """(bytes, flops) the GAT stack must move and compute for one frame:
     inputs read once (features, weights, pair weights, topology), logits
-    written once; the fc products, attention terms and both softmaxes."""
+    written once; the fc products and attention terms (layer 0 on the H
+    head rows and the one shared edge row under ``edge_const``), and both
+    softmaxes."""
     N = x.shape[0]
-    bytes_ = 4 * (x.numel() + n_weights + E + 2 * E + (N - E) * D) + 4 * E
+    H = N - E
+    rows0 = H + 1 if edge_const else N
+    bytes_ = 4 * (rows0 * x.shape[1] + n_weights + E + 2 * E + H * D) + 4 * E
     flops = 0
     for l, (d_in, d, nh) in enumerate(dims):
-        F = nh * d
-        flops += 2 * N * (d_in * d_in + d_in * F) + 4 * N * F   # fc + attn
+        F, rows = nh * d, rows0 if l == 0 else N
+        flops += 2 * rows * (d_in * d_in + d_in * F) + 4 * rows * F  # fc+attn
         flops += E * F * 6                                      # edge out
         if l < len(dims) - 1:
             flops += 2 * E * F * 2                              # head sums
@@ -258,29 +268,43 @@ def check_kernels(pipe, frame, report):
     m = pipe.matcher
     args = (x_all, pw, gtopo, m.flat, m.dims, m.cfg.alpha,
             m.cfg.hidden_slope)
-    got = gat_kernel.gat_stack(*args)
-    ref = gat_kernel.gat_stack_plain(*args)
-    torch.cuda.synchronize()
-    err = (got - ref).abs()
-    if not bool(torch.isfinite(got).all()) or bool(
-            (err > GAT_RTOL * (1 + ref.abs())).any()):
-        raise AssertionError(f"GAT kernel disagrees with its plain version: "
-                             f"max |d logit| {float(err.max()):.3g}")
-    bytes_, flops = gat_costs(x_all, m.flat.numel(), m.dims, gtopo.n_pairs,
-                              gtopo.inc.shape[1])
+    errs = {}
+    for const in (True, False):
+        got = gat_kernel.gat_stack(*args, edge_const=const)
+        again = gat_kernel.gat_stack(*args, edge_const=const)
+        ref = gat_kernel.gat_stack_plain(*args, edge_const=const)
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        if not bool(torch.isfinite(got).all()) or bool(
+                (err > GAT_RTOL * (1 + ref.abs())).any()):
+            raise AssertionError(f"GAT kernel (edge_const={const}) disagrees "
+                                 f"with its plain version: max |d logit| "
+                                 f"{float(err.max()):.3g}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"GAT kernel (edge_const={const}): two "
+                                 f"calls on the same input differ")
+        errs[const] = float(err.max())
+    costs = {const: bound(*gat_costs(x_all, m.flat.numel(), m.dims,
+                                     gtopo.n_pairs, gtopo.inc.shape[1],
+                                     const)) for const in (True, False)}
+    b_ms, b_by = costs[True]
     report.append({
         "name": "gat_stack", "route": "cuda",
         "source": "mpe3d_tpu_torch/csrc/gat_stack.cu",
         "replaces": "mpe3d_tpu/ops/gat_kernel.py:206",
-        "launches": 0, "max_abs_err": float(err.max()),
-        "ms": median_ms(lambda: gat_kernel.gat_stack(*args)),
-        "plain_ms": median_ms(lambda: gat_kernel.gat_stack_plain(*args)),
-        "bound_ms": 1e3 * max(bytes_ / HBM_BYTES_PER_S, flops / FP32_FLOPS),
-        "bound_by": ("bytes" if bytes_ / HBM_BYTES_PER_S > flops / FP32_FLOPS
-                     else "operations"),
-        "library_ms": None})
-    print(f"  gat_stack: H+E={x_all.shape[0]} rows, max |d logit| "
-          f"{float(err.max()):.3g} (tol {GAT_RTOL:g} x (1+|logit|))")
+        "launches": 0, "max_abs_err": max(errs.values()),
+        "ms": median_ms(lambda: gat_kernel.gat_stack(*args,
+                                                     edge_const=True)),
+        "plain_ms": median_ms(lambda: gat_kernel.gat_stack_plain(
+            *args, edge_const=True)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    print(f"  gat_stack: H+E={x_all.shape[0]} rows, max |d logit| with "
+          f"edge_const {errs[True]:.3g}, without {errs[False]:.3g} (tol "
+          f"{GAT_RTOL:g} x (1+|logit|)), two calls bit-equal in both; bound "
+          f"with edge_const (the pipeline's function) {b_ms:.5f} ms "
+          f"({b_by}), all rows projected at layer 0 {costs[False][0]:.5f} "
+          f"ms; all rows: "
+          f"{median_ms(lambda: gat_kernel.gat_stack(*args)):.4f} ms")
 
     lifter = pipe.lifter
     layers = lifter.packed_layers()
@@ -361,9 +385,12 @@ def check_kernels(pipe, frame, report):
           f"one-layer run (M={nets.shape[0]}), ms / device ms: "
           + ", ".join(f"{t:.4f} / {d:.4f}" for t, d in one_ms))
     k = report[0]
+    dev, n_k = device_profile(lambda: gat_kernel.gat_stack(*args,
+                                                           edge_const=True))
     print(f"  {k['name']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
           f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library "
-          f"{k['library_ms']}")
+          f"{k['library_ms']}; device time alone (profiler) {dev:.4f} ms, "
+          f"{n_k:g} CUDA launches a call")
 
 
 def mlp_costs(layers, M):
@@ -574,39 +601,58 @@ def check_proj_kernel(cases, report):
 
 
 def check_stack_trained(label, x, pw, gtopo, m, tiled_topo=None):
-    """The stack GAT kernel against its plain version on the trained
-    matcher, with each one's largest |d logit| / (1 + |logit|) from an fp64
-    evaluation (and the tiled kernels' on the same call when
-    ``tiled_topo`` is given); prints the call ms."""
+    """The stack GAT kernel (with ``edge_const``, as the pipeline serves it)
+    against its plain version on the trained matcher, bit-equal across two
+    calls, with each one's largest |d logit| / (1 + |logit|) from an fp64
+    evaluation held to GAT_FP64_TOL (and the tiled kernels' on the same call
+    when ``tiled_topo`` is given); prints the call ms, device ms and CUDA
+    launches a call."""
     import torch
     from mpe3d_tpu_torch.ops import gat_kernel, gat_tiled
     args = (x, pw, gtopo, m.flat, m.dims, m.cfg.alpha, m.cfg.hidden_slope)
-    got = gat_kernel.gat_stack(*args)
-    ref = gat_kernel.gat_stack_plain(*args)
+    got = gat_kernel.gat_stack(*args, edge_const=True)
+    again = gat_kernel.gat_stack(*args, edge_const=True)
+    ref = gat_kernel.gat_stack_plain(*args, edge_const=True)
     exact = gat_kernel.gat_stack_plain(x.double(), pw.double(), gtopo,
                                        m.flat.double(), m.dims, m.cfg.alpha,
-                                       m.cfg.hidden_slope)
+                                       m.cfg.hidden_slope, edge_const=True)
     torch.cuda.synchronize()
     rel = lambda v: float(  # noqa: E731
         ((v.double() - exact).abs() / (1 + exact.abs())).max())
     err = (got - ref).abs()
+    dist = {"gat_stack": rel(got)}
     note = f"to fp64: kernel {rel(got):.3g}, plain {rel(ref):.3g}"
+    equal = torch.equal(got, again)
     if tiled_topo is not None:
-        tiled = gat_tiled.gat_stack_tiled(x, pw, tiled_topo, m.flat, m.dims,
-                                          m.cfg.alpha, m.cfg.hidden_slope,
-                                          edge_const=True)
+        targs = (x, pw, tiled_topo, m.flat, m.dims, m.cfg.alpha,
+                 m.cfg.hidden_slope)
+        tiled = gat_tiled.gat_stack_tiled(*targs, edge_const=True)
+        tiled2 = gat_tiled.gat_stack_tiled(*targs, edge_const=True)
         torch.cuda.synchronize()
+        equal = equal and torch.equal(tiled, tiled2)
+        dist["tiled kernels"] = rel(tiled)
         note += (f", tiled kernels {rel(tiled):.3g} (stack / tiled "
                  f"{rel(got) / max(rel(tiled), 1e-30):.3g})")
-    ms = median_ms(lambda: gat_kernel.gat_stack(*args))
-    print(f"  gat_stack {label}, trained matcher: H+E={x.shape[0]}, max "
-          f"|d logit| {float(err.max()):.3g} (tol {GAT_RTOL:g} x "
-          f"(1+|logit|)); {note}; {ms:.4f} ms")
+    call = lambda: gat_kernel.gat_stack(*args, edge_const=True)  # noqa: E731
+    ms = median_ms(call)
+    dev, n_k = device_profile(call)
+    print(f"  gat_stack {label}, trained matcher, edge_const: H+E="
+          f"{x.shape[0]}, max |d logit| {float(err.max()):.3g} (tol "
+          f"{GAT_RTOL:g} x (1+|logit|)); {note} (tol {GAT_FP64_TOL:g}); "
+          f"two calls bit-equal: {equal}; {ms:.4f} ms, device time alone "
+          f"(profiler) {dev:.4f} ms, {n_k:g} CUDA launches a call")
     if not bool(torch.isfinite(got).all()) or bool(
             (err > GAT_RTOL * (1 + ref.abs())).any()):
         raise AssertionError(f"gat_stack {label}, trained matcher: disagrees "
                              f"with its plain version: max |d logit| "
                              f"{float(err.max()):.3g}")
+    if not equal:
+        raise AssertionError(f"GAT {label}: two calls on the same input "
+                             f"differ")
+    far = {k: v for k, v in dist.items() if not v <= GAT_FP64_TOL}
+    if far:
+        raise AssertionError(f"GAT {label}: distance from fp64 {far} past "
+                             f"{GAT_FP64_TOL:g} x (1 + |logit|)")
 
 
 def frame_costs(args, kw, out):
@@ -834,7 +880,8 @@ def check_tiled_case(label, x, pw, gtopo, m, stack_topo=None):
     note = f"; to fp64: kernels {rel(got):.3g}, plain {rel(ref):.3g}"
     if stack_topo is not None:
         st = gat_kernel.gat_stack(x, pw, stack_topo, m.flat, m.dims,
-                                  m.cfg.alpha, m.cfg.hidden_slope)
+                                  m.cfg.alpha, m.cfg.hidden_slope,
+                                  edge_const=True)
         torch.cuda.synchronize()
         serr = (got - st).abs()
         if bool((serr > GAT_RTOL * (1 + st.abs())).any()):
@@ -882,10 +929,12 @@ def time_tiled_kernels(label, x, pw, gtopo, m):
             "plain_ms": median_ms(lambda c=plain: [k() for k in c]),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
         r = rows[-1]
+        dev, n_k = device_profile(lambda c=calls: [k() for k in c])
         print(f"  {name} {label} ({len(calls)} calls a stack): "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{b_ms:.5f} ms ({b_by}: {b} bytes, {f} operations), "
-              f"library None")
+              f"library None; device time alone (profiler) {dev:.4f} ms, "
+              f"{n_k / len(calls):g} CUDA launches a call")
     return rows
 
 
@@ -1165,7 +1214,7 @@ def main() -> int:
     spills = [ln.strip() for ln in lib.compiler_output.splitlines()
               if "spill" in ln and not ln.strip().startswith(
                   "0 bytes stack frame, 0 bytes spill")]
-    for name in ("proj_gemm_kernel", "mlp_bf16_run_kernel"):
+    for name in ("f64_gemm_kernel", "stack_out", "mlp_bf16_run_kernel"):
         print(f"  ptxas, {name}: " + "; ".join(ptxas_report(
             lib.compiler_output, name)), flush=True)
     phase("build", t0, f"nvcc {lib.build_seconds:.1f} s; ptxas: "

@@ -25,10 +25,20 @@
 // the GAT widths 902 and 150), else in 4-byte ones.  Out-of-range rows,
 // columns and k are zero-filled by the copy itself.
 //
-// Used by fused_proj.cu; meant for the fc GEMMs of gat_stack.cu and
-// gat_tiled.cu (K1), which still run the fp64 SIMT GEMM of fp32_gemm.cuh.
+// On it, f64_gemm (end of this header) is the one GEMM of the three GAT
+// kernels: the fc1/fc2 products of gat_stack.cu, of K1 in gat_tiled.cu and
+// of the projection in fused_proj.cu.  It tiles C in 64 x 64 block tiles
+// with a fused bias (+ LeakyReLU) epilogue and splits k over the blocks of
+// a thread-block cluster where a GEMM has fewer tiles than the card has
+// SMs; the split counts come from the tile plan
+// (ops/fused_proj.py::gemm_plan).
+//
+// Internal linkage: every .cu that includes this header gets its own copy
+// of the kernel, so the one shared library links without duplicate
+// symbols.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -218,6 +228,132 @@ __device__ __forceinline__ int f64_acc_row(int mi, int e) {
 __device__ __forceinline__ int f64_acc_col(int ni, int e) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   return (warp & 1) * F64_WN + ni * 8 + (lane & 3) * 2 + (e & 1);
+}
+
+__device__ __forceinline__ float leaky(float v, float a) {
+  return v >= 0.f ? v : a * v;
+}
+
+constexpr int F64_TILE = F64_BM * F64_BN;
+constexpr int F64_MAX_SPLITS = 8;   // portable cluster size
+
+// C[M, N] (row stride ldc) = epi(A[M, K] (row stride lda) B[K, N] + bias);
+// epi = LeakyReLU(alpha) if act.  Launched in clusters of ``splits`` blocks
+// along x: block b is split b % splits (its cluster rank) of tile
+// b / splits, tiles row-major over (row tile, column tile), as the plan
+// enumerates them (GemmPlan.block_work).  Split s takes the k-stages
+// [s ksteps / splits, (s + 1) ksteps / splits).  With one split the block
+// rounds acc + bias to fp32 once and stores it.  With more, each block
+// leaves its fp64 partial tile in its own (now idle) ring, the cluster
+// synchronises, and block r sums slice r of the tile over the cluster's
+// blocks in split order through distributed shared memory: no partial
+// goes to device memory, no counters, no atomics, the same bits every run.
+__global__ void __launch_bounds__(F64_THREADS)
+f64_gemm_kernel(const float* __restrict__ A, int lda,
+                const float* __restrict__ B, const float* __restrict__ bias,
+                float* __restrict__ C, int ldc, int M, int N, int K,
+                int splits, float alpha, int act) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char smem[];
+  F64Smem& s = *reinterpret_cast<F64Smem*>(smem);
+  const int tiles_n = (N + F64_BN - 1) / F64_BN;
+  const int ksteps = (K + F64_BK - 1) / F64_BK;
+  const int tile = blockIdx.x / splits, split = blockIdx.x % splits;
+  const int row0 = (tile / tiles_n) * F64_BM, col0 = (tile % tiles_n) * F64_BN;
+  const int ks0 = (int)((long long)split * ksteps / splits);
+  const int ks1 = (int)((long long)(split + 1) * ksteps / splits);
+
+  F64Acc acc;
+#pragma unroll
+  for (int mi = 0; mi < F64_MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < F64_NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0;
+  f64_tile_product(s, A, lda, B, M, N, K, row0, col0, ks0, ks1, acc);
+
+  if (splits == 1) {
+#pragma unroll
+    for (int mi = 0; mi < F64_MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < F64_NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = row0 + f64_acc_row(mi, e);
+          const int c = col0 + f64_acc_col(ni, e);
+          if (r < M && c < N) {
+            const float v = float(acc[mi][ni][e] + double(bias[c]));
+            C[(size_t)r * ldc + c] = act ? leaky(v, alpha) : v;
+          }
+        }
+    return;
+  }
+
+  // the partial tile in this block's (now idle) ring: 32 KB of its 74 KB
+  double* part = reinterpret_cast<double*>(smem);
+  static_assert(sizeof(double) * F64_TILE <= sizeof(F64Smem), "tile fits");
+#pragma unroll
+  for (int mi = 0; mi < F64_MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < F64_NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        part[f64_acc_row(mi, e) * F64_BN + f64_acc_col(ni, e)] =
+            acc[mi][ni][e];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int i0 = split * F64_TILE / splits;
+  const int i1 = (split + 1) * F64_TILE / splits;
+  for (int i = i0 + threadIdx.x; i < i1; i += F64_THREADS) {
+    const int r = row0 + i / F64_BN, c = col0 + i % F64_BN;
+    if (r >= M || c >= N) continue;
+    // all the cluster's partials in flight at once, then summed in order
+    double v[F64_MAX_SPLITS];
+#pragma unroll
+    for (int p = 0; p < F64_MAX_SPLITS; ++p)
+      v[p] = p < splits ? cluster.map_shared_rank(part, p)[i] : 0.0;
+    double sum = 0.0;
+#pragma unroll
+    for (int p = 0; p < F64_MAX_SPLITS; ++p)
+      if (p < splits) sum += v[p];
+    const float out = float(sum + double(bias[c]));
+    C[(size_t)r * ldc + c] = act ? leaky(out, alpha) : out;
+  }
+  cluster.sync();   // no block leaves while another reads its tile
+}
+
+// Launch f64_gemm_kernel on ``stream`` (one CUDA launch); returns the
+// launch's error.  Refuses splits outside [1, min(8, k-stages)].  The
+// shared-memory attribute is set once per process.
+inline cudaError_t f64_gemm(const float* A, int lda, const float* B,
+                            const float* bias, float* C, int ldc, int M,
+                            int N, int K, int splits, float alpha, int act,
+                            cudaStream_t stream) {
+  static const cudaError_t setup = cudaFuncSetAttribute(
+      f64_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(F64Smem));
+  if (setup != cudaSuccess) return setup;
+  const int ksteps = (K + F64_BK - 1) / F64_BK;
+  if (M < 1 || N < 1 || K < 1 || lda < K || ldc < N || splits < 1 ||
+      splits > F64_MAX_SPLITS || splits > ksteps)
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((M + F64_BM - 1) / F64_BM) *
+                     ((N + F64_BN - 1) / F64_BN) * splits);
+  cfg.blockDim = dim3(F64_THREADS);
+  cfg.dynamicSmemBytes = sizeof(F64Smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, f64_gemm_kernel, A, lda,
+                                             B, bias, C, ldc, M, N, K,
+                                             splits, alpha, act);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace

@@ -1,8 +1,9 @@
-// GAT matcher stack (alt-3 graph, inference) for Hopper, in fp32 CUDA cores.
+// GAT matcher stack (alt-3 graph, inference) for Hopper: the fc products on
+// the fp64 tensor cores, the attention on the CUDA cores.
 //
 // Replaces the TPU kernel mpe3d_tpu/ops/gat_kernel.py::_gat_megakernel
-// (pallas_call at :232; body gat_stack_values :95-200).  Python side and
-// plain PyTorch version: mpe3d_tpu_torch/ops/gat_kernel.py.
+// (pallas_call at :232; body gat_stack_values :95-200).  Python side, tile
+// plan and plain PyTorch version: mpe3d_tpu_torch/ops/gat_kernel.py.
 //
 // Per layer (rows n < H are head nodes, rows H..H+E-1 edge nodes):
 //   h1 = leaky(x w1 + b1, alpha);  z = h1 w2 + b2            [N, F = nh*d]
@@ -13,6 +14,10 @@
 //            incident edges weighted by pw (0 = dead pair)
 //   between layers: leaky(out, slope)
 // The last layer (F = 1) writes the edge logits and skips the head branch.
+// With edge_const (the caller's statement, never inferred: every edge row
+// of x is the same vector, the alt-3 edge one-hot) layer 0 projects and
+// scores rows 0..H only, and every edge reads row H of z; layers 1-4 are
+// unchanged.
 //
 // Translation from the TPU kernel: the TPU form gathers endpoint rows and
 // scatters head sums with 0/1 incidence matmuls (inc1/inc2 [E, H]) and
@@ -21,107 +26,113 @@
 // each d-block is reduced directly, and each head sums over its own list
 // of incident edges (inc [H, D], built on the host from the topology).
 //
-// Bound on an H100 SXM at the serving bucket (H=20, E=160, 902-dim input):
-// 180 rows x 2 x 1.96 M weights = 0.70 GFLOP of fp32 FMA, 10.5 us at the
-// 67 TFLOP/s non-tensor-core peak; the 7.8 MB of fp32 weights are 2.3 us at
-// 3.35 TB/s.  Compute-bound.  This first version is simple and right: a
-// tiled GEMM with a fused bias + LeakyReLU epilogue for fc1 and fc2, then
-// three small kernels per layer (attention terms, edge destinations, head
-// destinations) -- 24 launches for the 5-layer stack, issued from one host
-// call.  No tensor cores and no TF32: rounded operands move scores across
-// the 0.5 decision threshold.
+// Bound on an H100 SXM at the serving bucket (H=20, E=160, 902-dim input,
+// the 1.96 M-weight 5-layer stack) under edge_const: 21 rows x 2 x 1.174 M
+// weights at layer 0 and 180 rows x 2 x 0.781 M at layers 1-4, 0.33 GFLOP,
+// 4.9 us at 67 TFLOP/s (the fp64 tensor-core peak, m16n8k8); the 7.8 MB of
+// weights are 2.3 us at 3.35 TB/s (0.70 GFLOP, 10.5 us, with all 180 rows
+// projected at layer 0).  On the card the stack is a chain of dependent
+// launches, each only a few microseconds of work at S=4, so launch and
+// fill latency bound it there; at S=16 (2640 rows) the fc products do.
 //
-// Precision, as in gat_tiled.cu: fp32 operands and stored activations; the
-// sums -- the fc products, the attention terms and the head sums -- are
-// accumulated in fp64 (each fp32 product is exact there) and rounded to
-// fp32 once.  With fp32 sums along k this kernel was 1e-4-level from an fp64
-// evaluation on the trained matcher's logits at S=16, ten times the tiled
-// kernels' (chip_smoke.py phase 3 prints both).
+// Design: per layer three CUDA launches, 15 for the 5-layer stack (24 in
+// the first form: a SIMT fp64 GEMM of 3-45 blocks a product, and separate
+// attention-term, edge and head kernels).
+//   * fc1 and fc2 on f64_gemm (f64_mma.cuh, shared with K1 and the
+//     projection): 64 x 64 tiles on mma.sync.m16n8k8.f64, k split over a
+//     thread-block cluster and summed in split order through distributed
+//     shared memory.  The split counts are the tile plan's per layer
+//     (ops/fused_proj.py::gemm_plan on the rows each GEMM really has),
+//     passed in by the caller, so the one host call drives the stack and
+//     the 132 SMs are filled wherever 8 splits can fill them.
+//   * stack_out: the edge and head outputs of the layer in one launch;
+//     blocks 0..H-1 take a head each (none on the last layer), the rest
+//     EDGE_TILE edges each.  A 64-column fc2 tile does not hold whole heads
+//     (d = 40, 30), so the attention terms are not folded into the fc2
+//     epilogue; each stack_out block computes the terms it reads (its
+//     rows' and their endpoints' or incident edges') into shared memory
+//     first, with the same fp64 sum in the same order as a separate pass,
+//     which removes that launch and the att round trip.
+// No atomics anywhere: two calls give the same bits.
+//
+// Precision: fp32 operands and stored activations; the sums -- the fc
+// products, the attention terms and the head sums -- are accumulated in
+// fp64 (each fp32 product is exact there) and rounded to fp32 once.  With
+// fp32 sums along k this kernel was 1e-4-level from an fp64 evaluation on
+// the trained matcher's logits at S=16, ten times the tiled kernels'
+// (chip_smoke.py phase 3 prints both).
 
-#include "fp32_gemm.cuh"
+#include <cuda_runtime.h>
+
+#include "f64_mma.cuh"
 
 namespace {
 
-using mpe3d::launch_gemm;
+using mpe3d::f64_gemm;
 using mpe3d::leaky;
 
 constexpr int MAX_NH = 16;                 // attention heads per layer
 constexpr int MAX_D = 64;                  // incident edges per head
+constexpr int OUT_THREADS = 256;           // threads of a stack_out block
+constexpr int EDGE_TILE = 2;               // edges of a stack_out edge block
 
-// att[n, 0:nh] = a1, att[n, nh:2nh] = a2; one thread per (row, head).
-__global__ void attn_terms(const float* __restrict__ z,
+// One attention term: <z[n, k-block], attn[k]>, an fp64 sum over the
+// block's d features in order, rounded to fp32 once.
+__device__ __forceinline__ float att_term(const float* __restrict__ z,
+                                          const float* __restrict__ attn,
+                                          int n, int k, int F, int d) {
+  const float* zr = z + (size_t)n * F + k * d;
+  const float* ar = attn + k * d;
+  double s = 0.0;
+#pragma unroll 8
+  for (int j = 0; j < d; ++j) s = fma(double(zr[j]), double(ar[j]), s);
+  return float(s);
+}
+
+// Head destination h: the exact max over {self} + live incident edges, the
+// softmax weights, then each feature's weighted sum.
+__device__ void head_block(const float* __restrict__ z,
                            const float* __restrict__ attn_l,
                            const float* __restrict__ attn_r,
-                           float* __restrict__ att, int N, int nh, int d) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= N * nh) return;
-  const int n = t / nh, k = t % nh;
-  const float* zr = z + (size_t)n * nh * d + k * d;
-  double s1 = 0.0, s2 = 0.0;
-  for (int j = 0; j < d; ++j) {
-    s1 = fma(double(zr[j]), double(attn_l[k * d + j]), s1);
-    s2 = fma(double(zr[j]), double(attn_r[k * d + j]), s2);
-  }
-  att[(size_t)n * 2 * nh + k] = float(s1);
-  att[(size_t)n * 2 * nh + nh + k] = float(s2);
-}
-
-// Edge destinations: one thread per (edge, feature).  Writes the next
-// layer's activation row H+e (leaky applied), or the logit on the last layer.
-__global__ void edge_out(const float* __restrict__ z,
-                         const float* __restrict__ att,
-                         const int* __restrict__ e1, const int* __restrict__ e2,
-                         int H, int E, int nh, int d, float alpha, float slope,
-                         int last, float* __restrict__ xout) {
-  const int F = nh * d;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= E * F) return;
-  const int e = t / F, f = t % F, k = f / d;
-  const int n = H + e, h1 = e1[e], h2 = e2[e];
-  const float a2e = att[(size_t)n * 2 * nh + nh + k];
-  const float l0 = leaky(att[(size_t)n * 2 * nh + k] + a2e, alpha);
-  const float l1 = leaky(att[(size_t)h1 * 2 * nh + k] + a2e, alpha);
-  const float l2 = leaky(att[(size_t)h2 * 2 * nh + k] + a2e, alpha);
-  const float mx = fmaxf(l0, fmaxf(l1, l2));
-  const float x0 = expf(l0 - mx), x1 = expf(l1 - mx), x2 = expf(l2 - mx);
-  const float s = x0 + x1 + x2;
-  const float v = (x0 / s) * z[(size_t)n * F + f]
-                + (x1 / s) * z[(size_t)h1 * F + f]
-                + (x2 / s) * z[(size_t)h2 * F + f];
-  xout[(size_t)(last ? e : n) * F + f] = last ? v : leaky(v, slope);
-}
-
-// Head destinations: one block per head.  Threads k < nh first find the
-// exact max over {self} + live incident edges and the softmax weights,
-// then all threads form each feature's weighted sum.
-__global__ void head_out(const float* __restrict__ z,
-                         const float* __restrict__ att,
-                         const float* __restrict__ pw,
-                         const int* __restrict__ inc, int H, int D, int nh,
-                         int d, float alpha, float slope,
-                         float* __restrict__ xout) {
+                           const float* __restrict__ pw,
+                           const int* __restrict__ inc, int h, int H, int D,
+                           int nh, int d, int edge_const, float alpha,
+                           float slope, float* __restrict__ xout) {
+  __shared__ float a1e[MAX_D][MAX_NH];     // a1 of each incident edge row
+  __shared__ float a1h[MAX_NH], a2h[MAX_NH];
   __shared__ float wself[MAX_NH], denom[MAX_NH];
   __shared__ float wedge[MAX_D][MAX_NH];
-  const int h = blockIdx.x, F = nh * d;
-  const int* hinc = inc + (size_t)h * D;
+  __shared__ int row[MAX_D];               // z row of each incident edge
+  __shared__ float epw[MAX_D];             // its pair weight
+  const int F = nh * d;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    const int e = inc[(size_t)h * D + i];
+    row[i] = H + (edge_const ? 0 : e);
+    epw[i] = pw[e];
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < (D + 2) * nh; t += blockDim.x) {
+    const int i = t / nh, k = t % nh;
+    if (i < D)
+      a1e[i][k] = att_term(z, attn_l, row[i], k, F, d);
+    else if (i == D)
+      a1h[k] = att_term(z, attn_l, h, k, F, d);
+    else
+      a2h[k] = att_term(z, attn_r, h, k, F, d);
+  }
+  __syncthreads();
   if (threadIdx.x < nh) {
     const int k = threadIdx.x;
-    const float a2h = att[(size_t)h * 2 * nh + nh + k];
-    const float ls = leaky(att[(size_t)h * 2 * nh + k] + a2h, alpha);
+    const float ls = leaky(a1h[k] + a2h[k], alpha);
     float m = ls;
-    for (int i = 0; i < D; ++i) {
-      const int e = hinc[i];
-      if (pw[e] > 0.f)
-        m = fmaxf(m, leaky(att[(size_t)(H + e) * 2 * nh + k] + a2h, alpha));
-    }
+    for (int i = 0; i < D; ++i)
+      if (epw[i] > 0.f) m = fmaxf(m, leaky(a1e[i][k] + a2h[k], alpha));
     const float es = expf(ls - m);
     double den = es;
     for (int i = 0; i < D; ++i) {
-      const int e = hinc[i];
       float x = 0.f;
-      if (pw[e] > 0.f)
-        x = expf(leaky(att[(size_t)(H + e) * 2 * nh + k] + a2h, alpha) - m)
-            * pw[e];
+      if (epw[i] > 0.f)
+        x = expf(leaky(a1e[i][k] + a2h[k], alpha) - m) * epw[i];
       wedge[i][k] = x;
       den += x;
     }
@@ -132,26 +143,89 @@ __global__ void head_out(const float* __restrict__ z,
   for (int f = threadIdx.x; f < F; f += blockDim.x) {
     const int k = f / d;
     double num = double(wself[k]) * z[(size_t)h * F + f];
+#pragma unroll 8
     for (int i = 0; i < D; ++i)
-      num = fma(double(wedge[i][k]), double(z[(size_t)(H + hinc[i]) * F + f]),
-                num);
+      num = fma(double(wedge[i][k]), double(z[(size_t)row[i] * F + f]), num);
     xout[(size_t)h * F + f] = leaky(float(num) / denom[k], slope);
   }
+}
+
+// Edge destinations e0 .. e0 + EDGE_TILE - 1: the softmax over {self,
+// head e1, head e2} gives the edge's next activation row H+e (leaky
+// applied), or its logit on the last layer.
+__device__ void edge_block(const float* __restrict__ z,
+                           const float* __restrict__ attn_l,
+                           const float* __restrict__ attn_r,
+                           const int* __restrict__ e1,
+                           const int* __restrict__ e2, int e0, int H, int E,
+                           int nh, int d, int edge_const, float alpha,
+                           float slope, int last, float* __restrict__ xout) {
+  // terms: 0 a1 of the edge row, 1 a2 of the edge row, 2/3 a1 of head e1/e2
+  __shared__ float term[EDGE_TILE][4][MAX_NH];
+  const int F = nh * d, ne = min(EDGE_TILE, E - e0);
+  for (int t = threadIdx.x; t < ne * 4 * nh; t += blockDim.x) {
+    const int j = t / (4 * nh), w = (t / nh) % 4, k = t % nh, e = e0 + j;
+    const int n = w < 2 ? H + (edge_const ? 0 : e) : (w == 2 ? e1[e] : e2[e]);
+    term[j][w][k] = att_term(z, w == 1 ? attn_r : attn_l, n, k, F, d);
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < ne * F; t += blockDim.x) {
+    const int j = t / F, f = t % F, k = f / d, e = e0 + j;
+    const int n = H + (edge_const ? 0 : e), h1 = e1[e], h2 = e2[e];
+    const float a2e = term[j][1][k];
+    const float l0 = leaky(term[j][0][k] + a2e, alpha);
+    const float l1 = leaky(term[j][2][k] + a2e, alpha);
+    const float l2 = leaky(term[j][3][k] + a2e, alpha);
+    const float mx = fmaxf(l0, fmaxf(l1, l2));
+    const float x0 = expf(l0 - mx), x1 = expf(l1 - mx), x2 = expf(l2 - mx);
+    const float s = x0 + x1 + x2;
+    const float v = (x0 / s) * z[(size_t)n * F + f]
+                  + (x1 / s) * z[(size_t)h1 * F + f]
+                  + (x2 / s) * z[(size_t)h2 * F + f];
+    if (last)
+      xout[e] = v;
+    else
+      xout[(size_t)(H + e) * F + f] = leaky(v, slope);
+  }
+}
+
+// The layer's outputs: blocks 0..n_head_blocks-1 heads, the rest edge
+// tiles.  xout: the next activations [H + E, F], or the logits [E].
+__global__ void __launch_bounds__(OUT_THREADS)
+stack_out(const float* __restrict__ z, const float* __restrict__ attn_l,
+          const float* __restrict__ attn_r, const float* __restrict__ pw,
+          const int* __restrict__ e1, const int* __restrict__ e2,
+          const int* __restrict__ inc, int H, int E, int D, int nh, int d,
+          int edge_const, float alpha, float slope, int last,
+          float* __restrict__ xout) {
+  const int n_head_blocks = last ? 0 : H;
+  if ((int)blockIdx.x < n_head_blocks)
+    head_block(z, attn_l, attn_r, pw, inc, blockIdx.x, H, D, nh, d,
+               edge_const, alpha, slope, xout);
+  else
+    edge_block(z, attn_l, attn_r, e1, e2,
+               ((int)blockIdx.x - n_head_blocks) * EDGE_TILE, H, E, nh, d,
+               edge_const, alpha, slope, last, xout);
 }
 
 }  // namespace
 
 // Whole stack for one frame.  weights: per layer, flat and in order,
 // w1 [d_in, d_in], b1 [d_in], w2 [d_in, F], b2 [F], attn_l [F], attn_r [F].
-// dims (host): per layer d_in, d_out, nh.  Scratch (device): h1 [N, max d_in],
-// z / xa / xb [N, max F], att [N, 2 max nh].  out: [E] logits.
+// dims (host): per layer d_in, d_out, nh; splits (host): per layer the
+// k-splits of fc1 and fc2 (the tile plan's, 1..8 each).  edge_const: every
+// edge row of x0 is the same vector (layer 0 projects rows 0..H).  Scratch
+// (device): h1 [N, ldh] with ldh = max d_in rounded up to 4 floats, z / xa
+// / xb [N, max F].  out: [E] logits.  3 launches a layer on ``stream``, no
+// synchronisation.
 extern "C" int gat_stack_forward(
     const float* x0, const float* pw, const int* e1, const int* e2,
-    const int* inc, const float* weights, const int* dims, int n_layers,
-    int H, int E, int D, float alpha, float slope, float* h1, float* z,
-    float* att, float* xa, float* xb, float* out, cudaStream_t stream) {
+    const int* inc, const float* weights, const int* dims, const int* splits,
+    int n_layers, int H, int E, int D, int edge_const, float alpha,
+    float slope, float* h1, float* z, float* xa, float* xb, float* out,
+    cudaStream_t stream) {
   const int N = H + E;
-  if (D > MAX_D) return cudaErrorInvalidValue;
+  if (D > MAX_D || H < 1 || E < 1) return cudaErrorInvalidValue;
   const float* x = x0;
   const float* w = weights;
   for (int l = 0; l < n_layers; ++l) {
@@ -166,19 +240,22 @@ extern "C" int gat_stack_forward(
     const float* ar = al + F;
     w = ar + F;
     const bool last = l == n_layers - 1;
-    float* xo = (l % 2 == 0) ? xa : xb;
+    const int cst = (edge_const && l == 0) ? 1 : 0;
+    const int rows = cst ? H + 1 : N;
+    const int ldh = (d_in + 3) / 4 * 4;   // 16-byte rows for fc2's copies
+    float* xo = last ? out : (l % 2 == 0) ? xa : xb;
 
-    launch_gemm<double>(x, w1, b1, h1, N, d_in, d_in, alpha, 1, stream);
-    launch_gemm<double>(h1, w2, b2, z, N, F, d_in, 0.f, 0, stream);
-    attn_terms<<<(N * nh + 127) / 128, 128, 0, stream>>>(z, al, ar, att, N,
-                                                         nh, d);
-    edge_out<<<(E * F + 127) / 128, 128, 0, stream>>>(
-        z, att, e1, e2, H, E, nh, d, alpha, slope, last ? 1 : 0,
-        last ? out : xo);
-    if (!last)
-      head_out<<<H, 128, 0, stream>>>(z, att, pw, inc, H, D, nh, d, alpha,
-                                      slope, xo);
-    const cudaError_t err = cudaGetLastError();
+    cudaError_t err = f64_gemm(x, d_in, w1, b1, h1, ldh, rows, d_in, d_in,
+                               splits[2 * l], alpha, 1, stream);
+    if (err != cudaSuccess) return err;
+    err = f64_gemm(h1, ldh, w2, b2, z, F, rows, F, d_in, splits[2 * l + 1],
+                   0.f, 0, stream);
+    if (err != cudaSuccess) return err;
+    stack_out<<<(last ? 0 : H) + (E + EDGE_TILE - 1) / EDGE_TILE,
+                OUT_THREADS, 0, stream>>>(z, al, ar, pw, e1, e2, inc, H, E,
+                                          D, nh, d, cst, alpha, slope,
+                                          last ? 1 : 0, xo);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     x = xo;
   }

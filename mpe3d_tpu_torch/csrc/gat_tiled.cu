@@ -1,5 +1,6 @@
-// Grid-tiled GAT matcher layer (alt-3 graph, inference) for Hopper, in fp32
-// CUDA cores: the crowded-bucket form of the GAT stack.
+// Grid-tiled GAT matcher layer (alt-3 graph, inference) for Hopper: the
+// crowded-bucket form of the GAT stack; the fc products on the fp64 tensor
+// cores, the attention on the CUDA cores.
 //
 // Replaces the two TPU kernels of mpe3d_tpu/ops/gat_tiled.py:
 //   K1 = _k1_layer (:86, pallas_call :194): the fc1 -> LeakyReLU -> fc2
@@ -31,26 +32,31 @@
 // accumulated in fp64 (each fp32 product is exact there) and rounded to fp32
 // once.  The trained matcher's logits reach |130| and cancel heavily near 0,
 // so fp32 rounding differences grow there: the first form of this kernel,
-// with fp32 sums along k (the GEMM gat_stack.cu uses), was 1.46e-3 from its
-// plain version at Panoptic S=10, past the 1e-4 x (1 + |logit|) it is held
-// to (chip_smoke.py prints each form's distance from an fp64 evaluation).
-// fp64 sums run at the card's 34 TFLOP/s FP64 rate, half the fp32 one.
+// with fp32 sums along k, was 1.46e-3 from its plain version at Panoptic
+// S=10, past the 1e-4 x (1 + |logit|) it is held to (chip_smoke.py prints
+// each form's distance from an fp64 evaluation).
 //
 // Bound on an H100 SXM at Panoptic S=16 (H=80, E=2560, the 1.96 M-weight
 // 5-layer stack, edge_const): 81 rows x 2 x 1.174 M weights for layer 0 and
-// 2640 rows x 2 x 0.781 M for layers 1-4, about 4.3 GFLOP of fp32 FMA,
-// 64 us at the 67 TFLOP/s non-tensor-core peak; compute-bound.  This first
-// version is simple and right: the shared tiled GEMM (fp64 sums) for the
-// projection, then small kernels; per layer K1 is 5 launches (2 GEMMs,
-// attention terms, edge kernel, head max) and K2 one.
-
+// 2640 rows x 2 x 0.781 M for layers 1-4, 4.31 GFLOP, 64.3 us at 67 TFLOP/s
+// (the fp64 tensor-core peak, m16n8k8); compute-bound, the fc products of
+// layers 1-4 almost all of it (K2 moves 4 MB and computes little).
+//
+// Design: K1's fc1 and fc2 run on f64_gemm (f64_mma.cuh, shared with
+// gat_stack.cu and the projection): 64 x 64 tiles on mma.sync.m16n8k8.f64
+// at twice the fp64 SIMT rate of the first form.  Layers 1-4 have 2640
+// rows (42 x 7 tiles at fc1) and run unsplit; layer 0 under edge_const has
+// 81 rows (2 row tiles), so the tile plan (ops/fused_proj.py::gemm_plan,
+// passed in per call) splits its k over a thread-block cluster to fill the
+// card.  The attention terms, the edge kernel and the head max keep their
+// arithmetic: K1 is 5 launches a layer (4 on the last), K2 one.
 #include <math_constants.h>
 
-#include "fp32_gemm.cuh"
+#include "f64_mma.cuh"
 
 namespace {
 
-using mpe3d::launch_gemm;
+using mpe3d::f64_gemm;
 using mpe3d::leaky;
 
 constexpr int MAX_NH = 16;       // attention heads per layer
@@ -68,6 +74,7 @@ __global__ void attn_terms(const float* __restrict__ z,
   const int n = t / nh, k = t % nh;
   const float* zr = z + (size_t)n * nh * d + k * d;
   double s1 = 0.0, s2 = 0.0;
+#pragma unroll 8
   for (int j = 0; j < d; ++j) {
     s1 = fma(double(zr[j]), double(attn_l[k * d + j]), s1);
     s2 = fma(double(zr[j]), double(attn_r[k * d + j]), s2);
@@ -259,23 +266,29 @@ k2_heads(const float* __restrict__ l1m, const float* __restrict__ l2m,
 
 // K1 of one layer.  x: rows 0..H-1 heads, then edge rows (only row H is read
 // under edge_const); w1 [d_in, d_in], b1 [d_in], w2 [d_in, F], b2 [F],
-// attn_l/attn_r [F].  Scratch: h1 [rows, d_in], z [rows, F], att [rows, 2 nh]
-// with rows = H + (edge_const ? 1 : E).  Outputs: l1m/l2m [E, nh], m [H, nh],
-// and xout: the logits [E] on the last layer, else the next layer's
-// activations [H + E, F], of which K1 writes the edge rows.
+// attn_l/attn_r [F].  s1, s2: the k-splits of fc1 and fc2 (the tile plan's,
+// 1..8).  Scratch: h1 [rows, ldh] with ldh = d_in rounded up to 4 floats,
+// z [rows, F], att [rows, 2 nh] with rows = H + (edge_const ? 1 : E).
+// Outputs: l1m/l2m [E, nh], m [H, nh], and xout: the logits [E] on the last
+// layer, else the next layer's activations [H + E, F], of which K1 writes
+// the edge rows.
 extern "C" int gat_k1_layer(
     const float* x, const float* w1, const float* b1, const float* w2,
     const float* b2, const float* attn_l, const float* attn_r,
     const float* pw, const int* e1, const int* e2, int H, int E, int d_in,
     int nh, int d, int edge_const, float alpha, float slope, int last,
-    float* h1, float* z, float* att, float* l1m, float* l2m, float* m,
-    float* xout, cudaStream_t stream) {
+    int s1, int s2, float* h1, float* z, float* att, float* l1m, float* l2m,
+    float* m, float* xout, cudaStream_t stream) {
   const int F = nh * d;
   if (nh < 1 || nh > MAX_NH || F > MAX_F || H < 1 || E < 1)
     return cudaErrorInvalidValue;
   const int rows = H + (edge_const ? 1 : E);
-  launch_gemm<double>(x, w1, b1, h1, rows, d_in, d_in, alpha, 1, stream);
-  launch_gemm<double>(h1, w2, b2, z, rows, F, d_in, 0.f, 0, stream);
+  const int ldh = (d_in + 3) / 4 * 4;   // 16-byte rows for fc2's copies
+  cudaError_t err = f64_gemm(x, d_in, w1, b1, h1, ldh, rows, d_in, d_in, s1,
+                             alpha, 1, stream);
+  if (err != cudaSuccess) return err;
+  err = f64_gemm(h1, ldh, w2, b2, z, F, rows, F, d_in, s2, 0.f, 0, stream);
+  if (err != cudaSuccess) return err;
   attn_terms<<<(rows * nh + 127) / 128, 128, 0, stream>>>(z, attn_l, attn_r,
                                                           att, rows, nh, d);
   k1_edges<<<(E * F + 127) / 128, 128, 0, stream>>>(

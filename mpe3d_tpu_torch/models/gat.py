@@ -12,7 +12,8 @@ fp32 buffer, the layout the kernels read), chosen by the caller (the
 pipeline resolves it per bucket, ``PoseEstimationPipeline.serving_path``):
 
 * ``"stack"``: ``ops/gat_kernel.py::gat_stack``, the whole stack in one
-  host call (small buckets; heads of at most 64 incident edges);
+  host call (small buckets; heads of at most 64 incident edges; with
+  ``edge_const`` layer 0 projects the shared edge row once);
 * ``"tiled"``: ``ops/gat_tiled.py::gat_stack_tiled``, two kernels per
   layer (crowded buckets, any head degree, compacted pruned edge sets);
 * ``"layer"``: the per-layer form of the reference's XLA program
@@ -91,8 +92,8 @@ class Matcher(nn.Module):
                 edge_const: bool = False) -> torch.Tensor:
         """Logits [E] for node features x_all [H+E, in_dim] and pair weights
         pair_w [E] (0 = absent pair), through the stack, tiled or layer
-        form.  ``edge_const`` (tiled form): every edge row of x_all is the
-        same vector, so layer 0 projects it once."""
+        form.  ``edge_const`` (stack and tiled forms): every edge row of
+        x_all is the same vector, so layer 0 projects it once."""
         args = (x_all.contiguous(), pair_w.contiguous(), topo, self.flat,
                 self.dims, self.cfg.alpha, self.cfg.hidden_slope)
         if form == "tiled":
@@ -102,7 +103,7 @@ class Matcher(nn.Module):
         if form != "stack":
             raise ValueError(f"matcher form must be one of {FORMS}, got "
                              f"{form!r}")
-        return gat_stack(*args)
+        return gat_stack(*args, edge_const=edge_const)
 
 
 def apply_matcher(matcher: Matcher, head_feats: torch.Tensor,

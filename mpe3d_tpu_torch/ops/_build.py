@@ -41,14 +41,14 @@ _F = ctypes.c_float
 # argtypes of every exported function: pointers and the stream as c_void_p
 # (ctypes would otherwise pass Python ints as 32-bit C ints and cut them)
 _SIGNATURES = {
-    # x0, pw, e1, e2, inc, weights, dims(host), n_layers, H, E, D,
-    # alpha, slope, h1, z, att, xa, xb, out, stream
-    "gat_stack_forward": [_P, _P, _P, _P, _P, _P, ctypes.POINTER(_I),
-                          _I, _I, _I, _I, _F, _F,
-                          _P, _P, _P, _P, _P, _P, _P],
+    # x0, pw, e1, e2, inc, weights, dims(host), splits(host), n_layers, H,
+    # E, D, edge_const, alpha, slope, h1, z, xa, xb, out, stream
+    "gat_stack_forward": [_P] * 6 + [ctypes.POINTER(_I)] * 2 + [_I] * 5
+                         + [_F, _F] + [_P] * 6,
     # x, w1, b1, w2, b2, attn_l, attn_r, pw, e1, e2, H, E, d_in, nh, d,
-    # edge_const, alpha, slope, last, h1, z, att, l1m, l2m, m, xout, stream
-    "gat_k1_layer": [_P] * 10 + [_I] * 6 + [_F, _F, _I] + [_P] * 8,
+    # edge_const, alpha, slope, last, s1, s2, h1, z, att, l1m, l2m, m, xout,
+    # stream
+    "gat_k1_layer": [_P] * 10 + [_I] * 6 + [_F, _F] + [_I] * 3 + [_P] * 8,
     # l1m, l2m, pw, e1, e2, z, att, m, H, E, nh, d, edge_const, alpha,
     # slope, xout, stream
     "gat_k2_layer": [_P] * 8 + [_I] * 5 + [_F, _F, _P, _P],

@@ -14,7 +14,10 @@ operands and fp64 sums: two CUDA launches a call (fc1 into an fp32 scratch
 h, then fc2).  ``proj_plan`` chooses each GEMM's k-split, the size of the
 thread-block cluster whose blocks share a tile and sum their partials
 through distributed shared memory, so that a GEMM fills the card in whole
-waves; bound and design in the CUDA source.
+waves; bound and design in the CUDA source.  The same GEMM
+(``f64_gemm`` in ``csrc/f64_mma.cuh``) runs the fc products of the stack
+GAT kernel and of K1 of the tiled kernels, on the per-layer plans of
+``layer_plans``.
 ``fused_linear_leaky_linear`` takes the plain version for CPU tensors and
 launches the kernels for CUDA tensors; ``fused_linear_leaky_linear.launches``
 counts the calls that launch them.
@@ -58,9 +61,10 @@ class GemmPlan(NamedTuple):
 
     def block_work(self) -> Iterator[Tuple[int, int, int, int]]:
         """(row0, col0, k0, k1) of each CUDA block in launch order, the
-        decomposition ``proj_gemm_kernel`` computes from its block index:
-        block b is split b % splits of tile b // splits, tiles row-major;
-        k-range of a split in whole stages, k1 clipped to K."""
+        decomposition ``f64_gemm_kernel`` (``csrc/f64_mma.cuh``) computes
+        from its block index: block b is split b % splits of tile
+        b // splits, tiles row-major; k-range of a split in whole stages,
+        k1 clipped to K."""
         tiles_n = _cdiv(self.N, TILE_N)
         ksteps = _cdiv(self.K, TILE_K)
         for b in range(self.blocks):
@@ -102,6 +106,17 @@ def proj_plan(N: int, D: int, F: int, n_sm: int = N_SM) -> ProjPlan:
     return ProjPlan(gemm_plan(N, D, D, n_sm), gemm_plan(N, F, D, n_sm))
 
 
+def layer_plans(H: int, E: int, dims, edge_const: bool,
+                n_sm: int = N_SM) -> Tuple[ProjPlan, ...]:
+    """Tile plans of the fc1/fc2 GEMMs of each layer of a GAT stack on H
+    head and E edge rows (the stack kernel and K1 of the tiled kernels):
+    H + E rows a layer, H + 1 at layer 0 under ``edge_const`` (the shared
+    edge row projected once).  dims: (d_in, d, nh) a layer."""
+    return tuple(proj_plan(H + (1 if edge_const and l == 0 else E), d_in,
+                           nh * d, n_sm)
+                 for l, (d_in, d, nh) in enumerate(dims))
+
+
 def proj_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                w2: torch.Tensor, b2: torch.Tensor,
                alpha: float) -> torch.Tensor:
@@ -121,7 +136,7 @@ def _check(tensors, shapes, device):
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -146,7 +161,7 @@ def fused_linear_leaky_linear(x: torch.Tensor, w1: torch.Tensor,
         raise ValueError(f"fused_linear_leaky_linear: empty shapes N={N}, "
                          f"D={D}, F={F}")
     _check((x, w1, b1, w2, b2), ((N, D), (D, D), (D,), (D, F), (F,)), dev)
-    plan = proj_plan(N, D, F, _sm_count(dev.index))
+    plan = proj_plan(N, D, F, sm_count(dev.index))
     # one allocation a call: h [N, ldh] (rows of 16 bytes for fc2's copies),
     # then the output
     ldh = _cdiv(D, 4) * 4

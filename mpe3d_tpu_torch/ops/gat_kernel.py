@@ -5,16 +5,28 @@ Replaces the TPU kernel ``mpe3d_tpu/ops/gat_kernel.py::_gat_megakernel``
 ``gat_stack_values`` :95-200): the whole alt-3 GAT stack of one frame,
 inference only (no dropout, no residual).
 
+``edge_const`` is the caller's statement that every edge row of ``x`` is
+the same vector (the alt-3 edge one-hot; the pipeline states it for every
+bucket); it is never inferred from the values.  Under it layer 0 projects
+and scores the H head rows and the one shared edge row, and every edge
+reads that row; both versions take it, and compute the same function with
+it as without it.
+
 Bound on an H100 SXM at the serving bucket (H=20 heads, E=160 pairs,
-902-dim input, the 1.96 M-weight 5-layer stack): 0.70 GFLOP of fp32 FMA
-(180 rows x 2 x 1.96 M weights) is 10.5 us at the 67 TFLOP/s
-non-tensor-core peak, against 2.3 us for the 7.8 MB of weights at
-3.35 TB/s: compute-bound.  The CUDA version (``csrc/gat_stack.cu``) is the
-simple, right first form: a tiled GEMM of fp32 operands with fp64 sums and
-a fused bias + LeakyReLU epilogue for fc1/fc2 and three small attention
-kernels per layer (attention terms and head sums also in fp64), 24
-launches from one host call; no tensor cores and no TF32, because rounded
-operands move scores across the decision threshold.
+902-dim input, the 1.96 M-weight 5-layer stack) under ``edge_const``:
+0.33 GFLOP (21 rows at layer 0, 180 at layers 1-4; 0.70 GFLOP with all
+180 rows at layer 0) is 4.9 us at 67 TFLOP/s, the fp64 tensor-core peak,
+against 2.3 us for the 7.8 MB of weights at 3.35 TB/s: compute-bound on
+paper, but on the card a chain of 15 dependent launches of a few
+microseconds of work each, bound by their latency.  The CUDA version
+(``csrc/gat_stack.cu``) runs fc1/fc2 on the fp64 tensor cores (the GEMM
+shared with K1 and the projection, ``csrc/f64_mma.cuh``), k split over
+thread-block clusters by the per-layer tile plan
+(``ops/fused_proj.py::layer_plans``) so that the small GEMMs fill the
+card, and one launch a layer for the attention terms and the edge and head
+outputs: 3 CUDA launches a layer, 15 a call, issued from one host call.
+fp32 operands, fp64 sums, no TF32 (rounded operands move scores across
+the decision threshold).
 
 Where the TPU kernel gathers endpoints and scatters head sums with 0/1
 incidence matmuls, both versions here index: endpoint rows by ``e1``/``e2``,
@@ -29,12 +41,13 @@ kernel for CUDA tensors; ``gat_stack.launches`` counts the kernel calls.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from mpe3d_tpu_torch.ops import _build
-from mpe3d_tpu_torch.ops.fused_proj import proj_plain
+from mpe3d_tpu_torch.ops.fused_proj import layer_plans, proj_plain, sm_count
 
 Dims = List[Tuple[int, int, int]]
 
@@ -86,11 +99,14 @@ def _leaky(v: torch.Tensor, a: float) -> torch.Tensor:
 
 def gat_stack_plain(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
                     flat: torch.Tensor, dims: Dims, alpha: float,
-                    slope: float, proj=proj_plain) -> torch.Tensor:
+                    slope: float, edge_const: bool = False,
+                    proj=proj_plain) -> torch.Tensor:
     """Plain PyTorch version: x [H+E, in_dim], pw [E] -> logits [E].  Each
-    layer projects all rows with ``proj(x, w1, b1, w2, b2, alpha)``: the
+    layer projects its rows with ``proj(x, w1, b1, w2, b2, alpha)``: the
     plain fc1 -> LeakyReLU -> fc2, or the fused projection kernel
-    (``ops/fused_proj.py``) in the per-layer form (``models/gat.py``)."""
+    (``ops/fused_proj.py``) in the per-layer form (``models/gat.py``).
+    Under ``edge_const`` layer 0 projects rows 0..H and gives every edge
+    row H's projection."""
     H, E = topo.n_heads, topo.n_pairs
     e1, e2 = topo.e1.long(), topo.e2.long()
     inc = topo.inc.long()
@@ -100,7 +116,11 @@ def gat_stack_plain(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
     layers = layer_views(flat, dims)
     for l, ((d_in, d, nh), (w1, b1, w2, b2, al, ar)) in enumerate(
             zip(dims, layers)):
-        z = proj(x, w1, b1, w2, b2, alpha)                    # [N, F]
+        if edge_const and l == 0:
+            z = proj(x[:H + 1], w1, b1, w2, b2, alpha)
+            z = torch.cat([z[:H], z[H:].expand(E, -1)])       # [N, F]
+        else:
+            z = proj(x, w1, b1, w2, b2, alpha)                # [N, F]
         zr = z.view(-1, nh, d)
         a1 = (zr * al).sum(-1)                                # [N, nh]
         a2 = (zr * ar).sum(-1)
@@ -140,13 +160,27 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
                          f"expected {tuple(shape)}")
 
 
+@functools.lru_cache(maxsize=64)
+def _host_args(H: int, E: int, dims: Tuple[Tuple[int, int, int], ...],
+               edge_const: bool, n_sm: int):
+    """The host arrays of ``gat_stack_forward``: dims (d_in, d, nh a layer)
+    and the k-splits of each layer's fc1 and fc2 (the tile plan)."""
+    plans = layer_plans(H, E, dims, edge_const, n_sm)
+    splits = [v for p in plans for v in (p.fc1.splits, p.fc2.splits)]
+    return ((ctypes.c_int * (3 * len(dims)))(*[v for t in dims for v in t]),
+            (ctypes.c_int * len(splits))(*splits))
+
+
 def gat_stack(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
               flat: torch.Tensor, dims: Dims, alpha: float,
-              slope: float) -> torch.Tensor:
+              slope: float, edge_const: bool = False) -> torch.Tensor:
     """GAT logits [E] for x [H+E, in_dim] and pair weights pw [E]: the plain
-    version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    version for CPU tensors, the CUDA kernel for CUDA tensors.
+    ``edge_const``: every edge row of x is the same vector (stated by the
+    caller), so layer 0 projects the heads and one edge row."""
     if x.device.type == "cpu":
-        return gat_stack_plain(x, pw, topo, flat, dims, alpha, slope)
+        return gat_stack_plain(x, pw, topo, flat, dims, alpha, slope,
+                               edge_const)
     if x.device.type != "cuda":
         raise ValueError(f"gat_stack: unsupported device {x.device}")
     H, E = topo.n_heads, topo.n_pairs
@@ -166,23 +200,21 @@ def gat_stack(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
     n_w = sum(d_in * d_in + d_in + d_in * nh * d + 3 * nh * d
               for d_in, d, nh in dims)
     _check(flat, "weights", torch.float32, (n_w,), dev)
-    max_in = max(d_in for d_in, _, _ in dims)
+    dims_c, splits_c = _host_args(H, E, tuple(map(tuple, dims)),
+                                  bool(edge_const), sm_count(dev.index))
+    # one scratch allocation: h1 [N, ldh] (16-byte rows), z, xa, xb [N, F]
+    ldh = -(-max(d_in for d_in, _, _ in dims) // 4) * 4
     max_f = max(nh * d for _, d, nh in dims)
-    max_nh = max(nh for _, _, nh in dims)
-    h1 = torch.empty((N, max_in), dtype=torch.float32, device=dev)
-    z = torch.empty((N, max_f), dtype=torch.float32, device=dev)
-    xa = torch.empty_like(z)
-    xb = torch.empty_like(z)
-    att = torch.empty((N, 2 * max_nh), dtype=torch.float32, device=dev)
+    buf = torch.empty(N * (ldh + 3 * max_f), dtype=torch.float32,
+                      device=dev)
+    z, xa, xb = (buf.data_ptr() + 4 * N * (ldh + i * max_f)
+                 for i in range(3))
     out = torch.empty((E,), dtype=torch.float32, device=dev)
-    dims_c = (ctypes.c_int * (3 * len(dims)))(*[v for t in dims for v in t])
-    lib = _build.library().cdll
-    code = lib.gat_stack_forward(
+    code = _build.library().cdll.gat_stack_forward(
         x.data_ptr(), pw.data_ptr(), topo.e1.data_ptr(), topo.e2.data_ptr(),
-        topo.inc.data_ptr(), flat.data_ptr(), dims_c, len(dims), H, E, D,
-        alpha, slope, h1.data_ptr(), z.data_ptr(), att.data_ptr(),
-        xa.data_ptr(), xb.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        topo.inc.data_ptr(), flat.data_ptr(), dims_c, splits_c, len(dims), H,
+        E, D, int(bool(edge_const)), alpha, slope, buf.data_ptr(), z, xa, xb,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "gat_stack_forward")
     gat_stack.launches += 1
     return out

@@ -23,7 +23,16 @@ versions gather endpoints by index and sum each head's incident edges in
 ascending edge order; the TPU form's 0/1 incidence matmuls exist for Mosaic
 and are not copied.  The kernels take fp32 operands and accumulate their
 sums in fp64 (one rounding to fp32 per sum); the plain version computes in
-fp32 as the reference does.  Bound, precision and design: see
+fp32 as the reference does.
+
+Bound on an H100 SXM at Panoptic S=16 (H=80, E=2560) under ``edge_const``:
+K1's fc products, 4.31 GFLOP (81 rows at layer 0, 2640 at layers 1-4), are
+64.3 us at 67 TFLOP/s, the fp64 tensor-core peak: compute-bound.  K1 runs
+them on the fp64 tensor cores (the GEMM shared with the stack kernel and
+the projection, ``csrc/f64_mma.cuh``), unsplit at layers 1-4 (42 x 7 tiles
+at fc1) and with k split over thread-block clusters at layer 0 (2 row
+tiles), the splits from the per-layer tile plan
+(``ops/fused_proj.py::layer_plans``).  Precision and design: see
 ``csrc/gat_tiled.cu``.
 
 ``gat_stack_tiled`` takes the plain version for CPU tensors and launches
@@ -41,6 +50,7 @@ from typing import Callable, List, Tuple
 import torch
 
 from mpe3d_tpu_torch.ops import _build
+from mpe3d_tpu_torch.ops.fused_proj import layer_plans, sm_count
 from mpe3d_tpu_torch.ops.gat_kernel import Dims, GatTopology, layer_views
 
 MAX_NH, MAX_F = 16, 512      # the kernels' per-layer head and feature caps
@@ -196,7 +206,7 @@ def cuda_layer_calls(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
     max_in = max(d_in for d_in, _, _ in dims)
     max_f = max(nh * d for _, d, nh in dims)
     max_nh = max(nh for _, _, nh in dims)
-    h1 = torch.empty((rows, max_in), **f32)
+    h1 = torch.empty((rows, -(-max_in // 4) * 4), **f32)   # 16-byte rows
     z = torch.empty((rows, max_f), **f32)
     att = torch.empty((rows, 2 * max_nh), **f32)
     l1m = torch.empty((E, max_nh), **f32)
@@ -210,15 +220,16 @@ def cuda_layer_calls(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
     keep = [x, pw, topo, flat, h1, z, att, l1m, l2m, m, out]
     xin = x
     views = layer_views(flat, dims)
-    for l, ((d_in, d, nh), lw) in enumerate(zip(dims, views)):
+    plans = layer_plans(H, E, dims, edge_const, sm_count(dev.index))
+    for l, ((d_in, d, nh), lw, plan) in enumerate(zip(dims, views, plans)):
         last = l == len(dims) - 1
         const = int(edge_const and l == 0)
         xout = out if last else torch.empty((rows, nh * d), **f32)
         keep.append(xout)
         k1 = (ptr(xin), *map(ptr, lw), ptr(pw), ptr(topo.e1), ptr(topo.e2),
-              H, E, d_in, nh, d, const, alpha, slope, int(last), ptr(h1),
-              ptr(z), ptr(att), ptr(l1m), ptr(l2m), ptr(m), ptr(xout),
-              stream)
+              H, E, d_in, nh, d, const, alpha, slope, int(last),
+              plan.fc1.splits, plan.fc2.splits, ptr(h1), ptr(z), ptr(att),
+              ptr(l1m), ptr(l2m), ptr(m), ptr(xout), stream)
         k1s.append(lambda a=k1, _=keep: gat_k1_layer(*a))
         if not last:
             k2 = (ptr(l1m), ptr(l2m), ptr(pw), ptr(topo.e1), ptr(topo.e2),

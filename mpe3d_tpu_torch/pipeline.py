@@ -374,7 +374,8 @@ class PoseEstimationPipeline:
 
     def _scores(self, b: _Bucket, x, pw, gtopo):
         """Matcher scores through the bucket's form; the edge rows of x are
-        the shared alt-3 edge one-hot, so the tiled form projects it once."""
+        the shared alt-3 edge one-hot, so the stack and tiled forms project
+        it once."""
         return torch.sigmoid(self.matcher(x, pw, gtopo, b.form,
                                           edge_const=True)) * pw
 

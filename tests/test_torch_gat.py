@@ -96,3 +96,83 @@ def test_full_stack_against_xla(frame_inputs, weights_from):
                         jcfg)
     got = _port_scores(tree, cfg, hf, ef, pm, 5, 4)
     np.testing.assert_allclose(got, np.asarray(ref), atol=ATOL)
+
+
+def _stack_logits(tree, cfg, hf, ef, pm, C, S, edge_const, form="stack"):
+    """Logits of the port's matcher through ``form`` with ``edge_const``."""
+    m = weights.matcher_from_tree(tree, cfg, "cpu")
+    gtopo = tgat.gat_topology(build_topology(C, S), "cpu")
+    x = torch.cat([torch.tensor(hf), torch.tensor(ef)])
+    return m(x, torch.tensor(pm), gtopo, form, edge_const=edge_const)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_small_stack_edge_const_against_pallas_interpret(seed):
+    """The narrow graph of test_small_stack_against_pallas_interpret with
+    the shared edge row projected once: equal to projecting every edge row,
+    and held to the TPU kernel in interpret mode."""
+    C, S, d_in = 3, 2, 24
+    cfg = MatcherConfig(in_dim=d_in, hidden=(8,), heads=(3,))
+    jcfg = JMatcherConfig(in_dim=d_in, hidden=(8,), heads=(3,))
+    tree = weights.random_matcher_tree(cfg, seed)
+    jtopo = jfeat.build_topology(C, S)
+    rng = np.random.default_rng(seed)
+    hf = rng.normal(size=(C * S, d_in)).astype(np.float32)
+    ef = edge_node_features(jtopo.n_pairs, d_in).numpy()
+    pm = (rng.random(jtopo.n_pairs) > 0.3).astype(np.float32)
+    ref = apply_matcher_pallas(_jax_tree(tree), jnp.asarray(hf),
+                               jnp.asarray(ef), jtopo, jnp.asarray(pm), jcfg,
+                               interpret=True)
+    const = _stack_logits(tree, cfg, hf, ef, pm, C, S, True)
+    full = _stack_logits(tree, cfg, hf, ef, pm, C, S, False)
+    torch.testing.assert_close(const, full, rtol=0, atol=0)
+    np.testing.assert_allclose(torch.sigmoid(const).numpy(), np.asarray(ref),
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("weights_from", ["widefield", "random"])
+def test_full_stack_edge_const_against_xla(frame_inputs, weights_from):
+    """Full width on H=20/E=160 with the shared edge row projected once
+    (what the pipeline serves): scores equal to those of projecting all
+    180 rows within ATOL (the CPU's fp32 matmul sums 21 and 180 rows in
+    different blocks, so the last bits differ), and held to the JAX
+    ``apply_matcher`` within ATOL."""
+    hf, ef, pm, jtopo = frame_inputs
+    if weights_from == "widefield":
+        tree, cfg = load_matcher_checkpoint(
+            os.path.join(DEMO, "widefield", "skeleton_matching"),
+            MatcherConfig())
+    else:
+        cfg = MatcherConfig()
+        tree = weights.random_matcher_tree(cfg, 0)
+    jcfg = JMatcherConfig(hidden=cfg.hidden, heads=cfg.heads, alpha=cfg.alpha)
+    ref = apply_matcher(_jax_tree(tree), jnp.asarray(hf), jnp.asarray(ef),
+                        TopologyArrays.from_topology(jtopo), jnp.asarray(pm),
+                        jcfg)
+    const = _stack_logits(tree, cfg, hf, ef, pm, 5, 4, True)
+    full = _stack_logits(tree, cfg, hf, ef, pm, 5, 4, False)
+    torch.testing.assert_close(torch.sigmoid(const), torch.sigmoid(full),
+                               rtol=0, atol=ATOL)
+    np.testing.assert_allclose(torch.sigmoid(const).numpy(), np.asarray(ref),
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("edge_const", [False, True])
+def test_matcher_forwards_edge_const_to_stack(monkeypatch, edge_const):
+    """``Matcher.forward`` hands ``edge_const`` to the stack form as it does
+    to the tiled form, and the pipeline's scores state it."""
+    seen = []
+
+    def spy(*args, edge_const=False):
+        seen.append(edge_const)
+        return torch.zeros(args[2].n_pairs)
+
+    monkeypatch.setattr(tgat, "gat_stack", spy)
+    cfg = MatcherConfig(in_dim=24, hidden=(8,), heads=(3,))
+    m = weights.matcher_from_tree(weights.random_matcher_tree(cfg, 0), cfg,
+                                  "cpu")
+    gtopo = tgat.gat_topology(build_topology(3, 2), "cpu")
+    x = torch.zeros(gtopo.n_heads + gtopo.n_pairs, 24)
+    m(x, torch.ones(gtopo.n_pairs), gtopo, "stack", edge_const=edge_const)
+    m(x, torch.ones(gtopo.n_pairs), gtopo)
+    assert seen == [edge_const, False]

@@ -1,8 +1,14 @@
-"""The tile plans of the port's two redesigned kernels, on the CPU.
+"""The tile plans of the port's redesigned kernels, on the CPU.
 
 * The fused GAT projection (``ops/fused_proj.py::proj_plan``): every output
   element of both GEMMs is owned by exactly one tile, each tile's k-splits
   cover k exactly once, and small GEMMs split k to fill the card's SMs.
+* The per-layer GEMM plans of the GAT stack kernel and of K1 of the tiled
+  kernels (``ops/fused_proj.py::layer_plans``, on the rows each GEMM has:
+  H + 1 at layer 0 when the shared edge row is projected once): every
+  output tile owned once, k-splits of 1 to 8 that partition k, and at S=4
+  every GEMM fills at least 100 of the 132 SMs unless it already splits k
+  as far as 8 splits and its stages allow.
 * The bf16 lifter run (``ops/fused_mlp.py::plan_bf16_run``): every (layer,
   64-column slab, K-chunk) tile is owned by exactly one block, the chunks
   of a slab cover its rows once, the device tables lay partials, counters
@@ -33,7 +39,7 @@ from mpe3d_tpu.lifting.pack import pack_lifter_input as j_pack
 from mpe3d_tpu.models.mlp import apply_lifter
 from mpe3d_tpu.train.checkpoint import load_lifter_checkpoint as j_load
 from mpe3d_tpu_torch import weights
-from mpe3d_tpu_torch.config import LifterConfig
+from mpe3d_tpu_torch.config import LifterConfig, MatcherConfig
 from mpe3d_tpu_torch.ops import fused_mlp as fm
 from mpe3d_tpu_torch.ops import fused_proj as fp
 
@@ -112,6 +118,70 @@ def test_proj_cpu_entry_any_width():
     exact = fp.proj_plain(*(t.double() for t in (x, w1, b1, w2, b2)), 0.2)
     np.testing.assert_allclose(got.numpy(), exact.numpy(), atol=1e-5)
     assert not hasattr(fp, "MAX_D")
+
+
+# ---- the GAT stack and K1: one plan a layer -------------------------------
+
+# (cameras, slots, matcher in_dim): Panoptic buckets and the ARPLAB 6 x 16
+GAT_SHAPES = [(5, 2, 902), (5, 4, 902), (5, 10, 902), (5, 16, 902),
+              (6, 16, 1082)]
+
+
+def _gat_sizes(C, S, in_dim):
+    dims = MatcherConfig(in_dim=in_dim).layer_dims()
+    return C * S, C * (C - 1) // 2 * S * S, dims
+
+
+@pytest.mark.parametrize("edge_const", [False, True])
+@pytest.mark.parametrize("C, S, in_dim", GAT_SHAPES,
+                         ids=[f"{c}x{s}" for c, s, _ in GAT_SHAPES])
+def test_gat_layer_plans_cover_tiles(C, S, in_dim, edge_const):
+    """Each layer's fc1 [rows, d_in] and fc2 [rows, F] GEMMs on the rows the
+    layer projects: every 64 x 64 output tile owned by exactly ``splits``
+    blocks whose k-ranges partition [0, K), 1 <= splits <= 8."""
+    H, E, dims = _gat_sizes(C, S, in_dim)
+    plans = fp.layer_plans(H, E, dims, edge_const, N_BLOCKS)
+    assert len(plans) == len(dims)
+    for l, ((d_in, d, nh), plan) in enumerate(zip(dims, plans)):
+        rows = H + 1 if edge_const and l == 0 else H + E
+        for g, shape in ((plan.fc1, (rows, d_in, d_in)),
+                         (plan.fc2, (rows, nh * d, d_in))):
+            assert (g.M, g.N, g.K) == shape
+            assert 1 <= g.splits <= fp.MAX_SPLITS
+            ks = {}
+            for r0, c0, k0, k1 in g.block_work():
+                ks.setdefault((r0, c0), []).append((k0, k1))
+            grid = {(r, c) for r in range(0, g.M, fp.TILE_M)
+                    for c in range(0, g.N, fp.TILE_N)}
+            assert set(ks) == grid and g.blocks == len(grid) * g.splits
+            for ranges in ks.values():
+                ranges = sorted(ranges)
+                assert len(ranges) == g.splits
+                assert ranges[0][0] == 0 and ranges[-1][1] == g.K
+                assert all(a[1] == b[0] and a[0] < a[1]
+                           for a, b in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("edge_const", [False, True])
+def test_gat_layer_plans_fill_the_card_at_s4(edge_const):
+    """At S=4 (H=20, E=160) every GEMM of every layer launches blocks on at
+    least 100 of the 132 SMs, or splits k as far as it can (8 splits, or
+    one a 32-k stage): with 64 x 64 tiles no plan of at most 8 splits does
+    more for the narrow ends (layer 0's fc2 on 21 rows: 7 tiles; layer 3's
+    fc2 and layer 4: 9 or 3 tiles of 5-10 stages).  The wide GEMMs, fc1 of
+    layers 0-3 and fc2 of layers 1-2, fill at least 100."""
+    H, E, dims = _gat_sizes(5, 4, 902)
+    plans = fp.layer_plans(H, E, dims, edge_const, N_BLOCKS)
+    for l, plan in enumerate(plans):
+        for g in (plan.fc1, plan.fc2):
+            cap = min(fp.MAX_SPLITS, -(-g.K // fp.TILE_K))
+            assert min(g.blocks, N_BLOCKS) >= 100 or g.splits == cap, (l, g)
+        if l < 4:
+            assert plan.fc1.blocks >= 100, (l, plan.fc1)
+        if l in (1, 2):
+            assert plan.fc2.blocks >= 100, (l, plan.fc2)
+    # the shared edge row: layer 0 projects 21 rows instead of 180
+    assert plans[0].fc1.M == (H + 1 if edge_const else H + E)
 
 
 # ---- the lifter run -----------------------------------------------------
