@@ -11,7 +11,8 @@ failure raises, and the script exits non-zero):
    ``mpe3d_tpu_torch/csrc`` (0 s when the build cache matches), and
    ptxas's registers, shared memory and spills of the fp64 tensor-core GEMM
    shared by the three GAT kernels (one copy in each of their sources), the
-   stack kernel's output kernel and the bf16 lifter's run kernel.
+   stack kernel's output kernel, the lifter's run kernel and the decode +
+   gather + pack kernel.
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the inputs the serving path gives it (Panoptic rig, S=4 slots, P=8
    persons), with median times over 50 launches (CUDA events) beside the
@@ -21,22 +22,24 @@ failure raises, and the script exits non-zero):
    kernels (K1, K2) are checked at Panoptic S=10 and S=16 with the trained
    and a random matcher, on an ARPLAB-shaped 6 x 16 topology (head degree
    80, past the stack kernel's cap), on a pruned, compacted edge set, and at
-   S=16 against the stack kernel too.  The int8 layer kernel is checked on
-   each int8 layer of ``models_demo/pan_irls`` and ``pan_compact`` on the
-   serving path's lifter inputs (M=8) and at M=40 (row tiles), the whole
-   mixed net (8 int8 layers, a bf16 head) against its plain version.  The
-   bf16 lifter's run kernel is checked on each layer alone (a run of one
-   layer) and on the whole 9-layer net (one launch) at M=8 and M=16, two
-   launches bit-equal; the fused projection kernel on the trained matcher's
-   five layer inputs at S=4 and S=16, two calls bit-equal, with its
-   distance from an fp64 evaluation.  These two are timed in turns with
+   S=16 against the stack kernel too.  The lifter's run kernel
+   (``mlp_run``) is checked on each layer of the bf16 lifter alone (a run of
+   one layer) and on the whole 9-layer net (one launch) at M=8 and M=16,
+   two launches bit-equal; on each int8 layer of ``models_demo/pan_irls``
+   and ``pan_compact`` alone on the serving path's lifter inputs (M=8) and
+   at M=40 (a run a group of 16 rows), ``int8_weight_matmul`` on row-major
+   weights, and the whole mixed nets (8 int8 layers, a bf16 head: one
+   launch) at M=8 and M=16, two launches bit-equal; the fused projection
+   kernel on the trained matcher's five layer inputs at S=4 and S=16, two
+   calls bit-equal, with its distance from an fp64 evaluation.  The run
+   kernel (both layer kinds) and the projection are timed in turns with
    their PyTorch yardsticks (kernel, yardstick, yardstick, kernel).  The
    stack GAT kernel with and without ``edge_const`` (the shared edge row
    projected once, as the pipeline serves it), two calls bit-equal; on the
    trained matcher at S=4 and S=16 with its distance from fp64 beside the
    tiled kernels', both held to ``GAT_FP64_TOL`` and bit-equal across
-   calls.  The GAT kernels' rows also print their device time and CUDA
-   launches a call (torch.profiler).
+   calls.  Every kernel row also carries its device time (torch.profiler),
+   and the GAT kernels print their CUDA launches a call.
 4. main path: ``PoseEstimationPipeline.infer_fused`` on 16 synthetic frames
    on the card, once with the trained matcher and once with a numpy-seeded
    random matcher (the trained one scores near 0 on the synthetic ring rig;
@@ -52,8 +55,7 @@ failure raises, and the script exits non-zero):
    times and device busy share.  Then the int8 pair ``models_demo/pan_irls``
    (``from_checkpoint``): 16 frames on the frame path and 6 on the eager
    path, trained and random matcher, against the same pipeline on the CPU,
-   8 int8 and 1 bf16-run lifter launches a frame, beside the bf16 pair's frame
-   time; ``pan_compact`` on 6 frames of the frame path; and the per-layer
+   one lifter run launch a frame, beside the bf16 pair's frame time; ``pan_compact`` on 6 frames of the frame path; and the per-layer
    GAT form (``use_layer_matcher``) on the eager path at S=4 and at the
    default buckets on the S=10 frames ("mean" prior), 5 projection launches
    a frame and no stack or tiled GAT launch.
@@ -297,7 +299,9 @@ def check_kernels(pipe, frame, report):
                                                      edge_const=True)),
         "plain_ms": median_ms(lambda: gat_kernel.gat_stack_plain(
             *args, edge_const=True)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "device_ms": device_ms(lambda: gat_kernel.gat_stack(
+            *args, edge_const=True))})
     print(f"  gat_stack: H+E={x_all.shape[0]} rows, max |d logit| with "
           f"edge_const {errs[True]:.3g}, without {errs[False]:.3g} (tol "
           f"{GAT_RTOL:g} x (1+|logit|)), two calls bit-equal in both; bound "
@@ -309,13 +313,13 @@ def check_kernels(pipe, frame, report):
     lifter = pipe.lifter
     layers = lifter.packed_layers()
     slope, out_dim = lifter.cfg.negative_slope, lifter.cfg.out_dim
-    if fused_mlp.launch_plan(layers) != [("bf16", 0, len(layers))]:
+    if fused_mlp.launch_plan(layers) != [("run", 0, len(layers))]:
         raise AssertionError("the bf16 lifter is not one run")
     acts = [i < len(layers) - 1 for i in range(len(layers))]
     h, one_ms = nets.float().contiguous(), []
     for i, layer in enumerate(layers):
         # the run kernel on this layer alone (a run of one layer)
-        one = lambda h=h, i=i: fused_mlp.bf16_run(  # noqa: E731
+        one = lambda h=h, i=i: fused_mlp.run_layers(  # noqa: E731
             h, [layers[i]], slope, [acts[i]])
         y = one()
         y_ref = fused_mlp.mlp_layer_plain(h, *layer, slope, acts[i])
@@ -361,7 +365,7 @@ def check_kernels(pipe, frame, report):
         flops = sum(2 * M * w.shape[0] * w.shape[1] for w, _ in layers)
         t_b, t_f = bytes_ / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS
         rows[M] = {
-            "name": "mlp_bf16_run", "route": "cuda",
+            "name": "mlp_run", "route": "cuda",
             "source": "mpe3d_tpu_torch/csrc/fused_mlp.cu",
             "replaces": "mpe3d_tpu/ops/fused_mlp.py:57",
             "launches": 0, "max_abs_err": err, "ms": ms,
@@ -369,19 +373,20 @@ def check_kernels(pipe, frame, report):
                 x, layers, slope, out_dim)),
             "bound_ms": 1e3 * max(t_b, t_f),
             "bound_by": "bytes" if t_b > t_f else "operations",
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "device_ms": device_ms(run)}
         k = rows[M]
-        print(f"  mlp_bf16_run: whole net ({len(layers)} layers, one launch) "
-              f"on {M} rows: max err {err:.3g} (tol {MLP_NET_TOL:g} "
-              f"decameters), two launches bit-equal; {k['ms']:.4f} ms, "
-              f"library ({len(layers)} chained bf16 torch.matmul) "
-              f"{lib_ms:.4f} ms (in turns), plain {k['plain_ms']:.4f} ms, "
-              f"bound {k['bound_ms']:.5f} ms ({k['bound_by']}: {bytes_} "
-              f"bytes); device time alone (profiler): kernel "
-              f"{device_ms(run):.4f} ms, library {device_ms(library):.4f} ms")
+        print(f"  mlp_run (bf16 kind): whole net ({len(layers)} layers, one "
+              f"launch) on {M} rows: max err {err:.3g} (tol "
+              f"{MLP_NET_TOL:g} decameters), two launches bit-equal; "
+              f"{k['ms']:.4f} ms, library ({len(layers)} chained bf16 "
+              f"torch.matmul) {lib_ms:.4f} ms (in turns), plain "
+              f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms "
+              f"({k['bound_by']}: {bytes_} bytes); device time alone "
+              f"(profiler): kernel {k['device_ms']:.4f} ms, library "
+              f"{device_ms(library):.4f} ms")
     report.append(rows[nets.shape[0]])
-    print(f"  mlp_bf16_run: each of the {len(layers)} layers alone within "
-          f"{MLP_LAYER_TOL:g} x max|out| of its plain version; each "
+    print(f"  mlp_run (bf16 kind): each of the {len(layers)} layers alone "
+          f"within {MLP_LAYER_TOL:g} x max|out| of its plain version; each "
           f"one-layer run (M={nets.shape[0]}), ms / device ms: "
           + ", ".join(f"{t:.4f} / {d:.4f}" for t, d in one_ms))
     k = report[0]
@@ -397,9 +402,10 @@ def mlp_costs(layers, M):
     """(bytes, operations) of the given packed lifter layers on M rows: each
     layer's input rows, weights, scales and bias read once, its output
     written once; 2 M K N operations a layer."""
+    from mpe3d_tpu_torch.ops.fused_mlp import layer_shape
     bytes_ = flops = 0
     for layer in layers:
-        K, N = layer[0].shape
+        K, N = layer_shape(layer)
         bytes_ += (4 * M * K + 4 * M * N
                    + sum(t.numel() * t.element_size() for t in layer))
         flops += 2 * M * K * N
@@ -408,8 +414,9 @@ def mlp_costs(layers, M):
 
 def check_int8_layers(label, lifter, x):
     """Each int8 layer of ``lifter`` on the input the serving path gives it
-    (the plain version's output of the layer before) against its plain
-    version; returns the layers and their inputs."""
+    (the plain version's output of the layer before) through the run kernel
+    (``int8_layer_matmul``: a run of the one layer a group of at most 16
+    rows) against its plain version; returns the layers' inputs."""
     import torch
     from mpe3d_tpu_torch.ops import fused_mlp, quant_matmul
     slope = lifter.cfg.negative_slope
@@ -418,87 +425,186 @@ def check_int8_layers(label, lifter, x):
     for i, layer in enumerate(layers[:-1]):
         if not isinstance(layer, fused_mlp.Int8Layer):
             raise AssertionError(f"{label}: layer {i} is not int8")
-        args = (h, layer.wq, layer.scale, layer.b, slope, layer.rscale)
-        y = quant_matmul.int8_weight_matmul(*args)
-        y_ref = quant_matmul.int8_matmul_plain(*args)
+        before = fused_mlp.mlp_run.launches
+        y = quant_matmul.int8_layer_matmul(h, layer, slope)
+        y_ref = fused_mlp.layer_plain(h, layer, slope, True)
         torch.cuda.synchronize()
+        runs = fused_mlp.mlp_run.launches - before
         lerr = float((y - y_ref).abs().max())
         ltol = MLP_LAYER_TOL * max(1.0, float(y_ref.abs().max()))
-        if not (bool(torch.isfinite(y).all()) and lerr <= ltol):
+        if not (bool(torch.isfinite(y).all()) and lerr <= ltol
+                and runs == -(-h.shape[0] // fused_mlp.MAX_ROWS)):
             raise AssertionError(f"{label}: int8 layer {i} ({tuple(h.shape)}"
-                                 f" x {tuple(layer.wq.shape)}): max err "
-                                 f"{lerr:.3g} > {ltol:.3g}")
+                                 f" x {fused_mlp.layer_shape(layer)}): max "
+                                 f"err {lerr:.3g} > {ltol:.3g} or {runs} "
+                                 f"run launches")
         worst = max(worst, lerr / ltol)
-        inputs.append(args)
+        inputs.append((h, layer))
         h = y_ref
-    print(f"  mlp_int8_layer {label}: {len(inputs)} int8 layers on "
-          f"{x.shape[0]} rows, each within {MLP_LAYER_TOL:g} x max|out| of "
+    print(f"  mlp_run, int8 layers of {label}: {len(inputs)} layers alone on "
+          f"{x.shape[0]} rows ({-(-x.shape[0] // fused_mlp.MAX_ROWS)} "
+          f"launches a layer), each within {MLP_LAYER_TOL:g} x max|out| of "
           f"its plain version (largest error {worst:.3g} of the tolerance)")
     return inputs
 
 
+def int8_yardstick(layers, slope):
+    """The int8 rows' PyTorch yardstick over a list of int8 layers (M rows
+    in, LeakyReLU after each): ``aten::_weight_int8pack_mm`` a layer where
+    the card's PyTorch registers it for CUDA (on bf16(x * rscale), bf16
+    column scales, then + b), else a bf16 ``torch.matmul`` on the bf16 copy
+    of the weights (exact), ``* scale + b``.  Returns (label, function of
+    x)."""
+    import torch
+    import torch.nn.functional as tf
+    from mpe3d_tpu_torch.ops.fused_mlp import int8_rows, layer_shape
+    packed = torch._C._dispatch_has_kernel_for_dispatch_key(
+        "aten::_weight_int8pack_mm", "CUDA")
+    prep = []
+    for layer in layers:
+        K, N = layer_shape(layer)
+        w = int8_rows(layer.wq)[:K, :N]
+        prep.append((layer.rscale, w.t().contiguous() if packed
+                     else w.to(torch.bfloat16),
+                     layer.scale.to(torch.bfloat16) if packed
+                     else layer.scale, layer.b))
+
+    def run(x):
+        h = x
+        for rs, w, sc, b in prep:
+            hb = (h * rs).to(torch.bfloat16)
+            if packed:
+                h = torch._weight_int8pack_mm(hb, w, sc).float() + b
+            else:
+                h = torch.matmul(hb, w).float() * sc + b
+            h = tf.leaky_relu(h, slope)
+        return h
+
+    label = ("aten::_weight_int8pack_mm a layer" if packed else
+             "bf16 torch.matmul on the bf16 weights, * scale + b, a layer")
+    return label, run
+
+
 def check_int8_kernels(pipe, frame, int8_lifter, compact_lifter, report,
                        bf16_ms):
-    """Phase 3, the int8 layer kernel: each int8 layer of the pan_irls and
-    pan_compact lifters on the serving path's inputs (M=8 lifter rows of a
-    random-matcher frame), pan_irls also at M=40 (three 16-row tiles), and
-    the whole mixed pan_irls net against its plain version.  Reports the
-    8 int8 layers of pan_irls at M=8, beside the bf16 lifter's call."""
+    """Phase 3, the int8 layer kind of the run kernel: each int8 layer of
+    the pan_irls and pan_compact lifters on the serving path's inputs (M=8
+    lifter rows of a random-matcher frame) and at M=40 (three runs a
+    layer); ``int8_weight_matmul`` on row-major weights at M=40; the whole
+    mixed nets (8 int8 layers and a bf16 head, one launch) against their
+    plain versions at M=8 and M=16, two launches bit-equal.  Two report
+    rows: the int8 kind (pan_irls's 8 int8 layers as one run) and the
+    int8 matmul (the same 8 layers, a run of one layer each), both at
+    M=8, each beside its PyTorch yardstick in turns."""
     import numpy as np
     import torch
     from mpe3d_tpu_torch.ops import fused_mlp, quant_matmul
 
     nets = pipe.stage_inputs(frame)[3].float().contiguous()
-    inputs = check_int8_layers("pan_irls", int8_lifter, nets)
     rng = np.random.default_rng(40)
     x40 = nets.repeat(5, 1) * torch.tensor(
         rng.uniform(0.5, 1.5, (5 * nets.shape[0], 1)), dtype=torch.float32,
         device=nets.device)
-    check_int8_layers("pan_irls, M=40", int8_lifter, x40)
-    compact_inputs = check_int8_layers("pan_compact", compact_lifter, nets)
-
+    inputs = check_int8_layers("pan_irls", int8_lifter, nets)
+    check_int8_layers("pan_irls", int8_lifter, x40)
+    check_int8_layers("pan_compact", compact_lifter, nets)
+    check_int8_layers("pan_compact", compact_lifter, x40)
     cfg = int8_lifter.cfg
+    slope = cfg.negative_slope
     layers = int8_lifter.packed_layers()
-    got = fused_mlp.fused_mlp_forward(nets, layers, cfg.negative_slope,
-                                      cfg.out_dim)
-    ref = fused_mlp.fused_mlp_plain(nets, layers, cfg.negative_slope,
-                                    cfg.out_dim)
+    # the row-major entry (the counterpart of _pallas_int8_matmul's)
+    l0 = layers[0]
+    K, N = fused_mlp.layer_shape(l0)
+    args = (x40, fused_mlp.int8_rows(l0.wq)[:K, :N].contiguous(),
+            l0.scale[:N], l0.b[:N], slope, l0.rscale)
+    got = quant_matmul.int8_weight_matmul(*args)
+    ref = quant_matmul.int8_matmul_plain(*args)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
-    if not (bool(torch.isfinite(got).all()) and err <= MLP_NET_TOL):
-        raise AssertionError(f"int8 MLP kernels disagree with their plain "
-                             f"version: max err {err:.3g} > {MLP_NET_TOL}")
+    if not err <= MLP_LAYER_TOL * max(1.0, float(ref.abs().max())):
+        raise AssertionError(f"int8_weight_matmul, M=40: max err {err:.3g}")
+    print(f"  int8_weight_matmul (row-major int8 weights, packed at the "
+          f"call) on pan_irls layer 0 at M=40: max err {err:.3g}")
 
-    def run(fn, ins):
-        return lambda: [fn(*a) for a in ins]
+    x16 = torch.cat([nets, nets * 0.75])
+    nets_err = {}
+    for name, lifter in (("pan_irls", int8_lifter),
+                         ("pan_compact", compact_lifter)):
+        ls = lifter.packed_layers()
+        if fused_mlp.launch_plan(ls) != [("run", 0, len(ls))]:
+            raise AssertionError(f"{name}: the int8 lifter is not one run")
+        for x in (nets, x16):
+            run = lambda x=x, ls=ls: fused_mlp.fused_mlp_forward(  # noqa
+                x, ls, slope, lifter.cfg.out_dim)
+            before = fused_mlp.mlp_run.launches
+            got, again = run(), run()
+            ref = fused_mlp.fused_mlp_plain(x, ls, slope, lifter.cfg.out_dim)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            nets_err[name, x.shape[0]] = err
+            if not (bool(torch.isfinite(got).all()) and err <= MLP_NET_TOL):
+                raise AssertionError(f"{name} int8 net, M={x.shape[0]}: max "
+                                     f"err {err:.3g} > {MLP_NET_TOL}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} int8 net, M={x.shape[0]}: two "
+                                     f"launches on the same input differ")
+            if fused_mlp.mlp_run.launches - before != 2:
+                raise AssertionError(f"{name} int8 net: not one launch a "
+                                     f"call")
+    print("  mlp_run, whole int8 nets (8 int8 layers and a bf16 head, one "
+          "launch): max err "
+          + ", ".join(f"{n} M={m} {e:.3g}" for (n, m), e in nets_err.items())
+          + f" (tol {MLP_NET_TOL:g} decameters), two launches bit-equal")
 
     M = nets.shape[0]
-    bytes_, flops = mlp_costs(layers[:-1], M)
+    body = layers[:-1]
+    acts = [True] * len(body)
+    label, library = int8_yardstick(body, slope)
+    bytes_, flops = mlp_costs(body, M)
     t_b, t_f = bytes_ / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS
-    report.append({
-        "name": "mlp_int8_layer", "route": "cuda",
-        "source": "mpe3d_tpu_torch/csrc/int8_mlp.cu",
-        "replaces": "mpe3d_tpu/ops/quant_matmul.py:73",
-        "launches": 0, "max_abs_err": err,
-        "ms": median_ms(run(quant_matmul.int8_weight_matmul, inputs)),
-        "plain_ms": median_ms(run(quant_matmul.int8_matmul_plain, inputs)),
-        "bound_ms": 1e3 * max(t_b, t_f),
-        "bound_by": "bytes" if t_b > t_f else "operations",
-        "library_ms": None})
-    k = report[-1]
-    net_ms = median_ms(lambda: fused_mlp.fused_mlp_forward(
-        nets, layers, cfg.negative_slope, cfg.out_dim))
-    c_bytes, _ = mlp_costs(compact_lifter.packed_layers()[:-1], M)
-    c_ms = median_ms(run(quant_matmul.int8_weight_matmul, compact_inputs))
-    print(f"  mlp_int8_layer (also replaces mpe3d_tpu/ops/fused_mlp.py:57, "
-          f"int8 kind): pan_irls, 8 int8 layers on {M} rows: {k['ms']:.4f} "
-          f"ms, plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms "
-          f"({k['bound_by']}: {bytes_} bytes), library None (no single "
-          f"PyTorch call); whole int8 net (8 int8 + 1 bf16 launches) "
-          f"{net_ms:.4f} ms against the bf16 net of pan_irls_bf16 (one run "
-          f"launch, the same recipe) {bf16_ms:.4f} ms; max err of the "
-          f"int8 net {err:.3g} (tol {MLP_NET_TOL:g} decameters); "
-          f"pan_compact 8 int8 layers {c_ms:.4f} ms, bound "
+    bound_ms = 1e3 * max(t_b, t_f)
+    bound_by = "bytes" if t_b > t_f else "operations"
+    one_run = lambda: fused_mlp.run_layers(nets, body, slope, acts)  # noqa
+    alone = lambda: [quant_matmul.int8_layer_matmul(h, layer, slope)  # noqa
+                     for h, layer in inputs]
+    plain_run = lambda: fused_mlp.run_plain(nets, body, slope, acts)  # noqa
+    plain_alone = lambda: [fused_mlp.layer_plain(h, layer, slope, True)  # noqa
+                           for h, layer in inputs]
+    lib = lambda: library(nets)  # noqa: E731
+    rows = []
+    for replaces, kernel, plain in (
+            ("mpe3d_tpu/ops/fused_mlp.py:80", one_run, plain_run),
+            ("mpe3d_tpu/ops/quant_matmul.py:73", alone, plain_alone)):
+        ms, lib_ms = in_turns(kernel, lib)
+        rows.append({
+            "name": "mlp_run", "route": "cuda",
+            "source": "mpe3d_tpu_torch/csrc/fused_mlp.cu",
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": max(nets_err.values()), "ms": ms,
+            "plain_ms": median_ms(plain), "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms,
+            "device_ms": device_ms(kernel)})
+    report.extend(rows)
+    a, b = rows
+    net_run = lambda: fused_mlp.fused_mlp_forward(  # noqa: E731
+        nets, layers, slope, cfg.out_dim)
+    clayers = compact_lifter.packed_layers()
+    c_run = lambda: fused_mlp.run_layers(  # noqa: E731
+        nets, clayers[:-1], slope, [True] * (len(clayers) - 1))
+    c_bytes, _ = mlp_costs(clayers[:-1], M)
+    print(f"  mlp_run (int8 kind): pan_irls, its 8 int8 layers as one run on "
+          f"{M} rows: {a['ms']:.4f} ms, device {a['device_ms']:.4f} ms; "
+          f"each a run of one layer (int8_layer_matmul, 8 launches): "
+          f"{b['ms']:.4f} ms, device {b['device_ms']:.4f} ms; plain "
+          f"{a['plain_ms']:.4f} / {b['plain_ms']:.4f} ms; bound "
+          f"{bound_ms:.5f} ms ({bound_by}: {bytes_} bytes); library ({label},"
+          f" 8 chained) {a['library_ms']:.4f} / {b['library_ms']:.4f} ms (in "
+          f"turns), device {device_ms(lib):.4f} ms; whole int8 net (one "
+          f"launch) {median_ms(net_run):.4f} ms, device "
+          f"{device_ms(net_run):.4f} ms, against the bf16 net of "
+          f"pan_irls_bf16 (one run launch, the same recipe) {bf16_ms:.4f} "
+          f"ms; pan_compact 8 int8 layers as one run {median_ms(c_run):.4f} "
+          f"ms, device {device_ms(c_run):.4f} ms, bound "
           f"{1e3 * c_bytes / HBM_BYTES_PER_S:.5f} ms ({c_bytes} bytes)")
 
 
@@ -576,14 +682,14 @@ def check_proj_kernel(cases, report):
             "plain_ms": median_ms(lambda c=calls: [
                 fused_proj.proj_plain(*a) for a in c]),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-        if not any(r["name"] == "gat_fused_proj" for r in report):
-            report.append(row)
         plans = [fused_proj.proj_plan(a[0].shape[0], a[1].shape[0],
                                       a[3].shape[1]) for a in calls]
         per_call = [device_ms(lambda a=a: fused_proj.fused_linear_leaky_linear(
             *a)) for a in calls]
-        dev_ms = device_ms(lambda c=calls: [
+        dev_ms = row["device_ms"] = device_ms(lambda c=calls: [
             fused_proj.fused_linear_leaky_linear(*a) for a in c])
+        if not any(r["name"] == "gat_fused_proj" for r in report):
+            report.append(row)
         print(f"  gat_fused_proj {label}: {x.shape[0]} rows, 5 layers (a "
               f"call: 2 GEMM launches; blocks fc1/fc2 "
               f"{', '.join(f'{p.fc1.blocks}/{p.fc2.blocks}' for p in plans)}"
@@ -741,45 +847,22 @@ def check_frame_cases(args, kw, cases, label):
     return max_err
 
 
-def consistency_scores(pipe, S, kp, observed, pmask):
-    """A pair score field from geometry instead of the matcher [E]: two
-    skeletons that triangulate with a small reprojection error over at
-    least 3 shared joints score high, so the decode groups real people."""
-    import torch
-    from mpe3d_tpu_torch.geometry.camera import (project_points,
-                                                 undistort_points)
-    from mpe3d_tpu_torch.geometry.triangulate import triangulate_pair
-    topo, ms, rig = pipe.topology(S), pipe._match_sel, pipe.match_rig
-    kp, obs = kp[ms], observed[ms]
-    e1, e2 = (torch.as_tensor(e, dtype=torch.long, device=kp.device)
-              for e in (topo.e1, topo.e2))
-    ends = ((e1 // S, e1 % S), (e2 // S, e2 % S))
-    xn = undistort_points(kp, rig.K[:, None, None], rig.dist[:, None, None])
-    Pm = rig.T_wc[:, :3, :]
-    (c1, s1), (c2, s2) = ends
-    X = triangulate_pair(xn[c1, s1], xn[c2, s2], Pm[c1][:, None],
-                         Pm[c2][:, None])                       # [E, J, 3]
-    err = sum(torch.linalg.norm(project_points(
-        X, rig.T_wc[c][:, None], rig.K[c][:, None], rig.dist[c][:, None],
-        min_depth=1e-4) - kp[c, s], dim=-1) for c, s in ends)
-    both = (obs[c1, s1] & obs[c2, s2]).float()
-    n = both.sum(1)
-    return (torch.exp(-(err * both).sum(1) / n.clamp(min=1) / 60.0)
-            * (n >= 3) * pmask)
-
-
 def check_frame_kernel(pipe, frame, crowded_pipe, crowded_frame, report):
     """Phase 3, the decode + gather + pack kernel against its plain version,
     for every prior with and without the gate: on the serving bucket's
     random-matcher frame (timed at the pipeline's own prior and gate), and
     on a crowded S=16 frame (E=2560 pairs, P=16 rows) scored by geometric
-    consistency with every eligible pair decoded.  The crowded frame is not
+    consistency with every eligible pair decoded; and, under the "mean"
+    prior, that frame with every present pair eligible (more than 1024
+    eligible pairs: the kernel's bitonic sort).  The crowded frame is not
     scored by the random matcher: it groups unrelated skeletons at S=16,
     and IRLS on such groups is ill-conditioned (the plain version's prior
     moved 0.047 decameters under a 1e-7 relative change of the pixels),
     so no fp32 tolerance holds there."""
+    import numpy as np
     import torch
     from mpe3d_tpu_torch.ops import frame_kernel as fk
+    from mpe3d_tpu_torch.tools import gat_timing
 
     cases = [(p, g) for p in fk.PRIORS for g in (None, 8.0)]
     args, kw = pipe.frame_stage_inputs(frame)
@@ -788,38 +871,51 @@ def check_frame_kernel(pipe, frame, crowded_pipe, crowded_frame, report):
     tied = (torch.round(args[0] * 8) / 8,) + args[1:]
     check_frame_cases(tied, kw, [(kw["prior"], kw["gate_px"])],
                       "S=4, tied scores")
-    with torch.inference_mode():
-        S, bufs = crowded_pipe._frame_tensors(crowded_frame)
-        pmask = crowded_pipe._match_inputs(S, *bufs)[1]
-        scores = consistency_scores(crowded_pipe, S, bufs[0], bufs[3], pmask)
-        cargs, ckw = crowded_pipe._frame_decode_args(S, scores, pmask,
-                                                     *bufs[:4])
-    ckw["k_cap"] = scores.numel()
+    cargs, ckw = gat_timing.crowded_decode_inputs(crowded_pipe,
+                                                  crowded_frame)
     check_frame_cases(cargs, ckw, cases,
-                      f"S=16 (E={scores.numel()}, P={ckw['P']})")
+                      f"S=16 (E={ckw['k_cap']}, P={ckw['P']})")
+    # every present pair eligible (numpy-seeded scores in (0.5, 1]): past
+    # 1024 eligible pairs the kernel orders its keys by the bitonic sort;
+    # random groupings, so the "mean" prior (module header)
+    rng = np.random.default_rng(7)
+    pmask = cargs[1]
+    many = torch.tensor(0.5 + 0.5 * (1.0 - rng.random(pmask.numel())),
+                        dtype=torch.float32, device=pmask.device)
+    n_elig = int(((pmask > 0.5) & (many > ckw["threshold"])).sum())
+    if n_elig <= 1024:
+        raise AssertionError(f"only {n_elig} eligible pairs: the bitonic "
+                             f"sort is not exercised")
+    check_frame_cases((many,) + cargs[1:], ckw, [("mean", None)],
+                      f"S=16, {n_elig} eligible pairs (bitonic sort)")
+    crowded = lambda: fk.frame_decode_pack(*cargs, **ckw)  # noqa: E731
     print(f"  frame_decode_pack S=16 ({ckw['prior']}, gate "
-          f"{ckw['gate_px']}): "
-          f"{median_ms(lambda: fk.frame_decode_pack(*cargs, **ckw)):.4f} "
-          f"ms, plain "
+          f"{ckw['gate_px']}, every eligible pair decoded): "
+          f"{median_ms(crowded):.4f} ms, device {device_ms(crowded):.4f} ms,"
+          f" plain "
           f"{median_ms(lambda: fk.frame_decode_pack_plain(*cargs, **ckw)):.4f}"
           f" ms")
     out = fk.frame_decode_pack(*args, **kw)
     bytes_, ops = frame_costs(args, kw, out)
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    call = lambda: fk.frame_decode_pack(*args, **kw)  # noqa: E731
+    # the kernel's times before the plain version's thousands of small
+    # launches (a profiling window right after them dropped events)
+    ms, dev_ms = median_ms(call), device_ms(call)
     report.append({
         "name": "frame_decode_pack", "route": "cuda",
         "source": "mpe3d_tpu_torch/csrc/frame_decode_pack.cu",
         "replaces": "mpe3d_tpu/ops/frame_kernel.py:358",
-        "launches": 0, "max_abs_err": max_err,
-        "ms": median_ms(lambda: fk.frame_decode_pack(*args, **kw)),
+        "launches": 0, "max_abs_err": max_err, "ms": ms,
         "plain_ms": median_ms(lambda: fk.frame_decode_pack_plain(*args,
                                                                  **kw)),
         "bound_ms": 1e3 * max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes > t_ops else "operations",
-        "library_ms": None})
+        "library_ms": None, "device_ms": dev_ms})
     k = report[-1]
     print(f"  frame_decode_pack S=4 ({kw['prior']}, gate {kw['gate_px']}): "
-          f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
+          f"{k['ms']:.4f} ms, device {k['device_ms']:.4f} ms, plain "
+          f"{k['plain_ms']:.4f} ms, bound "
           f"{k['bound_ms']:.6f} ms ({k['bound_by']}: {bytes_} bytes, {ops} "
           f"operations), library None")
 
@@ -930,6 +1026,7 @@ def time_tiled_kernels(label, x, pw, gtopo, m):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
         r = rows[-1]
         dev, n_k = device_profile(lambda c=calls: [k() for k in c])
+        r["device_ms"] = dev
         print(f"  {name} {label} ({len(calls)} calls a stack): "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{b_ms:.5f} ms ({b_by}: {b} bytes, {f} operations), "
@@ -988,13 +1085,12 @@ def check_tiled_kernels(pipes, frames, report):
 def launch_counters():
     """Kernel name -> the wrapper function that counts its launches."""
     from mpe3d_tpu_torch.ops import (fused_mlp, fused_proj, frame_kernel,
-                                     gat_kernel, gat_tiled, quant_matmul)
+                                     gat_kernel, gat_tiled)
     return {"gat_stack": gat_kernel.gat_stack,
             "gat_k1": gat_tiled.gat_k1_layer,
             "gat_k2": gat_tiled.gat_k2_layer,
             "frame_decode_pack": frame_kernel.frame_decode_pack,
-            "mlp_bf16_run": fused_mlp.mlp_bf16_run,
-            "mlp_int8_layer": quant_matmul.mlp_int8_layer,
+            "mlp_run": fused_mlp.mlp_run,
             "gat_fused_proj": fused_proj.fused_linear_leaky_linear}
 
 
@@ -1028,8 +1124,7 @@ def expected_launches(pipe, frames):
             want["gat_k1"] += n_gat
             want["gat_k2"] += n_gat - 1
         want["frame_decode_pack"] += int(frame_path)
-        want["mlp_bf16_run"] += steps.count("bf16")
-        want["mlp_int8_layer"] += steps.count("int8")
+        want["mlp_run"] += steps.count("run")
     return want
 
 
@@ -1214,7 +1309,8 @@ def main() -> int:
     spills = [ln.strip() for ln in lib.compiler_output.splitlines()
               if "spill" in ln and not ln.strip().startswith(
                   "0 bytes stack frame, 0 bytes spill")]
-    for name in ("f64_gemm_kernel", "stack_out", "mlp_bf16_run_kernel"):
+    for name in ("f64_gemm_kernel", "stack_out", "mlp_run_kernel",
+                 "frame_decode_pack_kernel"):
         print(f"  ptxas, {name}: " + "; ".join(ptxas_report(
             lib.compiler_output, name)), flush=True)
     phase("build", t0, f"nvcc {lib.build_seconds:.1f} s; ptxas: "
@@ -1326,9 +1422,9 @@ def main() -> int:
         launches, ms, _, outs = run_main_path(
             gpu, int8_pipeline(tree, "cpu", True), frames,
             f"pan_irls (int8), {mlabel} matcher, frame path")
-        if (launches["mlp_int8_layer"], launches["mlp_bf16_run"]) != (
-                8 * len(frames), len(frames)):
-            raise AssertionError(f"pan_irls: lifter launches {launches}")
+        if launches["mlp_run"] != len(frames):
+            raise AssertionError(f"pan_irls: lifter launches {launches}, "
+                                 f"not one a frame")
         int8_launches = int8_launches or launches
         _, ms_eager, _, _ = run_main_path(
             int8_pipeline(tree, GPU, False), int8_pipeline(tree, "cpu", False),
@@ -1403,11 +1499,14 @@ def main() -> int:
         crowded_ms[label] = ms
         if mlabel == "trained":
             stage_table(gpu, run_frames[:N_CROWDED], label)
-    path_launches = {"gat_k1": crowded_launches, "gat_k2": crowded_launches,
-                     "mlp_int8_layer": int8_launches,
-                     "gat_fused_proj": layer_launches}
+    # each row's launches from the run of the path that serves it
+    path_launches = {"mpe3d_tpu/ops/gat_tiled.py:86": crowded_launches,
+                     "mpe3d_tpu/ops/gat_tiled.py:225": crowded_launches,
+                     "mpe3d_tpu/ops/fused_mlp.py:80": int8_launches,
+                     "mpe3d_tpu/ops/quant_matmul.py:73": int8_launches,
+                     "mpe3d_tpu/ops/fused_proj.py:48": layer_launches}
     for k in report:
-        k["launches"] = path_launches.get(k["name"],
+        k["launches"] = path_launches.get(k["replaces"],
                                           main_launches)[k["name"]]
     missing = [k["name"] for k in report if not k["launches"]]
     if missing:
@@ -1417,6 +1516,10 @@ def main() -> int:
           "on every crowded bucket; median frame ms: "
           + "; ".join(f"{k} {v:.3f}" for k, v in crowded_ms.items()))
 
+    # a device time the profiler did not record is not measured: null
+    for k in report:
+        if k["device_ms"] != k["device_ms"]:
+            k["device_ms"] = None
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,13 +4,15 @@ Port of ``mpe3d_tpu/models/mlp.py``: ``apply_lifter`` (:77-131), whose
 layers run here in one of three kinds per layer (``ops/fused_mlp.py``):
 
 * bf16 weights, bf16 operands, fp32 sums (``compute_dtype=bfloat16``,
-  :121-126): on CUDA each run of consecutive bf16 layers is one launch of
-  the ``mlp_bf16_run`` kernel;
+  :121-126);
 * int8 weights ``wq`` with fp32 ``scale`` / ``rscale`` (the per-layer int8
-  path, :113-118, ``ops/quant_matmul.py``): the ``mlp_int8_layer`` kernel on
-  CUDA;
+  path, :113-118, ``ops/quant_matmul.py``);
 * fp32 weights and sums (the path without ``compute_dtype``, :120-126):
   ``torch.matmul``.
+
+On CUDA each run of consecutive bf16 and int8 layers is one launch of the
+``mlp_run`` kernel: the whole network of a bf16 lifter, and of an int8 one
+(its int8 layers and its bf16 head), as the TPU's ``_fused_mlp_call``.
 
 LeakyReLU(negative_slope) between layers, output 18 joints x 3 in
 decameters.  With ``residual_prior`` the net predicts a correction to the
@@ -145,7 +147,7 @@ class Lifter(nn.Module):
             for name, t in zip(packed._fields, packed):
                 self.register_buffer(f"{name}{i}", t)
             self.kinds.append(type(packed))
-            k_in = packed[0].shape[1]
+            k_in = packed.b.shape[0]
         self.n_layers = len(dims)
         self._packed = None
         self.serve_dtype = ("int8" if Int8Layer in self.kinds else

@@ -53,12 +53,10 @@ _SIGNATURES = {
     # slope, xout, stream
     "gat_k2_layer": [_P] * 8 + [_I] * 5 + [_F, _F, _P, _P],
     # x, y, layers, tiles, block_tiles, ws, n_sync, acts_off, parts_off,
-    # M, n_layers, n_blocks, slope, stream
-    "mlp_bf16_run": [_P] * 6 + [_I, ctypes.c_longlong, ctypes.c_longlong]
-                    + [_I] * 3 + [_F, _P],
-    "mlp_bf16_run_blocks": [],
-    # x, wq, scale, rscale, b, y, M, K, N, alpha, act, stream
-    "mlp_int8_layer": [_P] * 6 + [_I] * 3 + [_F, _I, _P],
+    # M, n_layers, n_blocks, slope, any_int8, stream
+    "mlp_run": [_P] * 6 + [_I, ctypes.c_longlong, ctypes.c_longlong]
+               + [_I] * 3 + [_F, _I, _P],
+    "mlp_run_blocks": [],
     # x, w1, b1, w2, b2, out, h, ldh, N, D, F, alpha, s1, s2, stream
     "gat_fused_proj": [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P],
     # scores, pmask, pairs, used_pos, kp, valid, prob, observed, cams,

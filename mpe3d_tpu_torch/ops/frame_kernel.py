@@ -34,7 +34,9 @@ pair table gathered by the kept indices, ``k_cap = min(k_cap, E_k)``
 ``frame_kernel_fits``.
 
 ``frame_decode_pack`` takes the plain version for CPU tensors and launches
-the kernel (``csrc/frame_decode_pack.cu``) for CUDA tensors;
+the kernel (``csrc/frame_decode_pack.cu``) for CUDA tensors, checking the
+arguments at the first call of their signature (sizes, shapes, dtypes) and
+allocating the six outputs as views of one workspace;
 ``frame_decode_pack.launches`` counts the kernel launches.  Bound and design:
 see the kernel source.
 """
@@ -150,6 +152,64 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
                          f"{tuple(t.shape)}, expected {tuple(shape)}")
 
 
+def _check_args(args, dev, E, C, S, J, Cu, P, k_cap, prior):
+    """The checks of ``frame_decode_pack``'s arguments (sizes, dtypes,
+    shapes, devices, contiguity)."""
+    if prior not in PRIORS:
+        raise ValueError(f"prior must be one of {PRIORS}, got {prior!r}")
+    if not (1 <= E <= MAX_PAIRS and 1 <= C * S <= MAX_HEADS
+            and C <= MAX_CAMERAS and 1 <= Cu <= MAX_USED_CAMERAS
+            and 1 <= P <= MAX_ROWS and 1 <= k_cap <= E):
+        raise ValueError(
+            f"frame_decode_pack serves E <= {MAX_PAIRS}, C*S <= "
+            f"{MAX_HEADS}, C <= {MAX_CAMERAS}, Cu <= {MAX_USED_CAMERAS}, "
+            f"P <= {MAX_ROWS}, 1 <= k_cap <= E; got E={E}, C={C}, S={S}, "
+            f"Cu={Cu}, P={P}, k_cap={k_cap}")
+    f32, names = torch.float32, ("scores", "pair_mask", "pairs", "used_pos",
+                                 "kp", "valid", "prob", "observed", "cams",
+                                 "cam_world")
+    want = ((f32, (E,)), (f32, (E,)), (torch.int32, (E, 4)),
+            (torch.int32, (Cu,)), (f32, (Cu, S, J, 2)), (f32, (Cu, S, J)),
+            (f32, (Cu, S, J)), (torch.bool, (Cu, S, J)), (f32, (Cu, 21)),
+            (f32, (Cu, 12)))
+    for t, name, (dtype, shape) in zip(args, names, want):
+        _check(t, name, dtype, shape, dev)
+
+
+class _Outputs(NamedTuple):
+    """Where the six outputs lie in a call's one workspace: its bytes, and
+    per output (dtype, shape, strides, offset in elements of its dtype)."""
+    size: int
+    views: Tuple[Tuple[torch.dtype, Tuple[int, ...], Tuple[int, ...], int],
+                 ...]
+
+
+def _output_layout(C, J, Cu, P) -> _Outputs:
+    """net, kp, valid (fp32), persons (int32), person_mask and observed
+    (bool), contiguous, each at a 16-byte aligned offset, in
+    ``FrameOutputs`` order."""
+    specs = {"net": (torch.float32, (P, Cu * J * 14)),
+             "kp": (torch.float32, (P, Cu, J, 2)),
+             "valid": (torch.float32, (P, Cu, J)),
+             "persons": (torch.int32, (P, C)),
+             "person_mask": (torch.bool, (P,)),
+             "observed": (torch.bool, (P, Cu, J))}
+    place, off = {}, 0
+    for name, (dtype, shape) in specs.items():
+        size = 1 if dtype == torch.bool else 4
+        strides = tuple(int(np.prod(shape[i + 1:])) for i in range(len(shape)))
+        place[name] = (dtype, shape, strides, off // size)
+        off += -(-int(np.prod(shape)) * size // 16) * 16
+    return _Outputs(off, tuple(place[name] for name in FrameOutputs._fields))
+
+
+# checked argument signatures (device, sizes, scalars, and the inputs'
+# shapes and dtypes) -> their output layout; a call whose signature was
+# checked before is not checked again
+_CHECKED = {}
+_MAX_CHECKED = 64
+
+
 def frame_decode_pack(
         scores: torch.Tensor, pair_mask: torch.Tensor, pairs: torch.Tensor,
         used_pos: torch.Tensor, kp: torch.Tensor, valid: torch.Tensor,
@@ -159,58 +219,41 @@ def frame_decode_pack(
         gate_px: Optional[float], image_size: Tuple[float, float],
         ) -> FrameOutputs:
     """Decode + gather + pack of one frame (arguments as the plain version):
-    the plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
-    kw = dict(n_cameras=n_cameras, threshold=threshold, min_views=min_views,
-              k_cap=k_cap, P=P, prior=prior, gate_px=gate_px,
-              image_size=image_size)
+    the plain version for CPU tensors, the CUDA kernel for CUDA tensors.
+    On CUDA the arguments are checked at the first call of their
+    signature, and the six outputs are views of one allocation."""
+    args = (scores, pair_mask, pairs, used_pos, kp, valid, prob, observed,
+            cams, cam_world)
     if scores.device.type == "cpu":
-        return frame_decode_pack_plain(scores, pair_mask, pairs, used_pos, kp,
-                                       valid, prob, observed, cams, cam_world,
-                                       **kw)
+        return frame_decode_pack_plain(
+            *args, n_cameras=n_cameras, threshold=threshold,
+            min_views=min_views, k_cap=k_cap, P=P, prior=prior,
+            gate_px=gate_px, image_size=image_size)
     if scores.device.type != "cuda":
         raise ValueError(f"frame_decode_pack: unsupported device "
                          f"{scores.device}")
-    if prior not in PRIORS:
-        raise ValueError(f"prior must be one of {PRIORS}, got {prior!r}")
     dev = scores.device
-    E = scores.shape[0]
+    E, C = scores.shape[0], n_cameras
     Cu, S, J = kp.shape[0], kp.shape[1], kp.shape[2]
-    C = n_cameras
-    if not (1 <= E <= MAX_PAIRS and 1 <= C * S <= MAX_HEADS
-            and C <= MAX_CAMERAS and 1 <= Cu <= MAX_USED_CAMERAS
-            and 1 <= P <= MAX_ROWS and 1 <= k_cap <= E):
-        raise ValueError(
-            f"frame_decode_pack serves E <= {MAX_PAIRS}, C*S <= "
-            f"{MAX_HEADS}, C <= {MAX_CAMERAS}, Cu <= {MAX_USED_CAMERAS}, "
-            f"P <= {MAX_ROWS}, 1 <= k_cap <= E; got E={E}, C={C}, S={S}, "
-            f"Cu={Cu}, P={P}, k_cap={k_cap}")
-    _check(scores, "scores", torch.float32, (E,), dev)
-    _check(pair_mask, "pair_mask", torch.float32, (E,), dev)
-    _check(pairs, "pairs", torch.int32, (E, 4), dev)
-    _check(used_pos, "used_pos", torch.int32, (Cu,), dev)
-    _check(kp, "kp", torch.float32, (Cu, S, J, 2), dev)
-    for t, name in ((valid, "valid"), (prob, "prob")):
-        _check(t, name, torch.float32, (Cu, S, J), dev)
-    _check(observed, "observed", torch.bool, (Cu, S, J), dev)
-    _check(cams, "cams", torch.float32, (Cu, 21), dev)
-    _check(cam_world, "cam_world", torch.float32, (Cu, 12), dev)
-
-    out = FrameOutputs(
-        torch.empty((P, C), dtype=torch.int32, device=dev),
-        torch.empty((P,), dtype=torch.bool, device=dev),
-        torch.empty((P, Cu * J * 14), dtype=torch.float32, device=dev),
-        torch.empty((P, Cu, J, 2), dtype=torch.float32, device=dev),
-        torch.empty((P, Cu, J), dtype=torch.float32, device=dev),
-        torch.empty((P, Cu, J), dtype=torch.bool, device=dev))
+    key = ((dev, C, P, k_cap, prior) + tuple([t.shape for t in args])
+           + tuple([t.dtype for t in args]))
+    out_layout = _CHECKED.get(key)
+    if out_layout is None:
+        _check_args(args, dev, E, C, S, J, Cu, P, k_cap, prior)
+        if len(_CHECKED) >= _MAX_CHECKED:
+            _CHECKED.clear()
+        out_layout = _CHECKED[key] = _output_layout(C, J, Cu, P)
+    ws = torch.empty(out_layout.size, dtype=torch.uint8, device=dev)
+    bases = {torch.float32: ws.view(torch.float32),
+             torch.int32: ws.view(torch.int32), torch.bool: ws.view(torch.bool)}
+    out = FrameOutputs(*(torch.as_strided(bases[dtype], shape, strides, off)
+                         for dtype, shape, strides, off in out_layout.views))
     code = _build.library().cdll.frame_decode_pack(
-        scores.data_ptr(), pair_mask.data_ptr(), pairs.data_ptr(),
-        used_pos.data_ptr(), kp.data_ptr(), valid.data_ptr(),
-        prob.data_ptr(), observed.data_ptr(), cams.data_ptr(),
-        cam_world.data_ptr(), E, C, S, J, Cu, P, threshold, min_views,
-        k_cap, PRIORS.index(prior), int(gate_px is not None),
+        *(t.data_ptr() for t in args), E, C, S, J, Cu, P, threshold,
+        min_views, k_cap, PRIORS.index(prior), int(gate_px is not None),
         0.0 if gate_px is None else float(gate_px), float(image_size[0]),
         float(image_size[1]), *(t.data_ptr() for t in out),
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(code, "frame_decode_pack")
     frame_decode_pack.launches += 1
     return out

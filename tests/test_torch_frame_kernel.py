@@ -9,6 +9,9 @@ JAX package, on the CPU.
   whole-frame kernel in interpret mode (``build_frame_program``), on the
   small pipeline of ``tests/test_frame_kernel.py``.
 * Both paths of the port on the trained ``pan_irls_bf16`` pair.
+* The CUDA kernel's selection of its decode trips (its sort keys and their
+  ordering, emulated) against ``torch.sort(stable=True)``, and the CUDA
+  wrapper's output layout and argument checks.
 
 Tolerances: persons, person masks and gathered observations are equal; net
 fields 0-9 within 1e-5 (fp32 pixel normalisation and one undistortion, the
@@ -299,6 +302,60 @@ def test_frame_decode_pack_rejects_other_devices(module_setup):
                              prior="mean", gate_px=None, image_size=SIZE)
 
 
+@pytest.mark.parametrize("C,J,Cu,P", [(5, 18, 5, 8), (5, 18, 5, 16),
+                                       (32, 3, 8, 1)])
+def test_output_layout_one_workspace(C, J, Cu, P):
+    """The CUDA wrapper's six outputs as views of one workspace (built here
+    on a CPU buffer): the dtypes and shapes of ``FrameOutputs``,
+    contiguous, 16-byte aligned, inside the workspace and disjoint."""
+    layout = fk._output_layout(C, J, Cu, P)
+    ws = torch.zeros(layout.size, dtype=torch.uint8)
+    bases = {d: ws.view(d) for d in (torch.float32, torch.int32, torch.bool)}
+    out = fk.FrameOutputs(*(torch.as_strided(bases[d], shape, strides, off)
+                            for d, shape, strides, off in layout.views))
+    want = {"persons": (torch.int32, (P, C)), "person_mask": (torch.bool, (P,)),
+            "net": (torch.float32, (P, Cu * J * 14)),
+            "kp": (torch.float32, (P, Cu, J, 2)),
+            "valid": (torch.float32, (P, Cu, J)),
+            "observed": (torch.bool, (P, Cu, J))}
+    spans = []
+    for name, t in zip(fk.FrameOutputs._fields, out):
+        assert (t.dtype, tuple(t.shape)) == want[name] and t.is_contiguous()
+        start = t.data_ptr() - ws.data_ptr()
+        spans.append((start, start + t.numel() * t.element_size()))
+        assert start % 16 == 0
+    spans.sort()
+    assert spans[0][0] >= 0 and spans[-1][1] <= layout.size
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+
+
+def test_argument_checks(module_setup):
+    """The checks the CUDA wrapper runs once per argument signature: the
+    serving sizes pass; a wrong dtype, a wrong shape, k_cap past E or an
+    unknown prior raise."""
+    E = build_topology(C, S).n_pairs
+    Cu, J = 5, 18
+    f = lambda *s: torch.zeros(s)                       # noqa: E731
+    i = lambda *s: torch.zeros(s, dtype=torch.int32)    # noqa: E731
+    args = [f(E), f(E), i(E, 4), i(Cu), f(Cu, S, J, 2), f(Cu, S, J),
+            f(Cu, S, J), torch.zeros((Cu, S, J), dtype=torch.bool),
+            f(Cu, 21), f(Cu, 12)]
+    dev = torch.device("cpu")
+    fk._check_args(args, dev, E, C, S, J, Cu, P, 64, "irls")
+    bad = list(args)
+    bad[2] = f(E, 4)
+    with pytest.raises(ValueError, match="pairs must be"):
+        fk._check_args(bad, dev, E, C, S, J, Cu, P, 64, "irls")
+    bad = list(args)
+    bad[4] = f(Cu, S, J, 3)
+    with pytest.raises(ValueError, match="kp has shape"):
+        fk._check_args(bad, dev, E, C, S, J, Cu, P, 64, "irls")
+    with pytest.raises(ValueError, match="k_cap <= E"):
+        fk._check_args(args, dev, E, C, S, J, Cu, P, E + 1, "irls")
+    with pytest.raises(ValueError, match="prior must be"):
+        fk._check_args(args, dev, E, C, S, J, Cu, P, 64, "huber")
+
+
 # ---------------------------------------------------------------------------
 # whole path: infer_fused(use_frame_kernel=True) against the TPU kernel
 # ---------------------------------------------------------------------------
@@ -421,3 +478,92 @@ def test_use_frame_kernel_resolution():
     assert not fk.frame_kernel_supported(wide)
     with pytest.raises(ValueError, match="does not serve"):
         wide.frame_path_on()
+
+
+# ---- the decode kernel's selection order --------------------------------
+
+RANK_SORT = 1024    # the kernel orders up to this many keys by counting
+
+
+def kernel_decode_order(scores, pmask, threshold, k_cap, rng):
+    """The CUDA kernel's selection of its decode trips, emulated: a 64-bit
+    key per eligible pair (the score's order-preserving bits inverted, -0 as
+    +0, then the pair index), compacted in an arbitrary order (the kernel's
+    shared counter: ``rng`` shuffles); up to RANK_SORT keys each key's place
+    is the count of smaller keys, past that the keys are padded with
+    all-ones keys to a power of two and bitonic-sorted by the kernel's
+    network.  The first n_live = min(#eligible, k_cap) keys' indices are the
+    trips.  Returns (trips, n_live, the ordering used)."""
+    s = scores.numpy().astype(np.float32)
+    idx = np.flatnonzero((pmask.numpy() > 0.5) & (s > threshold))
+    rng.shuffle(idx)
+    u = np.where(s[idx] == 0, np.float32(0), s[idx]).view(np.uint32)
+    asc = np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000))
+    keys = (~asc).astype(np.uint64) << np.uint64(32) | idx.astype(np.uint64)
+    n_live = min(len(idx), k_cap)
+    if len(keys) <= RANK_SORT:
+        rank = (keys[None, :] < keys[:, None]).sum(1)
+        order = np.empty(n_live, np.uint64)
+        take = rank < n_live
+        order[rank[take]] = keys[take]
+        return ((order & np.uint64(0xFFFFFFFF)).astype(np.int64), n_live,
+                "count")
+    n = 1
+    while n < len(keys):
+        n *= 2
+    keys = np.concatenate([keys, np.full(n - len(keys), ~np.uint64(0))])
+    i = np.arange(n)
+    k = 2
+    while k <= n:
+        j = k // 2
+        while j > 0:
+            lo = i[(i ^ j) > i]
+            hi = lo ^ j
+            a, b = keys[lo], keys[hi]
+            swap = (a > b) == ((lo & k) == 0)
+            keys[lo[swap]], keys[hi[swap]] = b[swap], a[swap]
+            j //= 2
+        k *= 2
+    return ((keys[:n_live] & np.uint64(0xFFFFFFFF)).astype(np.int64), n_live,
+            "bitonic")
+
+
+@pytest.mark.parametrize("E", [160, 2560])
+@pytest.mark.parametrize("kind", ["random", "eighths", "signed"])
+@pytest.mark.parametrize("k_cap", [8, 64, 2560])
+def test_decode_order_matches_stable_sort(E, kind, k_cap):
+    """The kernel's keys and their ordering (counting ranks, or the bitonic
+    sort past 1024 eligible pairs) give exactly the trips of the plain
+    version (``greedy_decode``: ``torch.sort(stable=True)`` of the masked
+    scores, descending, and n_live = min(#eligible, k_cap)): random scores,
+    scores on a grid of eighths (ties, to the lower index), signed scores
+    with zeros of both signs under a negative threshold; a third of the
+    pairs absent; k_cap below and above #eligible."""
+    rng = np.random.default_rng(E + k_cap)
+    if kind == "random":
+        scores, threshold = rng.random(E), 0.5
+    elif kind == "eighths":
+        scores, threshold = np.round(rng.random(E) * 8) / 8, 0.5
+    else:
+        scores = np.round(rng.normal(size=E) * 4) / 8
+        scores[rng.random(E) < 0.1] = -0.0
+        threshold = -0.3
+    scores = torch.tensor(scores, dtype=torch.float32)
+    pmask = torch.tensor(rng.random(E) > 1 / 3, dtype=torch.float32)
+    K = min(k_cap, E)
+    order, n_live, how = kernel_decode_order(scores, pmask, threshold, K,
+                                             rng)
+    eligible = (pmask > 0.5) & (scores > threshold)
+    masked = torch.where(eligible, scores,
+                         torch.full_like(scores, float("-inf")))
+    ref = torch.sort(masked, descending=True, stable=True).indices[:K]
+    assert n_live == min(int(eligible.sum()), K)
+    assert n_live > 0
+    if k_cap == 8:                      # below #eligible
+        assert n_live < int(eligible.sum())
+    if k_cap == 2560:                   # at or above #eligible
+        assert n_live == int(eligible.sum())
+    np.testing.assert_array_equal(order, ref[:n_live].numpy())
+    # both orderings of the kernel are exercised: counting up to RANK_SORT
+    # eligible pairs, the bitonic sort past it
+    assert how == ("bitonic" if (E, kind) == (2560, "signed") else "count")

@@ -9,17 +9,24 @@
   output tile owned once, k-splits of 1 to 8 that partition k, and at S=4
   every GEMM fills at least 100 of the 132 SMs unless it already splits k
   as far as 8 splits and its stages allow.
-* The bf16 lifter run (``ops/fused_mlp.py::plan_bf16_run``): every (layer,
+* The lifter run (``ops/fused_mlp.py::plan_run``), bf16 and mixed with
+  int8 layers (the int8 demo lifters, a narrow ragged net): every (layer,
   64-column slab, K-chunk) tile is owned by exactly one block, the chunks
-  of a slab cover its rows once, the device tables lay partials, counters
-  and activations out without overlap, and the launch plan groups mixed
-  layer lists into runs.  A plain emulation that walks the plan (fp32
-  partials of exact bf16 products, summed in chunk order as the kernel
-  sums them) is held to ``fused_mlp_plain`` within 1e-5 x max|out| per
-  layer, and to the JAX ``apply_lifter(..., compute_dtype=bfloat16)``
-  within the net tolerances of ``tests/test_torch_pack_mlp.py`` (1e-5 on a
-  narrow net, 1e-3 decameters on the 29.1 M-param trained lifter: bf16
-  operand flips cascade through its 9 layers).
+  of a slab cover its rows once, a bf16-only net keeps the plan it had
+  before int8 layers joined the run, the device tables lay partials,
+  counters, activations and the int8 layers' scales out without overlap,
+  the launch plan groups bf16 and int8 layers into one run, and the int8
+  weights' fragment order is a bijection the kernel's byte formula reads
+  back.  A plain emulation that walks the plan (fp32 partials of exact
+  products of bf16 operands, summed in chunk order as the kernel sums
+  them; the int8 fold, fragment read and scales) is held to
+  ``fused_mlp_plain`` within 1e-5 x max|out| per layer, and to the JAX
+  ``apply_lifter`` within the net tolerances of
+  ``tests/test_torch_pack_mlp.py`` (1e-5 on a narrow bf16 net, 1e-3
+  decameters on the 29.1 M-param trained lifters: bf16 operand flips
+  cascade through their 9 layers) and, for the narrow mixed net, to the
+  TPU kernel in interpret mode and ``apply_lifter`` within the mixed-net
+  tolerance of ``tests/test_torch_quant.py``.
 """
 
 import os
@@ -186,15 +193,10 @@ def test_gat_layer_plans_fill_the_card_at_s4(edge_const):
 
 # ---- the lifter run -----------------------------------------------------
 
-@pytest.mark.parametrize("M", [1, 8, 16])
-@pytest.mark.parametrize("shapes", [SERVING, NARROW],
-                         ids=["serving", "narrow"])
-def test_lifter_plan_covers_tiles(shapes, M):
-    """Every (layer, slab, chunk) tile owned once; a slab's chunks cover
-    its rows [0, ceil(K/16) 16) once; a block's tiles in layer order,
-    at most MAX_LAYER_TILES a layer, chunks of at most KC_MAX rows; on the
-    serving widths no block streams more than 1.1 x the mean bytes."""
-    plan = fm.plan_bf16_run(shapes, M, N_BLOCKS)
+def _check_cover(plan, shapes, M):
+    """Every (layer, slab, chunk) tile of ``plan`` owned once; a slab's
+    chunks cover its rows [0, ceil(K/16) 16) once; a block's tiles in layer
+    order, at most MAX_LAYER_TILES a layer, chunks of at most KC_MAX rows."""
     assert len(plan.blocks) == N_BLOCKS and plan.M == M
     seen = {}
     for tiles in plan.blocks:
@@ -215,13 +217,180 @@ def test_lifter_plan_covers_tiles(shapes, M):
             assert rows[0][0] == 0 and rows[-1][1] == -(-K // 16) * 16
             assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
     assert len(seen) == sum(lay.n_slabs * lay.splits for lay in plan.layers)
+
+
+def _block_bytes(plan, shapes, int8):
+    """Weight bytes each block streams (a row of a 64-column slab: 128 bytes
+    of bf16, 64 of int8; rows past K not counted)."""
+    return [sum((min(t.r1, shapes[t.layer][0]) - t.r0)
+                * (1 if int8[t.layer] else 2) * fm.SLAB for t in b)
+            for b in plan.blocks]
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+@pytest.mark.parametrize("shapes", [SERVING, NARROW],
+                         ids=["serving", "narrow"])
+def test_lifter_plan_covers_tiles(shapes, M):
+    """Every (layer, slab, chunk) tile owned once; a slab's chunks cover
+    its rows [0, ceil(K/16) 16) once; a block's tiles in layer order,
+    at most MAX_LAYER_TILES a layer, chunks of at most KC_MAX rows; on the
+    serving widths no block streams more than 1.1 x the mean bytes."""
+    plan = fm.plan_run(shapes, M, N_BLOCKS)
+    _check_cover(plan, shapes, M)
     if shapes is SERVING:
-        per_block = [sum((min(t.r1, shapes[t.layer][0]) - t.r0) for t in b)
-                     for b in plan.blocks]
-        mean = sum(K * N for K, N in shapes) / fm.SLAB / N_BLOCKS
+        per_block = _block_bytes(plan, shapes, [False] * len(shapes))
+        mean = 2 * sum(K * N for K, N in shapes) / N_BLOCKS
         assert max(per_block) <= 1.1 * mean
         # the wide layers split K so that their tiles fill the grid
         assert all(lay.n_slabs * lay.splits >= 120 for lay in plan.layers[:8])
+
+
+# digests of the bf16 plans before int8 layers joined the run: the split
+# counts and a hash of every block's tile list, at 132 and at 7 blocks
+BF16_PLANS = {
+    ("serving", 132): ([5, 8, 4, 4, 8, 8, 8, 8, 8], "fcf9e6dabbb77c21"),
+    ("serving", 7): ([2, 3, 3, 3, 3, 3, 3, 3, 6], "42c88b5ccaf4eae5"),
+    ("narrow", 132): ([2, 1, 2, 1], "1255cb894d033309"),
+    ("narrow", 7): ([2, 1, 2, 1], "768bd5524c273c37"),
+}
+
+
+@pytest.mark.parametrize("M", [1, 16])
+@pytest.mark.parametrize("net, n_blocks", list(BF16_PLANS))
+def test_bf16_plan_unchanged(net, n_blocks, M):
+    """A bf16-only net gets exactly the plan it had before the run kernel
+    took int8 layers (weight bytes are balanced by the same costs, doubled
+    for bf16 rows), with and without the explicit all-bf16 kinds."""
+    import hashlib
+    shapes = {"serving": SERVING, "narrow": NARROW}[net]
+    splits, digest = BF16_PLANS[net, n_blocks]
+    for plan in (fm.plan_run(shapes, M, n_blocks),
+                 fm.plan_run(shapes, M, n_blocks, [False] * len(shapes))):
+        assert [lay.splits for lay in plan.layers] == splits
+        assert not any(lay.int8 for lay in plan.layers)
+        tiles = repr([[tuple(t) for t in b] for b in plan.blocks])
+        assert hashlib.sha256(tiles.encode()).hexdigest()[:16] == digest
+
+
+PAN_COMPACT = ((1260, 1536), (1536, 1536), (1536, 1024), (1024, 1024),
+               (1024, 512), (512, 512), (512, 512), (512, 512), (512, 64))
+# a narrow mixed net: int8 -> int8 -> bf16 -> int8 -> bf16, ragged slabs,
+# K = 70 at the input (the int8 fragments pad it to 80 rows)
+NARROW_MIXED = ((70, 48), (48, 80), (80, 48), (48, 32), (32, 16))
+NARROW_KINDS = (True, True, False, True, False)
+MIXED_NETS = {"pan_irls": (SERVING, (True,) * 8 + (False,)),
+              "pan_compact": (PAN_COMPACT, (True,) * 8 + (False,)),
+              "narrow": (NARROW_MIXED, NARROW_KINDS)}
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+@pytest.mark.parametrize("net", list(MIXED_NETS))
+def test_mixed_plan_covers_tiles(net, M):
+    """Mixed int8 + bf16 runs (the int8 demo lifters, a narrow ragged net):
+    every tile owned once, chunks covering each slab's rows once; the plan
+    marks the int8 layers; in each layer of the demo lifters no block
+    streams more than one tile or 1.25 x the layer's mean weight bytes,
+    whichever is more (a layer's blocks wait for each other at its grid
+    barrier)."""
+    shapes, int8 = MIXED_NETS[net]
+    plan = fm.plan_run(shapes, M, N_BLOCKS, int8)
+    _check_cover(plan, shapes, M)
+    assert tuple(lay.int8 for lay in plan.layers) == int8
+    if net != "narrow":
+        for l, ((K, N), q) in enumerate(zip(shapes, int8)):
+            layer_plan = plan._replace(blocks=tuple(
+                tuple(t for t in b if t.layer == l) for b in plan.blocks))
+            per_block = _block_bytes(layer_plan, shapes, int8)
+            tile = max(t.r1 - t.r0 for b in layer_plan.blocks for t in b)
+            mean = K * N * (1 if q else 2) / N_BLOCKS
+            assert max(per_block) <= max(tile * fm.SLAB * (1 if q else 2),
+                                         1.25 * mean)
+
+
+def frag_matrix(wq):
+    """The weight matrix the kernel reads from fragment-ordered int8
+    weights [slabs, k-blocks, 1024], by the kernel's byte formula: byte
+    p 512 + 16 lane + 8 ml + 2 r + h of k-block kb of slab s is register r
+    of lane's m16n8k16 A fragment of m-tile 2 p + ml (the transposed
+    product: weight columns are A rows), half h: the weight at row
+    16 kb + 8 (r // 2) + 2 (lane % 4) + h and column
+    64 s + 32 p + 16 ml + 8 (r % 2) + lane // 4.  Returns (the fp32 matrix
+    [16 k-blocks, 64 slabs], the flat matrix index of each fragment
+    byte)."""
+    ns, nkb, _ = wq.shape
+    i = np.arange(fm.FRAG_BYTES)
+    p, lane, ml, r, h = i // 512, i // 16 % 32, i // 8 % 2, i // 2 % 4, i % 2
+    k = 8 * (r // 2) + 2 * (lane % 4) + h
+    n = 32 * p + 16 * ml + 8 * (r % 2) + lane // 4
+    S, KB = np.meshgrid(np.arange(ns), np.arange(nkb), indexing="ij")
+    rows = 16 * KB[..., None] + k
+    cols = 64 * S[..., None] + n
+    out = np.zeros((16 * nkb, 64 * ns), np.float32)
+    out[rows, cols] = wq.numpy().astype(np.float32)
+    return torch.from_numpy(out), rows * out.shape[1] + cols
+
+
+@pytest.mark.parametrize("K, N", [(70, 100), (1260, 3072), (48, 16)])
+def test_int8_fragments_bijection(K, N):
+    """The packing's permutation of int8 weights into fragment order is a
+    bijection onto the padded matrix (every fragment byte one weight, every
+    weight one byte), the kernel's byte formula reads the matrix back with
+    zeros in the padding, and ``int8_rows`` undoes it."""
+    w = torch.tensor(np.random.default_rng(K + N).integers(
+        -127, 128, (K, N)), dtype=torch.int8)
+    wq = fm.int8_fragments(w)
+    assert wq.shape == (-(-N // 64), -(-K // 16), fm.FRAG_BYTES)
+    got, index = frag_matrix(wq)
+    assert np.array_equal(np.sort(index.ravel()), np.arange(got.numel()))
+    assert torch.equal(got[:K, :N], w.float())
+    assert not got[K:].any() and not got[:, N:].any()
+    assert torch.equal(fm.int8_rows(wq).float(), got)
+
+
+def _mixed_layers(shapes, int8, seed):
+    """Packed layers of a numpy-seeded mixed net (int8 layers with weights,
+    column and row scales, bf16 ones), and its JAX tree: the same numbers,
+    the bf16 weights as bf16."""
+    rng = np.random.default_rng(seed)
+    layers, jlayers, k_in = [], [], shapes[0][0]
+    for (K, N), q in zip(shapes, int8):
+        b = rng.uniform(-0.1, 0.1, N).astype(np.float32)
+        if q:
+            wq = rng.integers(-127, 128, (K, N)).astype(np.int8)
+            scale = (rng.uniform(0.5, 1.5, N) / 127 / K ** 0.5).astype(
+                np.float32)
+            rscale = rng.uniform(0.5, 2.0, K).astype(np.float32)
+            layers.append(fm.pack_int8_layer(
+                torch.from_numpy(wq), torch.from_numpy(scale),
+                torch.from_numpy(rscale), torch.from_numpy(b), k_in))
+            jlayers.append({"wq": jnp.asarray(wq), "scale": jnp.asarray(scale),
+                            "rscale": jnp.asarray(rscale),
+                            "b": jnp.asarray(b)})
+        else:
+            w = torch.tensor(rng.uniform(-1, 1, (K, N)) / K ** 0.5,
+                             dtype=torch.bfloat16)
+            layers.append(fm.pack_layer(w, torch.from_numpy(b), k_in))
+            jlayers.append({"w": jnp.asarray(w.float().numpy()).astype(
+                jnp.bfloat16), "b": jnp.asarray(b)})
+        k_in = layers[-1].b.shape[0]
+    return layers, {"layers": jlayers}
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+def test_mixed_run_tables(M):
+    """A mixed run's layer rows: the int8 flag, the column scales and the
+    layer's own row scales on int8 layers, and each layer's pointer to the
+    next layer's row scales exactly where that layer is int8."""
+    plan = fm.plan_run(NARROW_MIXED, M, 7, NARROW_KINDS)
+    ptrs = [(1000 + 16 * i, 2000 + 16 * i, 3000 + 16 * i, 4000 + 16 * i)
+            for i in range(len(NARROW_MIXED))]
+    tab = fm.run_tables(plan, ptrs, [True] * 4 + [False], "cpu")
+    for i, (row, q) in enumerate(zip(tab.layers.tolist(), NARROW_KINDS)):
+        nxt = i + 1 < len(ptrs) and NARROW_KINDS[i + 1]
+        assert row[:2] == list(ptrs[i][:2])
+        assert row[7:] == [int(q), ptrs[i][2] if q else 0,
+                           ptrs[i][3] if q else 0,
+                           ptrs[i + 1][3] if nxt else 0, 0]
 
 
 @pytest.mark.parametrize("M", [1, 8, 16])
@@ -229,13 +398,14 @@ def test_lifter_run_tables(M):
     """The device tables of a plan (built here on the CPU): layer rows chain
     activations, partial blocks and slab counters do not overlap, every
     tile row matches its plan tile, and the workspace holds them all."""
-    plan = fm.plan_bf16_run(NARROW, M, 7)
-    ptrs = [(1000 + 16 * i, 2000 + 16 * i) for i in range(len(NARROW))]
+    plan = fm.plan_run(NARROW, M, 7)
+    ptrs = [(1000 + 16 * i, 2000 + 16 * i, 0, 0) for i in range(len(NARROW))]
     acts = [True, True, True, False]
     tab = fm.run_tables(plan, ptrs, acts, "cpu")
     lay = tab.layers.tolist()
-    assert [r[:5] for r in lay] == [[w, b, K, N, int(a)] for (w, b), (K, N), a
-                                    in zip(ptrs, NARROW, acts)]
+    assert [r[:5] for r in lay] == [[w, b, K, N, int(a)] for (w, b, _, _),
+                                    (K, N), a in zip(ptrs, NARROW, acts)]
+    assert all(r[7:] == [0] * 5 for r in lay)
     assert lay[0][5] == -1 and lay[-1][6] == -1
     for prev, cur in zip(lay, lay[1:]):
         assert cur[5] == prev[6] >= 0
@@ -271,33 +441,43 @@ def _kinds(*names):
 
 
 @pytest.mark.parametrize("names, steps", [
-    ("bbbbbbbbb", [("bf16", 0, 9)]),
-    ("iiiiiiiib", [("int8", i, i + 1) for i in range(8)] + [("bf16", 8, 9)]),
+    ("bbbbbbbbb", [("run", 0, 9)]),
+    ("iiiiiiiib", [("run", 0, 9)]),
     ("fff", [("fp32", 0, 1), ("fp32", 1, 2), ("fp32", 2, 3)]),
-    ("bbiibfb", [("bf16", 0, 2), ("int8", 2, 3), ("int8", 3, 4),
-                 ("bf16", 4, 5), ("fp32", 5, 6), ("bf16", 6, 7)]),
+    ("bbiibfb", [("run", 0, 5), ("fp32", 5, 6), ("run", 6, 7)]),
 ])
 def test_launch_plan_mixed(names, steps):
-    """Consecutive bf16 layers form one run (one launch); int8 and fp32
-    layers are steps of their own: a bf16 lifter is 1 launch, an int8
-    lifter 8 int8 launches and a bf16 head run."""
+    """Consecutive bf16 and int8 layers form one run (one launch); fp32
+    layers are steps of their own: a bf16 lifter is 1 launch, and so is an
+    int8 lifter (8 int8 layers and a bf16 head)."""
     assert fm.launch_plan(_kinds(*names)) == steps
 
 
 def emulate_run(x, layers, slope, acts, plan):
     """The run as the kernel computes it on ``plan``: per tile the fp32 sum
     of exact products of bf16-rounded operands over its rows (zero past K),
-    a split slab's partials summed in chunk order, then bias and
-    LeakyReLU; inter-layer activations kept as their bf16 values.  Returns
-    each layer's fp32 output."""
-    h = x.to(torch.bfloat16).float()
+    a split slab's partials summed in chunk order, then (int8) the column
+    scales, bias and LeakyReLU; between layers only the bf16 operand of the
+    next layer.  An int8 layer's operand is its fp32 input times its row
+    scales, rounded to bf16 (folded where the kernel stages the run's x, by
+    the producing layer otherwise), its weights read from the fragment
+    layout by the kernel's byte formula (``frag_matrix``).  Returns each
+    layer's fp32 output."""
+    h = x.float()
     outs = []
-    for l, ((w, b), act) in enumerate(zip(layers, acts)):
-        K, N = w.shape
+    for l, (layer, act) in enumerate(zip(layers, acts)):
         lay = plan.layers[l]
-        pad = 16 * -(-K // 16) - K
-        wp = torch.nn.functional.pad(w.float(), (0, 0, 0, pad))
-        hp = torch.nn.functional.pad(h, (0, wp.shape[0] - K))
+        int8 = isinstance(layer, fm.Int8Layer)
+        assert lay.int8 == int8
+        K, N = fm.layer_shape(layer)
+        if int8:
+            wp = frag_matrix(layer.wq)[0]
+            op = (h * layer.rscale).to(torch.bfloat16).float()
+        else:
+            pad = 16 * -(-K // 16) - K
+            wp = torch.nn.functional.pad(layer.w.float(), (0, 0, 0, pad))
+            op = h.to(torch.bfloat16).float()
+        hp = torch.nn.functional.pad(op, (0, wp.shape[0] - K))
         part = {}
         for tiles in plan.blocks:
             for t in tiles:
@@ -306,10 +486,13 @@ def emulate_run(x, layers, slope, acts, plan):
                     part[t.slab, t.chunk] = (hp[:, t.r0:t.r1]
                                              @ wp[t.r0:t.r1, c0:c0 + fm.SLAB])
         y = torch.cat([_chunk_sum(part, j, lay.splits)
-                       for j in range(lay.n_slabs)], 1)[:, :N] + b
+                       for j in range(lay.n_slabs)], 1)[:, :N]
+        if int8:
+            y = y * layer.scale
+        y = y + layer.b
         y = torch.where(y >= 0, y, slope * y) if act else y
         outs.append(y)
-        h = y.to(torch.bfloat16).float()
+        h = y
     return outs
 
 
@@ -318,6 +501,17 @@ def _chunk_sum(part, slab, splits):
     for c in range(1, splits):
         s = s + part[slab, c]
     return s
+
+
+def _check_layers(x, layers, acts, outs):
+    """Each emulated layer within 1e-5 x max|out| of its plain version
+    (``fused_mlp.layer_plain``) on the same input."""
+    h = x
+    for layer, act, got in zip(layers, acts, outs):
+        ref = fm.layer_plain(h, layer, 0.1, act)
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        assert float((got - ref).abs().max()) <= tol
+        h = got
 
 
 def _packed(shapes, seed):
@@ -341,14 +535,10 @@ def test_emulated_plan_matches_plain_narrow(M):
     acts = [True, True, True, False]
     x = torch.tensor(np.random.default_rng(M).normal(size=(M, 70)),
                      dtype=torch.float32)
-    plan = fm.plan_bf16_run(NARROW, M, N_BLOCKS)
+    plan = fm.plan_run(NARROW, M, N_BLOCKS)
     outs = emulate_run(x, layers, 0.1, acts, plan)
     h = x
-    for (w, b), act, got in zip(layers, acts, outs):
-        ref = fm.mlp_layer_plain(h, w, b, 0.1, act)
-        tol = 1e-5 * max(1.0, float(ref.abs().max()))
-        assert float((got - ref).abs().max()) <= tol
-        h = got
+    _check_layers(x, layers, acts, outs)
     net = fm.fused_mlp_plain(x, layers, 0.1, 16)
     np.testing.assert_allclose(outs[-1].numpy(), net.numpy(), atol=1e-5)
     jparams = {"layers": [{"w": jnp.asarray(w.float().numpy()).astype(
@@ -392,17 +582,12 @@ def test_emulated_plan_matches_plain_serving(trained_lifter, M):
     within 1e-3 decameters of the JAX ``apply_lifter`` in bf16."""
     jparams, jcfg, lifter, x = trained_lifter
     layers = lifter.packed_layers()
-    assert fm.launch_plan(layers) == [("bf16", 0, 9)]
+    assert fm.launch_plan(layers) == [("run", 0, 9)]
     acts = [i < 8 for i in range(9)]
-    plan = fm.plan_bf16_run([tuple(w.shape) for w, _ in layers], M, N_BLOCKS)
+    plan = fm.plan_run([tuple(w.shape) for w, _ in layers], M, N_BLOCKS)
     xt = torch.from_numpy(x[:M])
     outs = emulate_run(xt, layers, 0.1, acts, plan)
-    h = xt
-    for (w, b), act, got in zip(layers, acts, outs):
-        ref = fm.mlp_layer_plain(h, w, b, 0.1, act)
-        tol = 1e-5 * max(1.0, float(ref.abs().max()))
-        assert float((got - ref).abs().max()) <= tol
-        h = got
+    _check_layers(xt, layers, acts, outs)
     got = outs[-1][:, :54]
     if jcfg.residual_prior:
         from mpe3d_tpu_torch.models.mlp import extract_prior
@@ -412,19 +597,84 @@ def test_emulated_plan_matches_plain_serving(trained_lifter, M):
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-3)
 
 
+@pytest.mark.parametrize("M", [1, 8, 16])
+def test_emulated_mixed_matches_plain_narrow(M):
+    """The plan's emulation on the narrow mixed net (int8 -> int8 -> bf16
+    -> int8 -> bf16, ragged slabs, K = 70): each layer within 1e-5 x
+    max|out| of its plain version on the same input, the whole net within
+    1e-5 of ``fused_mlp_plain``, and within 1e-4 x max(1, max|out|) (the
+    mixed-net tolerance of ``tests/test_torch_quant.py``) of the TPU
+    whole-network kernel in interpret mode and of ``apply_lifter`` on the
+    same int8 / bf16 tree."""
+    from mpe3d_tpu.ops.fused_mlp import fused_mlp_forward, pack_fused_layers
+    layers, jtree = _mixed_layers(NARROW_MIXED, NARROW_KINDS, 21)
+    acts = [True] * 4 + [False]
+    x = torch.tensor(np.random.default_rng(M).normal(size=(M, 70)),
+                     dtype=torch.float32)
+    assert fm.launch_plan(layers) == [("run", 0, 5)]
+    plan = fm.plan_run([fm.layer_shape(layer) for layer in layers], M,
+                       N_BLOCKS, NARROW_KINDS)
+    outs = emulate_run(x, layers, 0.1, acts, plan)
+    _check_layers(x, layers, acts, outs)
+    net = fm.fused_mlp_plain(x, layers, 0.1, 16)
+    np.testing.assert_allclose(outs[-1].numpy(), net.numpy(), atol=1e-5)
+    flat, kinds, dims = pack_fused_layers(jtree["layers"])
+    assert kinds == ("q", "q", "w", "q", "w")
+    jcfg = JLifterConfig(in_dim=70, out_dim=16, widths=(48, 80, 48, 32),
+                         negative_slope=0.1)
+    xj = jnp.asarray(x.numpy())
+    for ref in (fused_mlp_forward(xj, flat, kinds, dims, 0.1, 16,
+                                  interpret=True),
+                apply_lifter(jtree, xj, jcfg, compute_dtype=jnp.bfloat16)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(outs[-1].numpy(), ref,
+                                   atol=1e-4 * max(1.0, np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("model", ["pan_irls", "pan_compact"])
+def test_emulated_plan_matches_plain_int8_serving(trained_lifter, model):
+    """The plan's emulation on the int8 demo lifters (8 int8 layers and a
+    bf16 head, one run) at M=8 on the trained lifter's inputs: each layer
+    within 1e-5 x max|out| of its plain version; the whole net within 1e-3
+    decameters of the JAX ``apply_lifter`` on the same export."""
+    x = trained_lifter[3][:8]
+    jparams, jcfg, _ = j_load(os.path.join(DEMO, model, "pose_estimator"),
+                              JLifterConfig())
+    lifter = weights.lifter_from_tree(
+        jparams, LifterConfig(widths=jcfg.widths,
+                              residual_prior=jcfg.residual_prior), "cpu")
+    layers = lifter.packed_layers()
+    int8 = [isinstance(layer, fm.Int8Layer) for layer in layers]
+    assert int8 == [True] * 8 + [False]
+    assert fm.launch_plan(layers) == [("run", 0, 9)]
+    acts = [i < 8 for i in range(9)]
+    plan = fm.plan_run([fm.layer_shape(layer) for layer in layers], 8,
+                       N_BLOCKS, int8)
+    xt = torch.from_numpy(x)
+    outs = emulate_run(xt, layers, 0.1, acts, plan)
+    _check_layers(xt, layers, acts, outs)
+    got = outs[-1][:, :54]
+    if jcfg.residual_prior:
+        from mpe3d_tpu_torch.models.mlp import extract_prior
+        got = got + extract_prior(xt, lifter.cfg)
+    ref = np.asarray(apply_lifter(jparams, jnp.asarray(x), jcfg,
+                                  compute_dtype=jnp.bfloat16))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-3)
+
+
 def test_run_entry_dispatch():
     """The run entry takes the plain version for CPU tensors (equal to
-    ``bf16_run_plain``, no launch counted) and refuses other devices."""
+    ``run_plain``, no launch counted) and refuses other devices."""
     layers = _packed(NARROW, 3)
     x = torch.tensor(np.random.default_rng(2).normal(size=(5, 70)),
                      dtype=torch.float32)
     acts = [True, True, True, False]
-    before = fm.mlp_bf16_run.launches
-    torch.testing.assert_close(fm.bf16_run(x, layers, 0.1, acts),
-                               fm.bf16_run_plain(x, layers, 0.1, acts),
+    before = fm.mlp_run.launches
+    torch.testing.assert_close(fm.run_layers(x, layers, 0.1, acts),
+                               fm.run_plain(x, layers, 0.1, acts),
                                rtol=0, atol=0)
-    assert fm.mlp_bf16_run.launches == before
+    assert fm.mlp_run.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
-        fm.bf16_run(x.to("meta"), layers, 0.1, acts)
+        fm.run_layers(x.to("meta"), layers, 0.1, acts)
     with pytest.raises(ValueError, match="serves 1..16 rows"):
-        fm.plan_bf16_run(NARROW, 17, N_BLOCKS)
+        fm.plan_run(NARROW, 17, N_BLOCKS)
