@@ -18,11 +18,17 @@ failure raises, and the script exits non-zero):
    persons), with median times over 50 launches (CUDA events) beside the
    plain version's, the card's bound and a PyTorch yardstick where one
    exists.  The decode + gather + pack kernel is checked for every prior
-   (mean, median, IRLS) with and without the prior gate.  The tiled GAT
-   kernels (K1, K2) are checked at Panoptic S=10 and S=16 with the trained
-   and a random matcher, on an ARPLAB-shaped 6 x 16 topology (head degree
-   80, past the stack kernel's cap), on a pruned, compacted edge set, and at
-   S=16 against the stack kernel too.  The lifter's run kernel
+   (mean, median, IRLS) with and without the prior gate, and on a frame
+   whose observations pass its shared-memory staging limit (the unstaged
+   gather).  The tiled GAT kernels (K1, K2) are checked at Panoptic S=10
+   and S=16 with the trained and a random matcher, on an ARPLAB-shaped
+   6 x 16 topology (head degree 80, past the stack kernel's cap), on a
+   pruned, compacted edge set, on a hand-made compacted set with heads of
+   degree 0 and 300, and at S=16 against the stack kernel too; in each
+   case the stack as one host call is bit-equal across two calls and to
+   the per-layer calls run in order, the incidence list equals its plain
+   version, and K2 of each layer alone (on the plain K1's state) is held
+   to its plain version.  The lifter's run kernel
    (``mlp_run``) is checked on each layer of the bf16 lifter alone (a run of
    one layer) and on the whole 9-layer net (one launch) at M=8 and M=16,
    two launches bit-equal; on each int8 layer of ``models_demo/pan_irls``
@@ -55,7 +61,10 @@ failure raises, and the script exits non-zero):
    times and device busy share.  Then the int8 pair ``models_demo/pan_irls``
    (``from_checkpoint``): 16 frames on the frame path and 6 on the eager
    path, trained and random matcher, against the same pipeline on the CPU,
-   one lifter run launch a frame, beside the bf16 pair's frame time; ``pan_compact`` on 6 frames of the frame path; and the per-layer
+   one lifter run launch a frame, beside the bf16 pair's frame time;
+   ``pan_compact``, the shipping pair ``pan_res`` (int8 lifter, median
+   prior) and ``pan_lowview_bf16`` (bf16 lifter, IRLS prior) on 6 frames
+   of the frame path each, both matchers; and the per-layer
    GAT form (``use_layer_matcher``) on the eager path at S=4 and at the
    default buckets on the S=10 frames ("mean" prior), 5 projection launches
    a frame and no stack or tiled GAT launch.
@@ -88,12 +97,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEMO = os.path.join(ROOT, "models_demo", "pan_irls_bf16")
 DEMO_INT8 = os.path.join(ROOT, "models_demo", "pan_irls")   # same recipe
 DEMO_COMPACT = os.path.join(ROOT, "models_demo", "pan_compact")
+# the shipping pair (int8, median prior) and a bf16 IRLS-prior pair
+DEMO_PAIRS = {name: os.path.join(ROOT, "models_demo", name)
+              for name in ("pan_res", "pan_lowview_bf16")}
 
 N_FRAMES, N_WARMUP, N_TIMED = 16, 3, 50
 N_CROWDED = 6              # frames of each crowded run but the reported one
 N_SHORT = 6                # frames of the int8 eager, pan_compact and layer runs
 RANDOM_MATCHER_SEED = 0    # its scores sit above the 0.5 threshold
 ARPLAB_MATCHER_SEED = 1
+COMPACT_SEED = 5           # the hand-made compacted tiled GAT case
 PRUNE_DIST_M = 0.2         # pair_prune_dist of the pruned crowded runs
 GPU = "cuda"
 
@@ -138,6 +151,9 @@ GAT_FP64_TOL = 1e-5
 # another order); ok flags (field 10) equal except for joints whose gate
 # residual lies within 1e-3 px of the gate, which are counted
 FIELD_TOL, PRIOR_TOL, GATE_NEAR_PX = 1e-5, 1e-4, 1e-3
+# the decode kernel's shared-memory staging limit for a frame's observations
+# (STAGE_LIMIT, csrc/frame_decode_pack.cu)
+STAGE_LIMIT = 160 * 1024
 # main path on the card against the CPU: scores 1e-4 (fp32 GAT and features,
 # summed in other orders by the card's kernels and the CPU's; 9.3e-6 seen
 # with the trained matcher); poses 1e-2 m (the lifter's bf16 rounding
@@ -854,11 +870,13 @@ def check_frame_kernel(pipe, frame, crowded_pipe, crowded_frame, report):
     on a crowded S=16 frame (E=2560 pairs, P=16 rows) scored by geometric
     consistency with every eligible pair decoded; and, under the "mean"
     prior, that frame with every present pair eligible (more than 1024
-    eligible pairs: the kernel's bitonic sort).  The crowded frame is not
-    scored by the random matcher: it groups unrelated skeletons at S=16,
-    and IRLS on such groups is ill-conditioned (the plain version's prior
-    moved 0.047 decameters under a 1e-7 relative change of the pixels),
-    so no fp32 tolerance holds there."""
+    eligible pairs: the kernel's bitonic sort); and the consistency-scored
+    frame with its slots padded with empty ones past the kernel's staging
+    limit, for every prior and gate (the unstaged gather).  The crowded
+    frame is not scored by the random matcher: it groups unrelated
+    skeletons at S=16, and IRLS on such groups is ill-conditioned (the
+    plain version's prior moved 0.047 decameters under a 1e-7 relative
+    change of the pixels), so no fp32 tolerance holds there."""
     import numpy as np
     import torch
     from mpe3d_tpu_torch.ops import frame_kernel as fk
@@ -888,6 +906,22 @@ def check_frame_kernel(pipe, frame, crowded_pipe, crowded_frame, report):
                              f"sort is not exercised")
     check_frame_cases((many,) + cargs[1:], ckw, [("mean", None)],
                       f"S=16, {n_elig} eligible pairs (bitonic sort)")
+    # the frame's slots padded with empty ones until its observations
+    # (25 bytes a used camera, slot and joint) no longer fit the kernel's
+    # shared-memory staging (STAGE_LIMIT in csrc/frame_decode_pack.cu): the
+    # gather reads them from device memory instead (the unstaged gather)
+    Cu, S, J = cargs[4].shape[:3]
+    S_pad = STAGE_LIMIT // (25 * Cu * J) + 1
+    if ckw["n_cameras"] * S_pad > fk.MAX_HEADS:
+        raise AssertionError(f"{S_pad} slots exceed the kernel's heads")
+
+    def pad_slots(t):
+        return torch.cat([t, t.new_zeros((Cu, S_pad - S) + t.shape[2:])], 1)
+
+    unstaged = cargs[:4] + tuple(map(pad_slots, cargs[4:8])) + cargs[8:]
+    check_frame_cases(unstaged, ckw, cases,
+                      f"S=16 padded to {S_pad} slots (unstaged gather, "
+                      f"{25 * Cu * S_pad * J} bytes of observations)")
     crowded = lambda: fk.frame_decode_pack(*cargs, **ckw)  # noqa: E731
     print(f"  frame_decode_pack S=16 ({ckw['prior']}, gate "
           f"{ckw['gate_px']}, every eligible pair decoded): "
@@ -924,8 +958,10 @@ def tiled_costs(dims, H, E, edge_const):
     """((bytes, operations) of the K1 calls, the same of the K2 calls) of
     one tiled stack: each call's inputs read once and outputs written once;
     operations of the fc products (layer 0 projects H+1 rows under
-    edge_const), attention terms, edge softmax, masked logits and head max
-    (K1), exp-shifted weights, head sums and epilogue (K2)."""
+    edge_const), attention terms, edge softmax and masked logits (K1), and
+    of the head max, exp-shifted weights, head sums and epilogue (K2).
+    K2's bytes also count the incidence build, once a stack: the endpoints
+    read, the list [2E] and its head offsets [H+1] written."""
     k1b = k1f = k2b = k2f = 0
     for l, (d_in, d, nh) in enumerate(dims):
         F, const = nh * d, edge_const and l == 0
@@ -936,11 +972,15 @@ def tiled_costs(dims, H, E, edge_const):
         if l == len(dims) - 1:
             k1b += 4 * E
             continue
-        k1f += 6 * E * nh
-        k1b += 4 * (E * F + 2 * E * nh + H * nh)
+        k1f += 4 * E * nh                          # masked logits
+        k1b += 4 * (E * F + 2 * E * nh)
+        k2f += 2 * E * nh + 3 * H * nh             # head max
         k2f += 8 * E * nh + 4 * E * F + 4 * H * F
-        k2b += 4 * (2 * E * nh + 3 * E + (1 if const else E) * F + 2 * H * F
-                    + 3 * H * nh)
+        # l1m, l2m, pw, the list and its offsets, z's edge and head rows,
+        # att's head rows read; the head rows written
+        k2b += 4 * (2 * E * nh + E + 2 * E + H + 1
+                    + (1 if const else E) * F + 2 * H * F + 2 * H * nh)
+    k2b += 4 * (2 * E + 2 * E + H + 1)             # the incidence build
     return (k1b, k1f), (k2b, k2f)
 
 
@@ -950,14 +990,75 @@ def bound(bytes_, flops):
     return 1e3 * max(t_b, t_f), "bytes" if t_b > t_f else "operations"
 
 
+def check_k2_alone(label, x, pw, gtopo, m):
+    """The incidence build against ``incidence_plain``, then K2 of each
+    layer but the last alone, on the plain K1's state of that layer (z,
+    the attention terms, l1m/l2m) and the built list, against
+    ``k2_plain`` within GAT_RTOL x (1 + |out|).  Returns K2's largest
+    |d out|."""
+    import torch
+    from mpe3d_tpu_torch.ops import gat_tiled
+    from mpe3d_tpu_torch.ops.gat_kernel import layer_views
+    H, E = gtopo.n_heads, gtopo.n_pairs
+    alpha, slope = m.cfg.alpha, m.cfg.hidden_slope
+    stream = torch.cuda.current_stream().cuda_stream
+    inc = torch.empty(H + 1 + 2 * E, dtype=torch.int32, device=GPU)
+    gat_tiled.gat_tiled_incidence(gtopo.e1.data_ptr(), gtopo.e2.data_ptr(),
+                                  H, E, inc.data_ptr(),
+                                  inc.data_ptr() + 4 * (H + 1), stream)
+    ptr, ent = gat_tiled.incidence_plain(gtopo.e1, gtopo.e2, H)
+    torch.cuda.synchronize()
+    if not (torch.equal(inc[:H + 1], ptr) and torch.equal(inc[H + 1:], ent)):
+        raise AssertionError(f"tiled GAT {label}: the incidence list differs "
+                             f"from incidence_plain")
+    e1, e2 = gtopo.e1.long(), gtopo.e2.long()
+    xin, worst = x, 0.0
+    for l, ((_, d, nh), lw) in enumerate(zip(m.dims[:-1],
+                                             layer_views(m.flat, m.dims))):
+        const = l == 0
+        xe, state = gat_tiled.k1_plain(xin, pw, e1, e2, H, lw, nh, d, alpha,
+                                       slope, False, const)
+        z, a1, a2, l1m, l2m = state
+        ref = gat_tiled.k2_plain(state, pw, e1, e2, H, nh, d, alpha, slope,
+                                 const)
+        z = z.reshape(z.shape[0], -1).contiguous()
+        att = torch.cat([a1, a2], 1).contiguous()
+        l1m, l2m = l1m.contiguous(), l2m.contiguous()
+        out = torch.full((H + E, nh * d), float("nan"), device=GPU)
+        gat_tiled.gat_k2_layer(l1m.data_ptr(), l2m.data_ptr(), pw.data_ptr(),
+                               inc.data_ptr(), inc.data_ptr() + 4 * (H + 1),
+                               z.data_ptr(), att.data_ptr(), H, nh, d,
+                               int(const), alpha, slope, out.data_ptr(),
+                               stream)
+        torch.cuda.synchronize()
+        got = out[:H]
+        err = (got - ref).abs()
+        if not bool(torch.isfinite(got).all()) or bool(
+                (err > GAT_RTOL * (1 + ref.abs())).any()):
+            raise AssertionError(f"K2 {label} layer {l}: max |d out| "
+                                 f"{float(err.max()):.3g} from k2_plain")
+        worst = max(worst, float(err.max()))
+        xin = torch.cat([ref, xe])
+    return worst
+
+
 def check_tiled_case(label, x, pw, gtopo, m, stack_topo=None):
-    """The tiled stack's kernels against its plain version on the card (and
-    against the stack kernel when ``stack_topo`` is given); prints the call
-    ms, the plain ms and the bound.  Returns (max |d logit|, logits)."""
+    """The tiled stack (one host call) against its plain version on the
+    card, two calls bit-equal and bit-equal to the per-layer calls
+    (``cuda_layer_calls``) run in order; the incidence list and K2 of each
+    layer alone (``check_k2_alone``); against the stack kernel when
+    ``stack_topo`` is given.  Prints the call ms, the plain ms and the
+    bound.  Returns the largest |d logit| and K2's largest |d out|."""
     import torch
     from mpe3d_tpu_torch.ops import gat_kernel, gat_tiled
     args = (x, pw, gtopo, m.flat, m.dims, m.cfg.alpha, m.cfg.hidden_slope)
     got = gat_tiled.gat_stack_tiled(*args, edge_const=True)
+    again = gat_tiled.gat_stack_tiled(*args, edge_const=True)
+    k1s, k2s, by_layer = gat_tiled.cuda_layer_calls(*args, edge_const=True)
+    for i, k1 in enumerate(k1s):
+        k1()
+        if i < len(k2s):
+            k2s[i]()
     ref = gat_tiled.gat_stack_tiled_plain(*args, edge_const=True)
     torch.cuda.synchronize()
     err = (got - ref).abs()
@@ -966,6 +1067,10 @@ def check_tiled_case(label, x, pw, gtopo, m, stack_topo=None):
         raise AssertionError(f"tiled GAT {label}: kernels disagree with the "
                              f"plain version: max |d logit| "
                              f"{float(err.max()):.3g}")
+    if not (torch.equal(got, again) and torch.equal(got, by_layer)):
+        raise AssertionError(f"tiled GAT {label}: two calls, or the call and "
+                             f"the per-layer calls, differ")
+    k2_err = check_k2_alone(label, x, pw, gtopo, m)
     # accuracy context (printed, not checked): each form's largest
     # |d logit| / (1 + |logit|) from an fp64 evaluation of the plain version
     exact = gat_tiled.gat_stack_tiled_plain(
@@ -988,21 +1093,32 @@ def check_tiled_case(label, x, pw, gtopo, m, stack_topo=None):
                  f"logit| {float(serr.max()):.3g}")
     (k1b, k1f), (k2b, k2f) = tiled_costs(m.dims, gtopo.n_heads,
                                          gtopo.n_pairs, True)
-    ms = median_ms(lambda: gat_tiled.gat_stack_tiled(*args, edge_const=True))
+    call = lambda: gat_tiled.gat_stack_tiled(*args,  # noqa: E731
+                                             edge_const=True)
+    ms, (dev, n_k) = median_ms(call), device_profile(call)
     plain = median_ms(lambda: gat_tiled.gat_stack_tiled_plain(
         *args, edge_const=True))
     b_ms, b_by = bound(k1b + k2b, k1f + k2f)
-    print(f"  gat_tiled {label}: H={gtopo.n_heads} E={gtopo.n_pairs}, max "
-          f"|d logit| {float(err.max()):.3g} (tol {GAT_RTOL:g} x "
-          f"(1+|logit|)){note}; stack {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}, {k1f + k2f} operations)")
-    return float(err.max())
+    deg = torch.bincount(torch.cat([gtopo.e1, gtopo.e2]).long(),
+                         minlength=gtopo.n_heads)
+    print(f"  gat_tiled {label}: H={gtopo.n_heads} E={gtopo.n_pairs} (head "
+          f"degree {int(deg.min())}-{int(deg.max())}), max |d logit| "
+          f"{float(err.max()):.3g} (tol {GAT_RTOL:g} x (1+|logit|)); K2 "
+          f"alone, each layer, max |d out| {k2_err:.3g}; incidence list "
+          f"equal to incidence_plain; two calls and the per-layer calls "
+          f"bit-equal{note}; stack (one host call) {ms:.4f} ms, device "
+          f"{dev:.4f} ms, {n_k:g} CUDA launches a call; plain {plain:.4f} "
+          f"ms, bound {b_ms:.4f} ms ({b_by}, {k1f + k2f} operations)")
+    return float(err.max()), k2_err
 
 
 def time_tiled_kernels(label, x, pw, gtopo, m):
-    """Median ms of all K1 calls and of all K2 calls of one stack, and of
-    their plain versions on the same inputs; K1 and K2 report rows."""
+    """Median ms of all K1 calls and of all K2 calls of one stack (the
+    first K2 call builds the incidence list), of their plain versions on
+    the same inputs, and of the whole stack as one host call; K1 and K2
+    report rows."""
     from mpe3d_tpu_torch.ops import gat_tiled
+    from mpe3d_tpu_torch.tools import gat_timing
     args = (x, pw, gtopo, m.flat, m.dims, m.cfg.alpha, m.cfg.hidden_slope)
     k1s, k2s, _ = gat_tiled.cuda_layer_calls(*args, edge_const=True)
     for i, k1 in enumerate(k1s):
@@ -1025,14 +1141,41 @@ def time_tiled_kernels(label, x, pw, gtopo, m):
             "plain_ms": median_ms(lambda c=plain: [k() for k in c]),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
         r = rows[-1]
-        dev, n_k = device_profile(lambda c=calls: [k() for k in c])
+        dev, n_k, by_name = gat_timing.device_profile(
+            lambda c=calls: [k() for k in c])
         r["device_ms"] = dev
         print(f"  {name} {label} ({len(calls)} calls a stack): "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{b_ms:.5f} ms ({b_by}: {b} bytes, {f} operations), "
               f"library None; device time alone (profiler) {dev:.4f} ms, "
-              f"{n_k / len(calls):g} CUDA launches a call")
+              f"{n_k / len(calls):g} CUDA launches a call; device ms by "
+              f"kernel: " + ", ".join(f"{k} {v:.4f}"
+                                      for k, v in by_name.items()))
+    call = lambda: gat_tiled.gat_stack_tiled(*args,  # noqa: E731
+                                             edge_const=True)
+    ms = median_ms(call)
+    dev, n_k = device_profile(call)
+    print(f"  gat_stack_tiled {label}, one host call: {ms:.4f} ms, device "
+          f"{dev:.4f} ms ({n_k:g} CUDA launches), host overhead "
+          f"{ms - dev:.4f} ms")
     return rows
+
+
+def compacted_topology(H, E, seed, empty, busy, busy_deg):
+    """A compacted edge set (random endpoints, in no edge order) in which
+    head ``empty`` has no edge and head ``busy`` has ``busy_deg``."""
+    import numpy as np
+    import torch
+    from mpe3d_tpu_torch.ops.gat_kernel import GatTopology
+    rng = np.random.default_rng(seed)
+    others = np.array([h for h in range(H) if h not in (empty, busy)])
+    e1, e2 = rng.choice(others, E), rng.choice(others, E)
+    hit = rng.choice(E, busy_deg, replace=False)
+    side = rng.random(busy_deg) < 0.5
+    e1[hit[side]], e2[hit[~side]] = busy, busy
+    as_t = lambda a: torch.tensor(a, dtype=torch.int32,  # noqa: E731
+                                  device=GPU)
+    return GatTopology(as_t(e1), as_t(e2), H)
 
 
 def check_tiled_kernels(pipes, frames, report):
@@ -1040,16 +1183,24 @@ def check_tiled_kernels(pipes, frames, report):
     trained and the random matcher; S=16 against the stack kernel (D=64,
     where both serve); a pruned, compacted S=16 call; an ARPLAB-shaped
     6 x 16 topology (E=3840, head degree 80) with a numpy-seeded matcher of
-    in_dim 1082.  The K1/K2 rows come from the trained S=16 case."""
+    in_dim 1082; a hand-made compacted set of 1200 pairs on the S=16 heads
+    with a head of degree 0 and one of degree 300 (past K2's 256-entry
+    staging chunk), the random matcher.  The K1/K2 rows come from the
+    trained S=16 case; their errors are the largest of all cases (K1: the
+    logits; K2: each layer alone)."""
     import numpy as np
     import torch
-    from mpe3d_tpu_torch import weights
-    from mpe3d_tpu_torch.config import MatcherConfig
-    from mpe3d_tpu_torch.matching.features import (build_topology,
-                                                   edge_node_features)
+    from mpe3d_tpu_torch.matching.features import edge_node_features
     from mpe3d_tpu_torch.models.gat import gat_topology
+    from mpe3d_tpu_torch.tools import gat_timing
 
-    max_err, rows = 0.0, None
+    max_err, k2_err, rows = 0.0, 0.0, None
+
+    def case(*args, **kw):
+        nonlocal max_err, k2_err
+        err, k2 = check_tiled_case(*args, **kw)
+        max_err, k2_err = max(max_err, err), max(k2_err, k2)
+
     for (mlabel, S, prune), pipe in pipes.items():
         x, pw, gtopo, form = pipe.gat_stage_inputs(frames[S])
         if form != "tiled":
@@ -1059,26 +1210,24 @@ def check_tiled_kernels(pipes, frames, report):
         stack_topo = None
         if S == 16 and not prune and mlabel == "trained":
             stack_topo = gat_topology(pipe.topology(S), GPU, "stack")
-        max_err = max(max_err, check_tiled_case(label, x, pw, gtopo,
-                                                pipe.matcher, stack_topo))
+        case(label, x, pw, gtopo, pipe.matcher, stack_topo)
         if mlabel == "trained" and not prune:
             r = time_tiled_kernels(f"S={S}", x, pw, gtopo, pipe.matcher)
             rows = r if S == 16 else rows
-    cfg = MatcherConfig(in_dim=1082)
-    m = weights.matcher_from_tree(
-        weights.random_matcher_tree(cfg, ARPLAB_MATCHER_SEED), cfg, GPU)
-    topo = build_topology(6, 16)
-    rng = np.random.default_rng(ARPLAB_MATCHER_SEED)
-    heads = torch.tensor(rng.normal(size=(topo.n_heads, 1082)),
-                         dtype=torch.float32)
-    x = torch.cat([heads, edge_node_features(topo.n_pairs, 1082)]).to(GPU)
-    pw = torch.tensor(rng.random(topo.n_pairs) < 0.8,
-                      dtype=torch.float32).to(GPU)
-    max_err = max(max_err, check_tiled_case(
-        "ARPLAB-shaped 6 x 16 (D=80), random matcher", x, pw,
-        gat_topology(topo, GPU, "tiled"), m))
-    for r in rows:
-        r["max_abs_err"] = max_err
+    random16 = pipes["random", 16, False].matcher
+    topo = compacted_topology(80, 1200, COMPACT_SEED, empty=3, busy=7,
+                              busy_deg=300)
+    rng = np.random.default_rng(COMPACT_SEED)
+    in_dim = random16.cfg.in_dim
+    x = torch.cat([torch.tensor(rng.normal(size=(80, in_dim)),
+                                dtype=torch.float32),
+                   edge_node_features(1200, in_dim)]).to(GPU)
+    pw = torch.tensor(rng.random(1200) < 0.8, dtype=torch.float32).to(GPU)
+    case("compacted 1200 pairs on 80 heads, degrees 0 and 300, random "
+         "matcher", x, pw, topo, random16)
+    case("ARPLAB-shaped 6 x 16 (D=80), random matcher",
+         *gat_timing.arplab_tiled_inputs(GPU, ARPLAB_MATCHER_SEED))
+    rows[0]["max_abs_err"], rows[1]["max_abs_err"] = max_err, k2_err
     report.extend(rows)
 
 
@@ -1339,12 +1488,14 @@ def main() -> int:
             lifter_prior=lifter_prior, use_frame_kernel=use_frame_kernel,
             device=device, **kw)
 
-    def int8_pipeline(tree, device, use_frame_kernel=None):
-        """The int8-stored pair models_demo/pan_irls through from_checkpoint,
-        served with the given matcher (pan_irls ships the matcher of
+    def int8_pipeline(tree, device, use_frame_kernel=None,
+                      models_dir=DEMO_INT8):
+        """A demo pair (the int8-stored models_demo/pan_irls unless
+        ``models_dir`` names another) through from_checkpoint, served with
+        the given matcher (the Panoptic pairs ship the matcher of
         pan_irls_bf16)."""
         pipe = PoseEstimationPipeline.from_checkpoint(
-            DEMO_INT8, rig, rig_config, device=device, slot_buckets=(4,),
+            models_dir, rig, rig_config, device=device, slot_buckets=(4,),
             person_buckets=(8,), use_frame_kernel=use_frame_kernel)
         pipe.matcher = weights.matcher_from_tree(tree, mcfg, device)
         return pipe
@@ -1411,8 +1562,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     print("  lifter weights: int8-stored models_demo/pan_irls (8 int8 "
-          "layers, a bf16 head; the recipe of pan_irls_bf16) and "
-          "models_demo/pan_compact")
+          "layers, a bf16 head; the recipe of pan_irls_bf16), "
+          "models_demo/pan_compact, the shipping pair models_demo/pan_res "
+          "(int8, median prior) and models_demo/pan_lowview_bf16 (bf16, "
+          "IRLS prior)")
     int8_launches, int8_ms = None, {}
     for mlabel, tree in matchers.items():
         gpu = irls_gpu if mlabel == "random" else int8_pipeline(tree, GPU)
@@ -1442,7 +1595,16 @@ def main() -> int:
                       pipeline(tree, "cpu", True, **compact),
                       frames[:N_SHORT],
                       f"pan_compact (int8), {mlabel} matcher, frame path")
-    phase("int8 path", t0, "int8 pairs on the card agree with the CPU; "
+        for name, models_dir in DEMO_PAIRS.items():
+            gpu = int8_pipeline(tree, GPU, models_dir=models_dir)
+            if not gpu.frame_path_on():
+                raise AssertionError(f"{name}: not on the frame path")
+            run_main_path(gpu, int8_pipeline(tree, "cpu", True, models_dir),
+                          frames[:N_SHORT],
+                          f"{name} ({gpu.serve_dtype}, {gpu.lifter_prior} "
+                          f"prior), {mlabel} matcher, frame path")
+    phase("int8 path", t0, "int8 pairs, pan_res and pan_lowview_bf16 on the "
+          "card agree with the CPU; "
           "median frame ms, frame path / eager path (bf16 pair, frame path, "
           "same call): "
           + "; ".join(f"{m} matcher {a:.3f} / {b:.3f} ({frame_ms[m][0]:.3f})"

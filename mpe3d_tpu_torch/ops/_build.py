@@ -46,12 +46,18 @@ _SIGNATURES = {
     "gat_stack_forward": [_P] * 6 + [ctypes.POINTER(_I)] * 2 + [_I] * 5
                          + [_F, _F] + [_P] * 6,
     # x, w1, b1, w2, b2, attn_l, attn_r, pw, e1, e2, H, E, d_in, nh, d,
-    # edge_const, alpha, slope, last, s1, s2, h1, z, att, l1m, l2m, m, xout,
+    # edge_const, alpha, slope, last, s1, s2, h1, z, att, l1m, l2m, xout,
     # stream
-    "gat_k1_layer": [_P] * 10 + [_I] * 6 + [_F, _F] + [_I] * 3 + [_P] * 8,
-    # l1m, l2m, pw, e1, e2, z, att, m, H, E, nh, d, edge_const, alpha,
+    "gat_k1_layer": [_P] * 10 + [_I] * 6 + [_F, _F] + [_I] * 3 + [_P] * 7,
+    # l1m, l2m, pw, head_ptr, head_ent, z, att, H, nh, d, edge_const, alpha,
     # slope, xout, stream
-    "gat_k2_layer": [_P] * 8 + [_I] * 5 + [_F, _F, _P, _P],
+    "gat_k2_layer": [_P] * 7 + [_I] * 4 + [_F, _F, _P, _P],
+    # e1, e2, H, E, head_ptr, head_ent, stream
+    "gat_tiled_incidence": [_P, _P, _I, _I, _P, _P, _P],
+    # x, pw, e1, e2, weights, layers(host int64), n_layers, H, E, alpha,
+    # slope, h1, z, att, l1m, l2m, head_ptr, head_ent, acts, out, stream
+    "gat_tiled_stack": [_P] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [_I] * 3 + [_F, _F] + [_P] * 10,
     # x, y, layers, tiles, block_tiles, ws, n_sync, acts_off, parts_off,
     # M, n_layers, n_blocks, slope, any_int8, stream
     "mlp_run": [_P] * 6 + [_I, ctypes.c_longlong, ctypes.c_longlong]

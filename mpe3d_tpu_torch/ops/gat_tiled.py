@@ -1,5 +1,5 @@
-"""The grid-tiled GAT matcher stack for crowded buckets: two hand-written
-CUDA kernels per layer and their plain version.
+"""The grid-tiled GAT matcher stack for crowded buckets: hand-written CUDA
+kernels (K1 and K2 a layer) and their plain version.
 
 Replaces the TPU kernels ``mpe3d_tpu/ops/gat_tiled.py::_k1_layer`` (:86,
 ``pallas_call`` at :194) and ``::_k2_layer`` (:225, ``pallas_call`` at
@@ -12,18 +12,22 @@ edge sets).  Per layer:
 * K1: the fc1 -> LeakyReLU(alpha) -> fc2 projection (heads and edges; with
   ``edge_const`` the shared edge row once, ``gat_tiled.py:310-313``), the
   attention terms, the edge-destination softmax over {self, head e1,
-  head e2}, the masked head-destination logits ``l1m``/``l2m`` [E, nh] and
-  the masked per-head max ``m`` [H, nh];
-* K2: the exp-shifted edge weights, the head sums ``den`` [H, nh] and
-  ``num`` [H, F], and the epilogue ``out_h = (es zh + num) / (es + den)``
-  (XLA glue in the reference, :350-358).
+  head e2} and the masked head-destination logits ``l1m``/``l2m`` [E, nh];
+* K2: the masked per-head max ``m`` [H, nh] (computed by the reference's
+  K1 and its XLA glue, :351; here next to its only reader), the
+  exp-shifted edge weights, the head sums ``den`` [H, nh] and ``num``
+  [H, F], and the epilogue ``out_h = (es zh + num) / (es + den)`` (XLA
+  glue in the reference, :350-358).
 
 The last layer (F = 1) runs K1 alone and gives the edge logits.  Both
 versions gather endpoints by index and sum each head's incident edges in
-ascending edge order; the TPU form's 0/1 incidence matmuls exist for Mosaic
-and are not copied.  The kernels take fp32 operands and accumulate their
-sums in fp64 (one rounding to fp32 per sum); the plain version computes in
-fp32 as the reference does.
+ascending edge order, endpoint 1 before endpoint 2 within an edge; the
+kernels read that order from an incidence list built on the card once a
+stack call (``head_ptr`` [H+1], ``head_ent`` [2E]: the entries
+``2 e + role`` grouped by head, ``incidence_plain``).  The TPU form's 0/1
+incidence matmuls exist for Mosaic and are not copied.  The kernels take
+fp32 operands and accumulate their sums in fp64 (one rounding to fp32 per
+sum); the plain version computes in fp32 as the reference does.
 
 Bound on an H100 SXM at Panoptic S=16 (H=80, E=2560) under ``edge_const``:
 K1's fc products, 4.31 GFLOP (81 rows at layer 0, 2640 at layers 1-4), are
@@ -32,20 +36,25 @@ them on the fp64 tensor cores (the GEMM shared with the stack kernel and
 the projection, ``csrc/f64_mma.cuh``), unsplit at layers 1-4 (42 x 7 tiles
 at fc1) and with k split over thread-block clusters at layer 0 (2 row
 tiles), the splits from the per-layer tile plan
-(``ops/fused_proj.py::layer_plans``).  Precision and design: see
-``csrc/gat_tiled.cu``.
+(``ops/fused_proj.py::layer_plans``).  K2 is one block per (head, tile of
+128 features).  Precision and design: see ``csrc/gat_tiled.cu``.
 
-``gat_stack_tiled`` takes the plain version for CPU tensors and launches
-the kernels for CUDA tensors; ``gat_k1_layer.launches`` and
-``gat_k2_layer.launches`` count the kernel calls (one each per layer).
-``edge_const`` is the caller's statement that every edge row of ``x`` is
-the same vector (the alt-3 inference invariant); it is never inferred from
-the values.
+``gat_stack_tiled`` takes the plain version for CPU tensors; for CUDA
+tensors it runs the whole stack from one host call (``gat_tiled_stack``:
+the incidence build, then K1 and K2 a layer) on scratch cached per call
+signature (calls of one signature share it, so they go on one stream, as
+the pipeline's do), and returns the logits in a fresh tensor every call.
+``gat_k1_layer.launches`` and ``gat_k2_layer.launches`` count K1 and K2
+launches (one each per layer).  ``cuda_layer_calls`` gives the same stack
+as per-layer calls, for timing each kernel.  ``edge_const`` is the
+caller's statement that every edge row of ``x`` is the same vector (the
+alt-3 inference invariant); it is never inferred from the values.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+import ctypes
+from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -54,6 +63,9 @@ from mpe3d_tpu_torch.ops.fused_proj import layer_plans, sm_count
 from mpe3d_tpu_torch.ops.gat_kernel import Dims, GatTopology, layer_views
 
 MAX_NH, MAX_F = 16, 512      # the kernels' per-layer head and feature caps
+MAX_HEADS = 512              # head nodes the incidence build serves
+MAX_PAIRS = 32767            # pairs: its 2E entries fit 16-bit offsets
+LAYER_COLS = 13              # int64 columns of a layer of gat_tiled_stack
 
 
 def _leaky(v: torch.Tensor, a: float) -> torch.Tensor:
@@ -67,7 +79,7 @@ def _leaky(v: torch.Tensor, a: float) -> torch.Tensor:
 def k1_plain(x, pw, e1, e2, H, lw, nh, d, alpha, slope, last, edge_const):
     """K1 of one layer.  x [H+E, d_in]; e1/e2 [E] int64.  Returns the edge
     rows of the next activations [E, F] (the logits [E] on the last layer)
-    and the state K2 reads: (z, a1, a2, l1m, l2m, m)."""
+    and the state K2 reads: (z, a1, a2, l1m, l2m)."""
     w1, b1, w2, b2, al, ar = lw
     E = e1.shape[0]
     rows = x[:H + 1] if edge_const else x
@@ -90,28 +102,43 @@ def k1_plain(x, pw, e1, e2, H, lw, nh, d, alpha, slope, last, edge_const):
     neg = torch.tensor(float("-inf"), dtype=x.dtype, device=x.device)
     l1m = torch.where(live, _leaky(a1e + a2h[e1], alpha), neg)
     l2m = torch.where(live, _leaky(a1e + a2h[e2], alpha), neg)
-    m = _leaky(a1h + a2h, alpha)                              # [H, nh]
-    for idx, lm in ((e1, l1m), (e2, l2m)):
-        m = m.scatter_reduce(0, idx[:, None].expand(-1, nh), lm,
-                             reduce="amax", include_self=True)
-    return (_leaky(out_e.reshape(E, -1), slope),
-            (z, a1, a2, l1m, l2m, m))
+    return _leaky(out_e.reshape(E, -1), slope), (z, a1, a2, l1m, l2m)
 
 
 def k2_plain(state, pw, e1, e2, H, nh, d, alpha, slope, edge_const):
-    """K2 of one layer: the head rows of the next activations [H, F]."""
-    z, a1, a2, l1m, l2m, m = state
+    """K2 of one layer: the masked per-head max, then the head rows of the
+    next activations [H, F]."""
+    z, a1, a2, l1m, l2m = state
     E = e1.shape[0]
     zh = z[:H]
     ze = z[H:].expand(E, nh, d) if edge_const else z[H:]
+    ls = _leaky(a1[:H] + a2[:H], alpha)                       # [H, nh]
+    m = ls
+    for idx, lm in ((e1, l1m), (e2, l2m)):
+        m = m.scatter_reduce(0, idx[:, None].expand(-1, nh), lm,
+                             reduce="amax", include_self=True)
     x1 = torch.exp(l1m - m[e1]) * pw[:, None]                 # [E, nh]
     x2 = torch.exp(l2m - m[e2]) * pw[:, None]
     den = torch.zeros_like(m).index_add_(0, e1, x1).index_add_(0, e2, x2)
     num = (torch.zeros_like(zh).index_add_(0, e1, x1[..., None] * ze)
            .index_add_(0, e2, x2[..., None] * ze))            # [H, nh, d]
-    es = torch.exp(_leaky(a1[:H] + a2[:H], alpha) - m)
+    es = torch.exp(ls - m)
     out_h = (es[..., None] * zh + num) / (es + den)[..., None]
     return _leaky(out_h.reshape(H, -1), slope)
+
+
+def incidence_plain(e1: torch.Tensor, e2: torch.Tensor, H: int):
+    """The incidence list the kernels build (``tiled_incidence``): the
+    entries ``ent = 2 e + role`` (role 0: endpoint ``e1[e]``, 1: ``e2[e]``)
+    grouped by head in ascending ``ent`` order; returns (head_ptr [H+1],
+    head_ent [2E]) int32."""
+    E = e1.shape[0]
+    heads = torch.stack([e1.long(), e2.long()], 1).reshape(-1)   # [2E]
+    ent = torch.arange(2 * E, device=e1.device)
+    order = torch.argsort(heads * 2 * E + ent, stable=True)
+    counts = torch.bincount(heads, minlength=H)
+    head_ptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    return head_ptr.to(torch.int32), ent[order].to(torch.int32)
 
 
 def gat_stack_tiled_plain(x: torch.Tensor, pw: torch.Tensor,
@@ -157,6 +184,112 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
                          f"{tuple(t.shape)}, expected {tuple(shape)}")
 
 
+def _check_inputs(x, pw, topo, flat, dims):
+    """The checks of a CUDA call's sizes and tensors."""
+    H, E = topo.n_heads, topo.n_pairs
+    dev = x.device
+    if not (1 <= H <= MAX_HEADS and 1 <= E <= MAX_PAIRS):
+        raise ValueError(f"gat_stack_tiled: the kernels serve 1 to "
+                         f"{MAX_HEADS} heads and 1 to {MAX_PAIRS} pairs, "
+                         f"got H={H}, E={E}")
+    for _, d, nh in dims:
+        if nh > MAX_NH or nh * d > MAX_F:
+            raise ValueError(f"gat_stack_tiled: the kernels serve at most "
+                             f"{MAX_NH} heads and {MAX_F} features a layer, "
+                             f"got {nh} x {d}")
+    _check(x, "x", torch.float32, (H + E, dims[0][0]), dev)
+    _check(pw, "pw", torch.float32, (E,), dev)
+    _check(topo.e1, "e1", torch.int32, (E,), dev)
+    _check(topo.e2, "e2", torch.int32, (E,), dev)
+    n_w = sum(d_in * d_in + d_in + d_in * nh * d + 3 * nh * d
+              for d_in, d, nh in dims)
+    _check(flat, "weights", torch.float32, (n_w,), dev)
+
+
+class Workspace(NamedTuple):
+    """Where a stack call's scratch lies in one fp32 workspace: offsets in
+    4-byte elements (multiples of 64: 256-byte aligned), and its size."""
+    size: int
+    h1: int          # [H+E, ldh], ldh = the widest d_in rounded up to 4
+    z: int           # [H+E, widest F]
+    att: int         # [H+E, 2 x most heads]
+    l1m: int         # [E, most heads]
+    l2m: int
+    head_ptr: int    # [H+1] int32
+    head_ent: int    # [2E] int32
+    acts: Tuple[int, ...]   # [H+E, F] of each layer but the last
+
+
+def workspace_layout(H: int, E: int, dims: Dims) -> Workspace:
+    rows = H + E
+    ldh = -(-max(d_in for d_in, _, _ in dims) // 4) * 4
+    max_f = max(nh * d for _, d, nh in dims)
+    max_nh = max(nh for _, _, nh in dims)
+    sizes = ([rows * ldh, rows * max_f, rows * 2 * max_nh, E * max_nh,
+              E * max_nh, H + 1, 2 * E]
+             + [rows * nh * d for _, d, nh in dims[:-1]])
+    offs, off = [], 0
+    for n in sizes:
+        offs.append(off)
+        off += -(-n // 64) * 64
+    return Workspace(off, *offs[:7], tuple(offs[7:]))
+
+
+def layer_table(H: int, E: int, dims: Dims, edge_const: bool, n_sm: int,
+                ws: Workspace) -> List[int]:
+    """The rows of ``gat_tiled_stack``'s layer table: d_in, d, nh, the
+    k-splits of fc1 and fc2 (the tile plan), edge_const, the offsets of
+    w1, b1, w2, b2, attn_l and attn_r in the packed weights (the order of
+    ``layer_views``) and of the layer's activations in the workspace."""
+    plans = layer_plans(H, E, dims, edge_const, n_sm)
+    rows, off = [], 0
+    for l, ((d_in, d, nh), plan) in enumerate(zip(dims, plans)):
+        F = nh * d
+        offs = []
+        for n in (d_in * d_in, d_in, d_in * F, F, F, F):
+            offs.append(off)
+            off += n
+        rows += [d_in, d, nh, plan.fc1.splits, plan.fc2.splits,
+                 int(edge_const and l == 0), *offs,
+                 ws.acts[l] if l < len(ws.acts) else 0]
+    assert len(rows) == LAYER_COLS * len(dims)
+    return rows
+
+
+class _Plan(NamedTuple):
+    ws: torch.Tensor           # the scratch every call of the signature uses
+    table: ctypes.Array        # layer_table as int64
+    scratch: Tuple[int, ...]   # h1, z, att, l1m, l2m, head_ptr, head_ent,
+                               # acts base: the pointers of gat_tiled_stack
+
+
+# call signatures (sizes, dims, edge_const, and each input's device, dtype,
+# shape and strides) -> their checked plan and cached scratch
+_PLANS: Dict[tuple, _Plan] = {}
+_MAX_PLANS = 16
+
+
+def _stack_plan(x, pw, topo, flat, dims, edge_const) -> _Plan:
+    key = ((tuple(map(tuple, dims)), bool(edge_const), topo.n_heads)
+           + tuple((t.device, t.dtype, t.shape, t.stride())
+                   for t in (x, pw, topo.e1, topo.e2, flat)))
+    plan = _PLANS.get(key)
+    if plan is None:
+        _check_inputs(x, pw, topo, flat, dims)
+        H, E, dev = topo.n_heads, topo.n_pairs, x.device
+        layout = workspace_layout(H, E, dims)
+        rows = layer_table(H, E, dims, bool(edge_const), sm_count(dev.index),
+                           layout)
+        ws = torch.empty(layout.size, dtype=torch.float32, device=dev)
+        base = ws.data_ptr()
+        scratch = tuple(base + 4 * o for o in layout[1:8]) + (base,)
+        if len(_PLANS) >= _MAX_PLANS:
+            _PLANS.clear()
+        plan = _PLANS[key] = _Plan(ws, (ctypes.c_longlong * len(rows))(*rows),
+                                   scratch)
+    return plan
+
+
 def gat_k1_layer(*args) -> None:
     """Launch K1 of one layer (arguments of ``gat_k1_layer`` in
     ``csrc/gat_tiled.cu``, pointers as ints, the stream last)."""
@@ -170,6 +303,13 @@ def gat_k2_layer(*args) -> None:
     gat_k2_layer.launches += 1
 
 
+def gat_tiled_incidence(*args) -> None:
+    """Build the incidence list K2 reads (arguments of
+    ``gat_tiled_incidence``); part of K2's work, counted with it."""
+    _build.check(_build.library().cdll.gat_tiled_incidence(*args),
+                 "gat_tiled_incidence")
+
+
 gat_k1_layer.launches = 0
 gat_k2_layer.launches = 0
 
@@ -180,62 +320,48 @@ def cuda_layer_calls(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
                      flat: torch.Tensor, dims: Dims, alpha: float,
                      slope: float, edge_const: bool = False,
                      ) -> Tuple[Calls, Calls, torch.Tensor]:
-    """The stack on CUDA tensors as its launches: (K1 of each layer, K2 of
-    each layer but the last, the logits buffer [E]).  Running
-    K1[0], K2[0], K1[1], ... in order on the current stream fills the
-    logits.  Every layer writes its own activation buffer, so any launch
-    can be repeated on the same inputs (for timing)."""
-    H, E = topo.n_heads, topo.n_pairs
-    dev = x.device
-    if H < 1 or E < 1:
-        raise ValueError(f"gat_stack_tiled: H={H}, E={E}")
-    for _, d, nh in dims:
-        if nh > MAX_NH or nh * d > MAX_F:
-            raise ValueError(f"gat_stack_tiled: the kernels serve at most "
-                             f"{MAX_NH} heads and {MAX_F} features a layer, "
-                             f"got {nh} x {d}")
-    _check(x, "x", torch.float32, (H + E, dims[0][0]), dev)
-    _check(pw, "pw", torch.float32, (E,), dev)
-    _check(topo.e1, "e1", torch.int32, (E,), dev)
-    _check(topo.e2, "e2", torch.int32, (E,), dev)
-    n_w = sum(d_in * d_in + d_in + d_in * nh * d + 3 * nh * d
-              for d_in, d, nh in dims)
-    _check(flat, "weights", torch.float32, (n_w,), dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    rows = H + E
-    max_in = max(d_in for d_in, _, _ in dims)
-    max_f = max(nh * d for _, d, nh in dims)
-    max_nh = max(nh for _, _, nh in dims)
-    h1 = torch.empty((rows, -(-max_in // 4) * 4), **f32)   # 16-byte rows
-    z = torch.empty((rows, max_f), **f32)
-    att = torch.empty((rows, 2 * max_nh), **f32)
-    l1m = torch.empty((E, max_nh), **f32)
-    l2m = torch.empty((E, max_nh), **f32)
-    m = torch.empty((H, max_nh), **f32)
-    out = torch.empty((E,), **f32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    """The stack on CUDA tensors as per-layer calls, on a workspace of
+    their own: (K1 of each layer, K2 of each layer but the last, the logits
+    buffer [E]).  The first K2 call also builds the incidence list.
+    Running K1[0], K2[0], K1[1], ... in order on the current stream fills
+    the logits with what ``gat_stack_tiled`` returns.  Every layer writes
+    its own activation buffer, so any call can be repeated on the same
+    inputs (for timing)."""
+    _check_inputs(x, pw, topo, flat, dims)
+    H, E, dev = topo.n_heads, topo.n_pairs, x.device
+    layout = workspace_layout(H, E, dims)
+    ws = torch.empty(layout.size, dtype=torch.float32, device=dev)
+    out = torch.empty((E,), dtype=torch.float32, device=dev)
+    at = lambda off: ws.data_ptr() + 4 * off   # noqa: E731
     ptr = lambda t: t.data_ptr()   # noqa: E731
-    k1s, k2s = [], []
+    h1, z, att, l1m, l2m, head_ptr, head_ent = map(at, layout[1:8])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    e1, e2 = ptr(topo.e1), ptr(topo.e2)
+    inc = (e1, e2, H, E, head_ptr, head_ent, stream)
     # the launches read these through raw pointers: the calls keep them alive
-    keep = [x, pw, topo, flat, h1, z, att, l1m, l2m, m, out]
-    xin = x
+    keep = [x, pw, topo, flat, ws, out]
+    k1s, k2s = [], []
+    xin = ptr(x)
     views = layer_views(flat, dims)
     plans = layer_plans(H, E, dims, edge_const, sm_count(dev.index))
     for l, ((d_in, d, nh), lw, plan) in enumerate(zip(dims, views, plans)):
         last = l == len(dims) - 1
         const = int(edge_const and l == 0)
-        xout = out if last else torch.empty((rows, nh * d), **f32)
-        keep.append(xout)
-        k1 = (ptr(xin), *map(ptr, lw), ptr(pw), ptr(topo.e1), ptr(topo.e2),
-              H, E, d_in, nh, d, const, alpha, slope, int(last),
-              plan.fc1.splits, plan.fc2.splits, ptr(h1), ptr(z), ptr(att),
-              ptr(l1m), ptr(l2m), ptr(m), ptr(xout), stream)
+        xout = ptr(out) if last else at(layout.acts[l])
+        k1 = (xin, *map(ptr, lw), ptr(pw), e1, e2, H, E, d_in, nh, d, const,
+              alpha, slope, int(last), plan.fc1.splits, plan.fc2.splits, h1,
+              z, att, l1m, l2m, xout, stream)
         k1s.append(lambda a=k1, _=keep: gat_k1_layer(*a))
         if not last:
-            k2 = (ptr(l1m), ptr(l2m), ptr(pw), ptr(topo.e1), ptr(topo.e2),
-                  ptr(z), ptr(att), ptr(m), H, E, nh, d, const, alpha, slope,
-                  ptr(xout), stream)
-            k2s.append(lambda a=k2, _=keep: gat_k2_layer(*a))
+            k2 = (l1m, l2m, ptr(pw), head_ptr, head_ent, z, att, H, nh, d,
+                  const, alpha, slope, xout, stream)
+
+            def k2_call(a=k2, first=l == 0, _=keep):
+                if first:
+                    gat_tiled_incidence(*inc)
+                gat_k2_layer(*a)
+
+            k2s.append(k2_call)
         xin = xout
     return k1s, k2s, out
 
@@ -253,16 +379,21 @@ def gat_stack_tiled(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
                     flat: torch.Tensor, dims: Dims, alpha: float,
                     slope: float, edge_const: bool = False) -> torch.Tensor:
     """GAT logits [E] for x [H+E, in_dim] and pair weights pw [E]: the plain
-    version for CPU tensors, the CUDA kernels for CUDA tensors."""
+    version for CPU tensors; for CUDA tensors the kernels, the whole stack
+    from one host call, the logits in a fresh tensor."""
     if x.device.type == "cpu":
         return gat_stack_tiled_plain(x, pw, topo, flat, dims, alpha, slope,
                                      edge_const)
     if x.device.type != "cuda":
         raise ValueError(f"gat_stack_tiled: unsupported device {x.device}")
-    k1s, k2s, out = cuda_layer_calls(x, pw, topo, flat, dims, alpha, slope,
-                                     edge_const)
-    for i, k1 in enumerate(k1s):
-        k1()
-        if i < len(k2s):
-            k2s[i]()
+    plan = _stack_plan(x, pw, topo, flat, dims, edge_const)
+    H, E, n = topo.n_heads, topo.n_pairs, len(dims)
+    out = torch.empty((E,), dtype=torch.float32, device=x.device)
+    code = _build.library().cdll.gat_tiled_stack(
+        x.data_ptr(), pw.data_ptr(), topo.e1.data_ptr(), topo.e2.data_ptr(),
+        flat.data_ptr(), plan.table, n, H, E, alpha, slope, *plan.scratch,
+        out.data_ptr(), torch._C._cuda_getCurrentRawStream(x.device.index))
+    _build.check(code, "gat_tiled_stack")
+    gat_k1_layer.launches += n
+    gat_k2_layer.launches += n - 1
     return out

@@ -2,9 +2,15 @@
 kernel of one checkout on the card.
 
 * GAT (``--only gat``): the stack kernel (``gat_stack``) on the trained
-  matcher at S=4 and S=16, and the tiled kernels K1 and K2 at S=16; and the
-  median ``infer_fused`` frame ms (host clock) of the frame path at S=4
-  (stack form) and S=16 (tiled form) on 16 frames each.
+  matcher at S=4 and S=16; the tiled kernels K1 and K2 at S=16 as their
+  per-layer calls (``cuda_layer_calls``); the tiled stack as one call
+  (``gat_stack_tiled``) at S=16, S=10 and on the ARPLAB-shaped 6 x 16
+  topology (``arplab_tiled_inputs``); and the median ``infer_fused`` frame
+  ms (host clock) of the frame path at S=4 (stack form) and S=16 (tiled
+  form) on 16 frames each.  Under ``--root`` another checkout, it also
+  prints whether that checkout's tiled logits at S=10 and S=16 are
+  bit-equal to this file's own checkout's on the same frames (digests
+  from ``--logits`` run in a second process).
 * lifter (``--only lifter``): the int8 pairs ``models_demo/pan_irls`` and
   ``pan_compact`` (their 8 int8 layers alone, and the whole net) and the
   bf16 net of ``pan_irls_bf16``, at M=8 (the lifter rows of the S=4
@@ -20,7 +26,7 @@ included), device ms (torch.profiler, kernels and copies only) and CUDA
 kernel launches a call, with the device ms by kernel name.
 
     python3 mpe3d_tpu_torch/tools/gat_timing.py [--root DIR] [--label L]
-        [--only gat,lifter,decode]
+        [--only gat,lifter,decode] [--logits]
 
 ``--root`` is the checkout whose ``mpe3d_tpu_torch`` is imported and built
 (default: the one that holds this file); run it on two checkouts in turns
@@ -29,7 +35,8 @@ inputs are the ones ``chip_smoke.py`` gives these kernels: the trained
 matcher of ``models_demo/pan_irls_bf16`` and the demo lifters (read from
 the checkout that holds this file, whatever ``--root``) on the synthetic
 Panoptic ring rig, frame 0 of ``generate_frames(..., n_people=(2, 3),
-seed=1)`` at S=4 and of ``n_people=(10, 14), seed=2`` at S=16 (all 16
+seed=1)`` at S=4, of ``n_people=(6, 9), seed=3`` at S=10 and of
+``n_people=(10, 14), seed=2`` at S=16 (all 16
 frames for the frame times; the IRLS prior at S=4, "mean" at S=16 for the
 GAT frames, the IRLS prior for the decode kernel at S=16), the numpy-seeded
 random matcher (seed 0) for the S=4 decode and lifter inputs, the
@@ -41,6 +48,7 @@ Needs a CUDA card and ``nvcc``.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
 import os
@@ -220,7 +228,56 @@ def time_decode(out, pipe4, frame4, pipe16, frame16):
             lambda k=k: fk.frame_decode_pack(*cargs, **k))
 
 
-def time_gat(out, p4, p16, frames4, frames16):
+def arplab_tiled_inputs(device, seed: int = 1):
+    """(x, pw, topology, matcher) of an ARPLAB-shaped tiled GAT call: the
+    6 x 16 topology (E=3840, head degree 80), numpy-seeded head features,
+    the shared edge one-hot, 80 % live pairs and a random matcher of in_dim
+    1082 (``weights.random_matcher_tree`` with the same seed)."""
+    import numpy as np
+    import torch
+    from mpe3d_tpu_torch import weights
+    from mpe3d_tpu_torch.config import MatcherConfig
+    from mpe3d_tpu_torch.matching.features import (build_topology,
+                                                   edge_node_features)
+    from mpe3d_tpu_torch.models.gat import gat_topology
+    cfg = MatcherConfig(in_dim=1082)
+    m = weights.matcher_from_tree(weights.random_matcher_tree(cfg, seed),
+                                  cfg, device)
+    topo = build_topology(6, 16)
+    rng = np.random.default_rng(seed)
+    heads = torch.tensor(rng.normal(size=(topo.n_heads, 1082)),
+                         dtype=torch.float32)
+    x = torch.cat([heads, edge_node_features(topo.n_pairs, 1082)]).to(device)
+    pw = torch.tensor(rng.random(topo.n_pairs) < 0.8,
+                      dtype=torch.float32).to(device)
+    return x, pw, gat_topology(topo, device, "tiled"), m
+
+
+def _digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tiled_logits(pipes, frames) -> dict:
+    """{"S10", "S16": {"inputs": digest, "logits": digest}}: SHA-256 of
+    the inputs (x, pw, e1, e2, weights) and of the logits ``gat_stack_tiled``
+    gives for frame 0 of each crowded bucket (trained matcher)."""
+    from mpe3d_tpu_torch.ops import gat_tiled
+    out = {}
+    for S in (10, 16):
+        x, pw, gtopo, _ = pipes[S].gat_stage_inputs(frames[S][0])
+        m = pipes[S].matcher
+        logits = gat_tiled.gat_stack_tiled(
+            x, pw, gtopo, m.flat, m.dims, m.cfg.alpha, m.cfg.hidden_slope,
+            edge_const=True)
+        out[f"S{S}"] = {"inputs": _digest(x, pw, gtopo.e1, gtopo.e2, m.flat),
+                        "logits": _digest(logits)}
+    return out
+
+
+def time_gat(out, p4, p10, p16, frames4, frames10, frames16):
     """The GAT items (module header) into ``out``."""
     from mpe3d_tpu_torch.models.gat import gat_topology
     from mpe3d_tpu_torch.ops import gat_kernel, gat_tiled
@@ -248,9 +305,15 @@ def time_gat(out, p4, p16, frames4, frames16):
             k2s[i]()
     out["gat_k1_S16"] = measure(lambda: [k() for k in k1s], len(k1s))
     out["gat_k2_S16"] = measure(lambda: [k() for k in k2s], len(k2s))
-    out["gat_stack_tiled_S16"] = measure(lambda: gat_tiled.gat_stack_tiled(
-        x, pw, gtopo, m.flat, m.dims, m.cfg.alpha, m.cfg.hidden_slope,
-        edge_const=True))
+    x10, pw10, topo10, _ = p10.gat_stage_inputs(frames10[0])
+    tiled = {"S16": (x, pw, gtopo, m),
+             "S10": (x10, pw10, topo10, p10.matcher),
+             "arplab_6x16": arplab_tiled_inputs("cuda")}
+    for name, (x_, pw_, topo_, m_) in tiled.items():
+        out[f"gat_stack_tiled_{name}"] = measure(
+            lambda a=(x_, pw_, topo_, m_.flat, m_.dims, m_.cfg.alpha,
+                      m_.cfg.hidden_slope): gat_tiled.gat_stack_tiled(
+                *a, edge_const=True))
     out["frame_ms_S4"] = frame_ms(p4, frames4)
     out["frame_ms_S16"] = frame_ms(p16, frames16)
 
@@ -261,6 +324,9 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--only", default="gat,lifter,decode",
                     help="comma-separated items: gat, lifter, decode")
+    ap.add_argument("--logits", action="store_true",
+                    help="print only the digests of the tiled stack's S=10 "
+                         "and S=16 inputs and logits (``tiled_logits``)")
     a = ap.parse_args()
     only = set(a.only.split(","))
     if not only <= {"gat", "lifter", "decode"}:
@@ -313,7 +379,13 @@ def main() -> int:
         rc, rig, 16, n_people=(2, 3), seed=1)]
     frames16 = [parse_frame(f, rc, max_skeletons=16) for f in
                 generate_frames(rc, rig, 16, n_people=(10, 14), seed=2)]
+    frames10 = [parse_frame(f, rc) for f in generate_frames(
+        rc, rig, 6, n_people=(6, 9), seed=3)]
     frame4, frame16 = frames4[0], frames16[0]
+    if a.logits:
+        print(json.dumps(tiled_logits({10: pipeline(10), 16: pipeline(16)},
+                                      {10: frames10, 16: frames16})))
+        return 0
     out = {"label": a.label, "root": root, "device": smi}
     if "lifter" in only or "decode" in only:
         p_random = pipeline(4, weights.random_matcher_tree(mcfg, 0))
@@ -328,7 +400,23 @@ def main() -> int:
         time_decode(out, p_random, frame4, pipeline(16, lifter_prior=prior),
                     frame16)
     if "gat" in only:
-        time_gat(out, pipeline(4), pipeline(16), frames4, frames16)
+        p10, p16 = pipeline(10), pipeline(16)
+        time_gat(out, pipeline(4), p10, p16, frames4, frames10, frames16)
+        if root != REPO:
+            # the same logits from this file's own checkout, in a process
+            # of its own (one package of each name a process)
+            mine = tiled_logits({10: p10, 16: p16},
+                                {10: frames10, 16: frames16})
+            other = json.loads(subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--logits"],
+                capture_output=True, text=True, check=True, cwd=REPO,
+                timeout=900).stdout.strip().splitlines()[-1])
+            out["tiled_logits_bit_equal"] = {
+                S: {"inputs": mine[S]["inputs"] == other[S]["inputs"],
+                    "logits": mine[S]["logits"] == other[S]["logits"]}
+                for S in mine}
+            print(f"tiled stack logits of {root} and {REPO} on the same "
+                  f"frames: {out['tiled_logits_bit_equal']}", flush=True)
     print(json.dumps(out), flush=True)
     return 0
 
