@@ -8,7 +8,8 @@ failure raises, and the script exits non-zero):
 
 1. env: torch/CUDA versions, the card's name and power limit.
 2. build: the one ``nvcc`` call that builds the CUDA kernels of
-   ``mpe3d_tpu_torch/csrc`` (0 s when the build cache matches), and
+   ``mpe3d_tpu_torch/csrc`` (0 s when the build cache matches), the ``g++``
+   build of the C++ wire parser (``mpe3d_tpu_torch/native``), and
    ptxas's registers, shared memory and spills of the fp64 tensor-core GEMM
    shared by the three GAT kernels (one copy in each of their sources), the
    stack kernel's output kernel, the lifter's run kernel and the decode +
@@ -76,6 +77,28 @@ failure raises, and the script exits non-zero):
    the compacted pairs under pruning, the lifter kernel).  Prints each
    bucket's resolved serving path, the launches per frame and the median
    frame ms, and the split path's stages.
+6. serve path: (a) ``python3 -m mpe3d_tpu_torch serve --modelsdir
+   models_demo/pan_irls_bf16 --track --quality-gate G --warmup`` as a
+   subprocess on the card at depth 3 and at depth 1, fed the 16 S=4 frames,
+   the 6 S=10 frames, a malformed line, ping, stats, a reload to
+   ``pan_lowview_bf16``, the S=10 frames again and close; every record must
+   equal the port's PoseServer in this process on a CPU pipeline of the
+   same pairs (seq order, persons, track ids, control, error and reload
+   records; poses to ``POSE_TOL_M``, quality to ``QUALITY_TOL_PX`` +
+   ``QUALITY_RTOL`` x q), the gate
+   G (the middle of the widest gap of the CPU's qualities in their lower
+   half) must drop some poses and keep some, and the C++ parser must have
+   read every frame line; (b) ``PoseThreadingTCPServer`` on a card
+   pipeline of ``pan_res`` with two clients at once (the S=10 frames twice,
+   the S=4 frames), each client's records equal to the CPU's with a fresh
+   tracker, the kernels' launches of the run as its buckets' paths give
+   them; (c) ``infer_stream`` at depth 1 and 3 bit-equal to an
+   ``infer_fused`` loop, with the trained matcher and, after
+   ``reload_weights``, the random one; (d) prints the median ``latency_ms``
+   at depth 1 and 3, the frames per second of ``infer_stream(depth=3)``
+   against the ``infer_fused`` loop in turns, and the C++ parser's
+   microseconds a frame line beside ``json.loads`` + ``parse_frame``, each
+   with the card's name and power limit.
 
 The last lines are the kernel table as one JSON object and the contract
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -1429,6 +1452,332 @@ def stage_table(pipe, frames, label):
           + share, flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the serve path
+
+# serve records on the card against the CPU's: poses to POSE_TOL_M; the
+# quality column q (px, two decimals) to QUALITY_TOL_PX + QUALITY_RTOL * q.
+# A pose moved by d (at most POSE_TOL_M) moves a joint's projection u by
+# |u - c| d_z / z + f d_xy / z (c the principal point): a fraction of the
+# projection's offset from c that reaches 2 % at a depth of 0.5 m.  Ghost
+# proposals, joints of different people lifted together, project far off
+# the image (q in the thousands of px), so their q is mostly that offset;
+# 0.5 px is the tolerance the CPU tests hold q to against the JAX package.
+QUALITY_TOL_PX = 0.5
+QUALITY_RTOL = 0.02
+TIMING_KEYS = ("latency_ms", "mean_latency_ms")
+SERVE_TIMEOUT_S = 300      # one stdio serve subprocess
+N_STREAM_PASSES = 4        # passes over the 16 frames in a turn of the fps
+N_PARSE_REPS = 20          # parses of each frame line in the parser timing
+
+
+def cli_pipeline(*argv):
+    """(RigConfig, CameraRig, pipeline) as ``python -m mpe3d_tpu_torch
+    serve`` builds them (the CLI's buckets (2, 4, 10) / (4, 8, 16))."""
+    from mpe3d_tpu_torch import cli
+    return cli.build_pipeline(cli.make_parser().parse_args(["serve",
+                                                            *argv]))
+
+
+def compare_records(got, ref, label):
+    """Serve records of the card against the CPU's: the same keys in the
+    same order, seqs in strict order, every value equal but the timing
+    fields, poses and quality to tolerance.  Returns (records with
+    persons, max |d pose| m, max |d quality| px)."""
+    import numpy as np
+    if len(got) != len(ref):
+        raise AssertionError(f"{label}: {len(got)} records, the CPU gave "
+                             f"{len(ref)}:\n{got}\n{ref}")
+    dp = dq = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if list(g) != list(r):
+            raise AssertionError(f"{label} record {i}: keys {list(g)}, the "
+                                 f"CPU's {list(r)}")
+        for k in g:
+            if k == "poses_m" and g["n_persons"]:
+                dp = max(dp, float(np.abs(np.subtract(g[k], r[k])).max()))
+            elif k == "quality_px" and g["n_persons"]:
+                d = np.abs(np.subtract(g[k], r[k]))
+                dq = max(dq, float(d.max()))
+                if (d > QUALITY_TOL_PX + QUALITY_RTOL
+                        * np.abs(r[k])).any():
+                    raise AssertionError(
+                        f"{label} record {i}: quality {g[k]}, the CPU's "
+                        f"{r[k]} (tol {QUALITY_TOL_PX} px + "
+                        f"{QUALITY_RTOL} x q)")
+            elif k not in TIMING_KEYS + ("poses_m", "quality_px") \
+                    and g[k] != r[k]:
+                raise AssertionError(f"{label} record {i}: {k} {g[k]!r}, "
+                                     f"the CPU's {r[k]!r}")
+    seqs = [g["seq"] for g in got if "seq" in g]
+    if seqs != list(range(len(seqs))):
+        raise AssertionError(f"{label}: seqs {seqs}")
+    if dp > POSE_TOL_M:
+        raise AssertionError(f"{label}: max |d pose| {dp:.4g} m (tol "
+                             f"{POSE_TOL_M})")
+    return sum(1 for g in got if g.get("n_persons")), dp, dq
+
+
+def serve_in_process(pipe, rig_config, lines, depth, gate=None):
+    """Records of ``lines`` through the port's PoseServer in this process,
+    a fresh tracker a stream."""
+    from mpe3d_tpu_torch.serve import PoseServer
+    from mpe3d_tpu_torch.tracking import PoseTracker
+    server = PoseServer(pipe, rig_config, depth=depth,
+                        tracker_factory=PoseTracker, quality_gate=gate)
+    out = []
+    server.handle_stream(lines, out.append)
+    return [json.loads(line) for line in out], server
+
+
+def pick_gate(qualities):
+    """A quality gate (px) that drops some poses and keeps some: the middle
+    of the widest gap between consecutive qualities in the lower half, and
+    its distance from the nearest quality."""
+    import numpy as np
+    q = np.sort(np.asarray(qualities)[np.asarray(qualities) >= 0])
+    gaps = np.diff(q)[:len(q) // 2]
+    i = int(np.argmax(gaps))
+    return round(float(q[i] + q[i + 1]) / 2, 2), float(gaps[i]) / 2
+
+
+def serve_stdio(lines, depth, gate):
+    """``python3 -m mpe3d_tpu_torch serve`` on the card as a subprocess fed
+    ``lines``: (records, stderr)."""
+    cmd = [sys.executable, "-m", "mpe3d_tpu_torch", "serve", "--modelsdir",
+           DEMO, "--depth", str(depth), "--track", "--quality-gate",
+           repr(gate), "--warmup"]
+    proc = subprocess.run(cmd, input="\n".join(lines) + "\n",
+                          capture_output=True, text=True, cwd=ROOT,
+                          timeout=SERVE_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    return [json.loads(line) for line in proc.stdout.splitlines()], \
+        proc.stderr
+
+
+def check_stdio(wire4, wire10):
+    """Phase 6a: the stdio server through the real entry point at depth 3
+    and 1 against PoseServer on a CPU pipeline of the same pairs.  Returns
+    the gate and each depth's median latency_ms."""
+    import numpy as np
+    from mpe3d_tpu_torch.data.frames import parse_frame
+    from mpe3d_tpu_torch.native import LIB_PATH
+
+    lowview = os.path.join(ROOT, "models_demo", "pan_lowview_bf16")
+    j10 = [json.dumps(f) for f in wire10]
+    lines = ([json.dumps(f) for f in wire4] + j10
+             + ["{not json", '{"cmd": "ping"}', '{"cmd": "stats"}',
+                json.dumps({"cmd": "reload", "modelsdir": lowview})]
+             + j10 + ['{"cmd": "close"}'])
+    n_frames = len(wire4) + 2 * len(wire10)
+    rc, _, cpu = cli_pipeline("--modelsdir", DEMO, "--cpu")
+    _, _, cpu_low = cli_pipeline("--modelsdir", lowview, "--cpu")
+    q = [o.quality for p, ws in ((cpu, wire4 + wire10), (cpu_low, wire10))
+         for o in (p.infer_fused(parse_frame(w, rc)) for w in ws)]
+    gate, margin = pick_gate(np.concatenate(q))
+    if margin <= QUALITY_TOL_PX + QUALITY_RTOL * gate:
+        raise AssertionError(f"gate {gate} px lies within {margin:.3g} px "
+                             f"of a quality")
+    print(f"  stdio serve: quality gate {gate} px ({margin:.3f} px from the "
+          f"nearest CPU quality); lines: {len(wire4)} S=4 frames, "
+          f"{len(wire10)} S=10 frames, a malformed line, ping, stats, "
+          f"reload to pan_lowview_bf16, the S=10 frames again, close",
+          flush=True)
+    medians = {}
+    for depth in (3, 1):
+        got, err = serve_stdio(lines, depth, gate)
+        if depth == 3:
+            ref, _ = serve_in_process(cpu, rc, lines, depth, gate)
+        else:
+            _, _, cpu = cli_pipeline("--modelsdir", DEMO, "--cpu")
+            ref, _ = serve_in_process(cpu, rc, lines, depth, gate)
+        n, dp, dq = compare_records(got, ref, f"stdio serve, depth {depth}")
+        dropped = sum(g.get("dropped_low_quality", 0) for g in got)
+        kept = sum(g.get("n_persons", 0) for g in got)
+        if not (dropped and kept):
+            raise AssertionError(f"gate {gate}: dropped {dropped}, kept "
+                                 f"{kept} poses")
+        if got[-1].get("closed") is not True or not any(
+                g.get("reloaded") for g in got):
+            raise AssertionError(f"depth {depth}: no close or reload record")
+        want = (f"frame lines parsed: native {n_frames}, python 0 (native "
+                f"library: {LIB_PATH})")
+        if want not in err:
+            raise AssertionError(f"the C++ parser did not read every frame "
+                                 f"line: {err[-2000:]}")
+        lat = [g["latency_ms"] for g in got if "latency_ms" in g]
+        medians[depth] = statistics.median(lat)
+        print(f"  stdio serve, depth {depth}: {len(got)} records equal to "
+              f"the CPU's ({n} frames with kept poses, {kept} kept, "
+              f"{dropped} dropped by the gate), max |d pose| {dp:.3g} m, "
+              f"max |d quality| {dq:.3g} px; every frame line through the "
+              f"C++ parser ({LIB_PATH}); median latency_ms "
+              f"{medians[depth]:.3f} of {len(lat)} frames", flush=True)
+    return gate, medians
+
+
+def check_tcp(wire4, wire10):
+    """Phase 6b: PoseThreadingTCPServer on a card pipeline of pan_res with
+    two clients at once (the S=10 frames twice, and the S=4 frames),
+    against the CPU; the kernels' launches of the run."""
+    import socket
+    import threading
+    from mpe3d_tpu_torch.data.frames import parse_frame
+    from mpe3d_tpu_torch.serve import PoseServer, PoseThreadingTCPServer
+    from mpe3d_tpu_torch.tracking import PoseTracker
+
+    models = DEMO_PAIRS["pan_res"]
+    rc, _, gpu = cli_pipeline("--modelsdir", models)
+    gpu.warmup()
+    streams = {"S=10": [json.dumps(f) for f in wire10] * 2,
+               "S=4": [json.dumps(f) for f in wire4]}
+    server = PoseServer(gpu, rc, depth=3, tracker_factory=PoseTracker)
+    srv = PoseThreadingTCPServer(server, "127.0.0.1", 0, max_clients=2)
+    thread = threading.Thread(target=srv.serve_forever,
+                              kwargs={"poll_interval": 0.05}, daemon=True)
+    thread.start()
+    barrier = threading.Barrier(len(streams), timeout=60)
+    got, failed = {}, []
+
+    def client(name):
+        try:
+            with socket.create_connection(("127.0.0.1", srv.port),
+                                          timeout=120) as s:
+                f = s.makefile("rwb")
+                barrier.wait()
+                f.write(("\n".join(streams[name] + ['{"cmd": "close"}'])
+                         + "\n").encode())
+                f.flush()
+                got[name] = [json.loads(f.readline())
+                             for _ in range(len(streams[name]) + 1)]
+        except Exception as e:      # reported below
+            failed.append(f"{name}: {type(e).__name__}: {e}")
+
+    reset_launches()
+    clients = [threading.Thread(target=client, args=(n,)) for n in streams]
+    try:
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=240)
+        launches = read_launches()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    if failed or any(c.is_alive() for c in clients):
+        raise AssertionError(f"TCP clients failed: {failed}")
+    fas = [parse_frame(json.loads(line), rc) for lines in streams.values()
+           for line in lines]
+    want = expected_launches(gpu, fas)
+    if launches != want or not all(
+            launches[k] for k in ("gat_stack", "gat_k1", "gat_k2",
+                                  "frame_decode_pack", "mlp_run")):
+        raise AssertionError(f"TCP serve: launches {launches}, expected "
+                             f"{want}")
+    if server.parsed != {"native": len(fas), "python": 0}:
+        raise AssertionError(f"TCP serve: frame lines parsed {server.parsed}")
+    _, _, cpu = cli_pipeline("--modelsdir", models, "--cpu")
+    for name, lines in streams.items():
+        ref, _ = serve_in_process(cpu, rc, lines + ['{"cmd": "close"}'], 3)
+        n, dp, dq = compare_records(got[name][:-1], ref[:-1],
+                                    f"TCP client {name}")
+        if got[name][-1].get("closed") is not True:
+            raise AssertionError(f"TCP client {name}: no close record")
+        print(f"  TCP, pan_res ({gpu.serve_dtype}, {gpu.lifter_prior} "
+              f"prior), two clients at once: client {name} "
+              f"{len(lines)} frames equal to the CPU's with a fresh tracker "
+              f"({n} with persons), max |d pose| {dp:.3g} m, max "
+              f"|d quality| {dq:.3g} px", flush=True)
+    print(f"  TCP serve: buckets "
+          + ", ".join(f"S={S} -> {form} matcher, "
+                      + ("frame path" if fp else "eager path")
+                      for S, (form, fp) in (
+                          (S, gpu.serving_path(S)) for S in
+                          sorted({frame_slots(gpu, f) for f in fas})))
+          + f"; launches {launches}; all {len(fas)} frame lines through "
+          f"the C++ parser", flush=True)
+    return launches
+
+
+def check_infer_stream(frames, rtree):
+    """Phase 6c: infer_stream at depth 1 and 3 bit-equal to an infer_fused
+    loop on the card, with the trained matcher and, after reload_weights,
+    the random one; then frames per second of infer_stream(depth=3)
+    against the loop in turns (loop, stream, stream, loop)."""
+    import numpy as np
+    import torch
+    _, _, gpu = cli_pipeline("--modelsdir", DEMO)
+    for label in ("trained", "random"):
+        if label == "random":
+            gpu.reload_weights(matcher_tree=rtree)
+        loop = [gpu.infer_fused(f) for f in frames]
+        for depth in (1, 3):
+            reset_launches()
+            got = list(gpu.infer_stream(frames, depth=depth))
+            launches = read_launches()
+            if launches != expected_launches(gpu, frames):
+                raise AssertionError(f"infer_stream: launches {launches}")
+            if len(got) != len(loop):
+                raise AssertionError(f"infer_stream gave {len(got)} outputs")
+            for i, (a, b) in enumerate(zip(got, loop)):
+                if not (a.n_heads == b.n_heads and all(
+                        np.array_equal(getattr(a, k), getattr(b, k))
+                        for k in ("poses", "persons", "scores", "quality"))):
+                    raise AssertionError(f"infer_stream depth {depth}, "
+                                         f"{label} matcher, frame {i}: not "
+                                         f"bit-equal to infer_fused")
+        print(f"  infer_stream, {label} matcher: depth 1 and 3 bit-equal "
+              f"to the infer_fused loop on {len(frames)} frames (persons "
+              f"{[len(o.persons) for o in loop]}); launches {launches}",
+              flush=True)
+
+    def run(stream):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(N_STREAM_PASSES):
+            if stream:
+                for _ in gpu.infer_stream(frames, depth=3):
+                    pass
+            else:
+                for f in frames:
+                    gpu.infer_fused(f)
+        torch.cuda.synchronize()
+        return N_STREAM_PASSES * len(frames) / (time.perf_counter() - t0)
+
+    run(True)
+    turns = [run(False), run(True), run(True), run(False)]
+    return turns
+
+
+def time_parser(lines, rig_config):
+    """Microseconds a frame line through PoseServer's C++ path and through
+    json.loads + parse_frame (median of N_PARSE_REPS passes)."""
+    from mpe3d_tpu_torch.data.frames import parse_frame
+    from mpe3d_tpu_torch.serve import PoseServer
+
+    class _Pipe:            # PoseServer reads only the matching cameras
+        match_idx = rig_config.matching_camera_indices()
+
+    server = PoseServer(_Pipe(), rig_config)
+    out = {}
+    for name, fn in (("native", lambda ln: server._parse_line(ln, {"n": 0})),
+                     ("python", lambda ln: parse_frame(json.loads(ln),
+                                                       rig_config))):
+        per = []
+        for _ in range(N_PARSE_REPS):
+            t0 = time.perf_counter()
+            for ln in lines:
+                fn(ln)
+            per.append(1e6 * (time.perf_counter() - t0) / len(lines))
+        out[name] = statistics.median(per)
+    if server.parsed["python"]:
+        raise AssertionError("the parser timing left the C++ path")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1437,7 +1786,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from mpe3d_tpu_torch import weights
+    from mpe3d_tpu_torch import native, weights
     from mpe3d_tpu_torch.config import PANOPTIC
     from mpe3d_tpu_torch.data.frames import parse_frame
     from mpe3d_tpu_torch.data.synthetic import (generate_frames,
@@ -1462,6 +1811,11 @@ def main() -> int:
                  "frame_decode_pack_kernel"):
         print(f"  ptxas, {name}: " + "; ".join(ptxas_report(
             lib.compiler_output, name)), flush=True)
+    t1 = time.perf_counter()
+    if native.load_library() is None:
+        raise AssertionError("the C++ wire parser did not build")
+    print(f"  C++ wire parser: {native.LIB_PATH} "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
     phase("build", t0, f"nvcc {lib.build_seconds:.1f} s; ptxas: "
           + ("; ".join(spills) if spills else "no spills"))
 
@@ -1470,10 +1824,12 @@ def main() -> int:
     rig = synthetic_ring_rig(rig_config)
     mtree, mcfg, ltree, lcfg, prior = load_trees(rig_config)
     rtree = weights.random_matcher_tree(mcfg, RANDOM_MATCHER_SEED)
-    frames = [parse_frame(f, rig_config) for f in generate_frames(
-        rig_config, rig, N_FRAMES, n_people=(2, 3), seed=1)]
-    frames10 = [parse_frame(f, rig_config) for f in generate_frames(
-        rig_config, rig, N_CROWDED, n_people=(6, 9), seed=3)]
+    wire4 = generate_frames(rig_config, rig, N_FRAMES, n_people=(2, 3),
+                            seed=1)
+    wire10 = generate_frames(rig_config, rig, N_CROWDED, n_people=(6, 9),
+                             seed=3)
+    frames = [parse_frame(f, rig_config) for f in wire4]
+    frames10 = [parse_frame(f, rig_config) for f in wire10]
     frames16 = [parse_frame(f, rig_config, max_skeletons=16)
                 for f in generate_frames(rig_config, rig, N_FRAMES,
                                          n_people=(10, 14), seed=2)]
@@ -1677,6 +2033,25 @@ def main() -> int:
     phase("crowded path", t0, "infer_fused on the card agrees with the CPU "
           "on every crowded bucket; median frame ms: "
           + "; ".join(f"{k} {v:.3f}" for k, v in crowded_ms.items()))
+
+    t0 = time.perf_counter()
+    gate, latency = check_stdio(wire4, wire10)
+    check_tcp(wire4, wire10)
+    fps = check_infer_stream(frames, rtree)
+    parse_us = time_parser([json.dumps(f) for f in wire4 + wire10],
+                           rig_config)
+    print(f"  serve latency_ms, median over the stdio run's frames: depth 1 "
+          f"{latency[1]:.3f}, depth 3 {latency[3]:.3f} ({smi})")
+    print(f"  frames per second, 16 S=4 frames x {N_STREAM_PASSES}, random "
+          f"matcher, in turns: infer_fused loop {fps[0]:.1f}, "
+          f"infer_stream(depth=3) {fps[1]:.1f}, {fps[2]:.1f}, infer_fused "
+          f"loop {fps[3]:.1f} ({smi})")
+    print(f"  wire parser, us a frame line (22 lines x {N_PARSE_REPS}): C++ "
+          f"{parse_us['native']:.1f}, json.loads + parse_frame "
+          f"{parse_us['python']:.1f} ({smi})", flush=True)
+    phase("serve path", t0, "python -m mpe3d_tpu_torch serve over stdio "
+          "(reload included) and two concurrent TCP clients on pan_res agree "
+          "with the CPU; infer_stream is bit-equal to infer_fused")
 
     # a device time the profiler did not record is not measured: null
     for k in report:

@@ -44,6 +44,9 @@ class RigConfig:
     min_number_of_views: int = 2
     numbers_per_joint: int = 14
     graph_alternative: str = "3"
+    # default calibration file (pytransform3d pickle or JSON), relative to
+    # the working directory; the CLI's --tm overrides it
+    transformations_path: str = ""
     # drawing axis map: label -> (coordinate index, direction); the
     # synthetic generator reads world-up from its "Z" entry
     axes_3d: Tuple[Tuple[str, Tuple[int, float]], ...] = (
@@ -105,6 +108,7 @@ PANOPTIC = RigConfig(
         "trackera", "trackerb", "trackerc", "trackerd", "trackere"),
     used_joints=(0, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17),
     axes_3d=(("X", (0, 1.0)), ("Y", (2, 1.0)), ("Z", (1, -1.0))),
+    transformations_path="tm_panoptic.pickle",
 )
 
 

@@ -1,7 +1,9 @@
 """Frame wire-format parsing into fixed-shape masked numpy buffers.
 
 Port of ``mpe3d_tpu/data/frames.py`` (``FrameArrays``, the python
-``parse_frame``, ``skeleton_dict``, ``frame_entry``).  A wire frame is
+``parse_frame``, ``load_frames``, ``parse_frames_batch`` and
+``parse_frames_file`` through the port's C++ parser, ``skeleton_dict``,
+``frame_entry``).  A wire frame is
 ``{camera_name: [skeletons_json_str, timestamp, 'no_image', gt_3d_list?]}``;
 each skeleton maps joint-id string -> ``[id, x_pix, y_pix, valid, prob]``
 and may carry an ``"ID"`` key, which is skipped.
@@ -72,6 +74,48 @@ def parse_frame(frame: Dict, rig: RigConfig, max_skeletons: int = 10,
                 present[ci, slot] = True
                 slot += 1
     return FrameArrays(kp, valid, prob, in_view, present, ts)
+
+
+def load_frames(path: str) -> List[Dict]:
+    """A wire-format JSON file (a list of frames) as python objects."""
+    with open(path, "rb") as f:
+        return json.loads(f.read())
+
+
+def parse_frames_batch(text: bytes, rig: RigConfig, max_skeletons: int = 10,
+                       cameras: Optional[Sequence[str]] = None,
+                       use_native: bool = True,
+                       with_gt: bool = False) -> List[FrameArrays]:
+    """A whole wire JSON payload (a list of frames) as FrameArrays, through
+    the C++ parser (``mpe3d_tpu_torch/native``) when it is available and
+    reads the payload, else through ``json.loads`` and ``parse_frame``
+    (which raise on malformed input).  ``with_gt=True`` (the frames' 3D
+    ground truth) belongs to the evaluation slice (ROADMAP.md section 1,
+    item 7) and raises."""
+    if with_gt:
+        raise NotImplementedError(
+            "parse_frames_batch(with_gt=True): ground truth is parsed by the "
+            "evaluation slice, not ported yet (ROADMAP.md section 1, item 7)")
+    cameras = tuple(cameras) if cameras is not None else rig.camera_names
+    if use_native:
+        from mpe3d_tpu_torch.native import parse_frames_native
+        out = parse_frames_native(text, cameras, max_skeletons, rig.n_joints)
+        if out is not None:
+            kp, valid, prob, in_view, present, ts = out
+            return [FrameArrays(kp[f], valid[f], prob[f], in_view[f],
+                                present[f], ts[f]) for f in range(len(kp))]
+    return [parse_frame(f, rig, max_skeletons, cameras)
+            for f in json.loads(text)]
+
+
+def parse_frames_file(path: str, rig: RigConfig, max_skeletons: int = 10,
+                      cameras: Optional[Sequence[str]] = None,
+                      use_native: bool = True,
+                      with_gt: bool = False) -> List[FrameArrays]:
+    """``parse_frames_batch`` of a file's bytes."""
+    with open(path, "rb") as f:
+        return parse_frames_batch(f.read(), rig, max_skeletons, cameras,
+                                  use_native, with_gt=with_gt)
 
 
 def skeleton_dict(joint_ids: Sequence[int], pix: np.ndarray,

@@ -2,7 +2,8 @@
 
 Port of ``mpe3d_tpu/geometry/camera.py``: ``undistort_points`` (:133, 10
 fixed-point iterations), ``project_points`` (:175), ``cam_centers_world``
-(:207), ``pixel_rays_world`` (:213).  Point-wise over the last axis,
+(:207), ``pixel_rays_world`` (:213), ``save_rig_npz`` / ``load_rig_npz``
+(:243-256).  Point-wise over the last axis,
 broadcasting over leading axes, float32.  Small contractions are written as
 broadcast multiply-sums, as in the reference.
 """
@@ -142,3 +143,18 @@ def undistorted_rays_world(pix: torch.Tensor, K: torch.Tensor,
     xn = undistort_points(pix, K, dist, iters=iters)
     v = torch.cat([xn, torch.ones_like(xn[..., :1])], -1)
     return torch.sum(T_cw[..., :3, :3] * v[..., None, :], -1)
+
+
+def save_rig_npz(path: str, rig: CameraRig) -> None:
+    """Write a CameraRig as a flat npz, one array a field (the layout of
+    ``mpe3d_tpu/geometry/camera.py::save_rig_npz``): the calibration that
+    ``optimise_matrices`` training refines ships as ``refined_rig.npz``
+    beside the checkpoint."""
+    np.savez(path, **{f: np.asarray(a.cpu() if torch.is_tensor(a) else a)
+                      for f, a in zip(CameraRig._fields, rig)})
+
+
+def load_rig_npz(path: str) -> CameraRig:
+    """The CameraRig of a ``save_rig_npz`` file, as host numpy arrays."""
+    with np.load(path) as d:
+        return CameraRig(**{f: d[f] for f in CameraRig._fields})

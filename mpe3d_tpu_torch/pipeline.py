@@ -40,6 +40,16 @@ as the reference's frame kernel serves only bf16 and int8 lifters).
 
 On a CUDA device the kernels run; on the CPU their plain versions.
 
+Streaming (``mpe3d_tpu/pipeline.py:1161-1213``): ``submit_fused`` issues a
+frame's work and its download, asynchronously, into pinned host memory that
+the ticket owns, and records a CUDA event; ``collect_fused`` waits on that
+event alone.  ``infer_stream`` keeps ``depth`` frames in flight over the
+two.  Submits from several threads (the TCP server's clients) are
+serialised by a lock around the launch sequence: the kernels' cached
+scratch (``ops/gat_tiled.py::_stack_plan``) and plan caches are shared by
+every call of a signature, and ctypes releases the GIL inside a launch.
+``reload_weights`` swaps the matcher and lifter under the same lock.
+
 The GAT is true fp32: TF32 is switched off for matmuls and convolutions at
 import, because rounded operands change decodes (RESULTS.md:1265-1271,
 1369-1377).
@@ -47,8 +57,10 @@ import, because rounded operands change decodes (RESULTS.md:1265-1271,
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Dict, NamedTuple, Optional, Tuple
+import threading
+from typing import Dict, Iterable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,7 +80,7 @@ from mpe3d_tpu_torch.matching.features import (PairTopology, build_topology,
                                                pair_mask_from_present,
                                                prune_pair_candidates)
 from mpe3d_tpu_torch.models.gat import Matcher, gat_topology
-from mpe3d_tpu_torch.models.mlp import Lifter
+from mpe3d_tpu_torch.models.mlp import Lifter, lifter_is_quantized
 from mpe3d_tpu_torch.ops.frame_kernel import (cam_consts, cam_to_world,
                                               frame_decode_pack,
                                               frame_kernel_fits,
@@ -146,6 +158,10 @@ class _Bucket(NamedTuple):
     pairs: torch.Tensor      # [E, 4] int32 decode pairs
     form: str                # "stack", "tiled" or "layer"
     dtopo: PairTopology      # the topology's arrays as device tensors
+
+
+# the pipeline's lifter dtype -> the serve_dtype of weights.lifter_from_tree
+_TREE_DTYPE = {"bf16": None, "fp32": "fp32", "int8": "int8"}
 
 
 def _slot_view(a: np.ndarray, S: int) -> np.ndarray:
@@ -228,6 +244,9 @@ class PoseEstimationPipeline:
         self._match_sel = torch.tensor(self.match_idx, device=self.device)
         self._used_sel = torch.tensor(self.used_idx, device=self.device)
         self._topos: Dict[int, _Bucket] = {}
+        # serialises submits (their launches share cached scratch) and the
+        # weight swap of reload_weights
+        self._submit_lock = threading.Lock()
 
     @classmethod
     def from_checkpoint(cls, models_dir: str, rig: CameraRig,
@@ -488,19 +507,52 @@ class PoseEstimationPipeline:
         x, pw, gtopo, _, _ = self._gat_inputs(S, *args)
         return x, pw, gtopo, self._bucket_state(S).form
 
+    def _on_device(self):
+        """This pipeline's device as the current CUDA device (the calling
+        thread's own may be another); nothing on the CPU."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def _download(self, out):
+        """Start the copy of a frame's five outputs to the host: on a CUDA
+        device into one pinned buffer that the ticket owns (in flight
+        tickets never share one), each copy ``non_blocking``, then a CUDA
+        event that :meth:`collect_fused` waits on.  Returns (host tensors,
+        event or None)."""
+        if self.device.type != "cuda":
+            return out, None
+        sizes = [-(-t.numel() * t.element_size() // 16) * 16 for t in out]
+        buf = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=True)
+        host, off = [], 0
+        for t, n in zip(out, sizes):
+            v = buf[off:off + t.numel() * t.element_size()].view(
+                t.dtype).view(t.shape)
+            v.copy_(t, non_blocking=True)
+            host.append(v)
+            off += n
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return host, done
+
     def submit_fused(self, frame: FrameArrays):
-        """Start one frame on the device; returns a ticket for
-        :meth:`collect_fused`."""
-        S, args = self._frame_tensors(frame)
-        run = self._run_frame if self.serving_path(S)[1] else self._run
-        return frame, run(S, *args)[0]
+        """Start one frame on the device and its download to the host,
+        without waiting for either; returns a ticket for
+        :meth:`collect_fused`.  Thread-safe: submits are serialised (host
+        time only, the launches are asynchronous)."""
+        with self._submit_lock, torch.inference_mode(), self._on_device():
+            S, args = self._frame_tensors(frame)
+            run = self._run_frame if self.serving_path(S)[1] else self._run
+            return (frame,) + self._download(run(S, *args)[0])
 
     def collect_fused(self, ticket) -> PipelineOutput:
-        """Wait for a ticket's results and crop to the real persons (int32
+        """Wait for a ticket's download and crop to the real persons (int32
         slots, as the reference's decode gives them)."""
-        frame, out = ticket
-        poses, persons, person_mask, scores, quality = (
-            t.cpu().numpy() for t in out)
+        frame, host, done = ticket
+        if done is not None:
+            done.synchronize()
+        poses, persons, person_mask, scores, quality = (t.numpy()
+                                                        for t in host)
         n = int(person_mask.sum())
         return PipelineOutput(poses[:n], persons[:n].astype(np.int32),
                               scores, int(frame.present.sum()), quality[:n])
@@ -508,3 +560,81 @@ class PoseEstimationPipeline:
     def infer_fused(self, frame: FrameArrays) -> PipelineOutput:
         """Full-frame inference."""
         return self.collect_fused(self.submit_fused(frame))
+
+    def infer_stream(self, frames: Iterable[FrameArrays],
+                     depth: int = 3) -> Iterator[PipelineOutput]:
+        """Pipelined inference: keeps ``depth`` frames in flight (frame
+        i + depth - 1 is submitted before frame i is collected), so the
+        host's work on the next frames overlaps the device's on earlier
+        ones.  Yields the outputs in frame order."""
+        pending = []
+        for frame in frames:
+            pending.append(self.submit_fused(frame))
+            if len(pending) >= depth:
+                yield self.collect_fused(pending.pop(0))
+        while pending:
+            yield self.collect_fused(pending.pop(0))
+
+    def warmup(self, slots: Optional[int] = None,
+               persons: Optional[int] = None, fused: bool = True) -> None:
+        """Run one all-present frame of zeros through ``submit_fused`` for
+        every slot bucket (or ``slots`` alone): the first call of a bucket
+        builds its device state, the kernels' plans and tables and, on the
+        card, the kernel library.  The reference's staged path (its
+        ``persons`` buckets and ``fused=False``) is not ported (ROADMAP.md
+        section 1, item 6) and raises."""
+        if persons is not None or not fused:
+            raise NotImplementedError(
+                "warmup(persons=..., fused=False) warms the staged path, "
+                "which is not ported (ROADMAP.md section 1, item 6)")
+        C, J = self.rig_config.n_cameras, self.rig_config.n_joints
+        for S in ([slots] if slots else self.slot_buckets):
+            self.infer_fused(FrameArrays(
+                np.zeros((C, S, J, 2), np.float32),
+                np.zeros((C, S, J), np.float32),
+                np.zeros((C, S, J), np.float32), np.zeros((C, S, J), bool),
+                np.ones((C, S), bool), np.zeros(C)))
+
+    def reload_weights(self, matcher_tree=None, lifter_tree=None) -> None:
+        """Swap the serving weights for trees in the JAX package's layout
+        (``weights.py``; ``checkpoint.py`` reads them from npz files)
+        without rebuilding the pipeline (``mpe3d_tpu/pipeline.py:1063-
+        1160``, without its multi-device part).
+
+        The new weights get the construction's serving transform (the
+        lifter in this pipeline's ``serve_dtype``: int8 quantised, bf16
+        cast or fp32) and must have the current architecture: a shape
+        mismatch, or an int8 tree for a pipeline that does not serve int8,
+        raises ValueError with the serving weights untouched.  Everything
+        is built and checked first; then the matcher and lifter are swapped
+        together under the submit lock, so each frame sees old or new
+        weights, never a mix.  Frames submitted earlier keep reading the
+        old tensors: every launch is on one stream, so the caching
+        allocator hands their memory to a later allocation only in stream
+        order, after those launches.  The lifter's run tables are keyed by
+        weight addresses (``ops/fused_mlp.py::mlp_run``) and hold only
+        addresses and shapes, and the tiled GAT's cached plans
+        (``ops/gat_tiled.py::_stack_plan``) no weight address, so neither
+        serves stale weights."""
+        matcher, lifter = self.matcher, self.lifter
+        if matcher_tree is not None:
+            matcher = matcher_from_tree(matcher_tree, self.matcher.cfg,
+                                        self.device)
+        if lifter_tree is not None:
+            if (lifter_is_quantized(lifter_tree)
+                    and self.serve_dtype != "int8"):
+                raise ValueError(
+                    f"reload_weights: the lifter tree is an int8 export, "
+                    f"but this pipeline serves {self.serve_dtype} (restart "
+                    f"on the int8 checkpoint, or reload a fp32/bf16 one)")
+            lifter = lifter_from_tree(lifter_tree, self.lifter.cfg,
+                                      self.device,
+                                      _TREE_DTYPE[self.serve_dtype])
+            old = [(n, t.shape, t.dtype) for n, t in
+                   self.lifter.named_buffers()]
+            new = [(n, t.shape, t.dtype) for n, t in lifter.named_buffers()]
+            if new != old or lifter.serve_dtype != self.serve_dtype:
+                raise ValueError(f"reload_weights: lifter shape mismatch "
+                                 f"({new} vs current {old})")
+        with self._submit_lock:
+            self.matcher, self.lifter = matcher, lifter
