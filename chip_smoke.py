@@ -7,13 +7,14 @@ Phases (each prints one line with what it checked and its wall time; any
 failure raises, and the script exits non-zero):
 
 1. env: torch/CUDA versions, the card's name and power limit.
-2. build: the one ``nvcc`` call that builds the CUDA kernels of
-   ``mpe3d_tpu_torch/csrc`` (0 s when the build cache matches), the ``g++``
+2. build: the ``nvcc`` calls that build the CUDA kernels of
+   ``mpe3d_tpu_torch/csrc`` (one a source, all at once, and a link; 0 s
+   when the build cache matches), the ``g++``
    build of the C++ wire parser (``mpe3d_tpu_torch/native``), and
    ptxas's registers, shared memory and spills of the fp64 tensor-core GEMM
    shared by the three GAT kernels (one copy in each of their sources), the
-   stack kernel's output kernel, the lifter's run kernel and the decode +
-   gather + pack kernel.
+   stack kernel's output kernel, the lifter's run kernel (each of its row
+   classes) and the decode + gather + pack kernel.
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the inputs the serving path gives it (Panoptic rig, S=4 slots, P=8
    persons), with median times over 50 launches (CUDA events) beside the
@@ -45,8 +46,14 @@ failure raises, and the script exits non-zero):
    projected once, as the pipeline serves it), two calls bit-equal; on the
    trained matcher at S=4 and S=16 with its distance from fp64 beside the
    tiled kernels', both held to ``GAT_FP64_TOL`` and bit-equal across
-   calls.  Every kernel row also carries its device time (torch.profiler),
-   and the GAT kernels print their CUDA launches a call.
+   calls.  The run kernel past 16 rows: the whole bf16 and int8 nets as
+   one launch at M = 16, 32, 64 and 50 against ``run_plain``, two launches
+   bit-equal, the M=64 launch's device time in turns against the four
+   M=16 launches it replaces (it must be shorter), the int8 layers alone
+   at M=64 (one launch a layer); the decode kernel over a batch (a block a
+   frame) on 8 S=4 and 6 S=16 frames against its plain version frame by
+   frame.  Every kernel row also carries its device time
+   (torch.profiler), and the GAT kernels print their CUDA launches a call.
 4. main path: ``PoseEstimationPipeline.infer_fused`` on 16 synthetic frames
    on the card, once with the trained matcher and once with a numpy-seeded
    random matcher (the trained one scores near 0 on the synthetic ring rig;
@@ -99,6 +106,23 @@ failure raises, and the script exits non-zero):
    against the ``infer_fused`` loop in turns, and the C++ parser's
    microseconds a frame line beside ``json.loads`` + ``parse_frame``, each
    with the card's name and power limit.
+
+7. batch and staged paths: ``infer_batch`` of the 16 S=4 frames (buckets
+   (4,) / (8,)) and of the 6 S=10 frames (default buckets, "mean" prior)
+   for ``pan_irls_bf16`` and the int8 ``pan_irls``, trained and random
+   matcher: the kernels' launches as ``batch_plan`` gives them (one GAT
+   call on the union of the frames' graphs, one decode launch, a lifter
+   launch a group of 64 rows), ``submit_batch`` under
+   ``set_sync_debug_mode("error")``, persons equal to the card's
+   ``infer_fused`` and to the CPU's ``infer_batch``, scores within
+   ``SCORE_TOL``, poses within ``POSE_TOL_M``; ``pipe(frame)`` (the staged
+   path) with host and device decode, the triangulation backend (median,
+   IRLS) and geo rerank against the CPU; ``serve --batch-window 4`` over
+   stdio against ``--batch-window 1``; then the frames per second of
+   ``infer_batch`` of 8 frames against the ``infer_fused`` loop in turns,
+   a batch's CUDA launches and device time (profiler), and the M=64 run's
+   device time against four M=16 runs, each with the card's name and
+   power limit.
 
 The last lines are the kernel table as one JSON object and the contract
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -374,7 +398,7 @@ def check_kernels(pipe, frame, report):
     x16 = (nets.float().repeat(2, 1) * torch.tensor(
         rng.uniform(0.5, 1.5, (2 * nets.shape[0], 1)), dtype=torch.float32,
         device=nets.device)).contiguous()
-    wb = [w.to(torch.bfloat16) for w, _ in layers]
+    _, library = bf16_library(layers, slope)
     rows = {}
     for x in (nets.float().contiguous(), x16):
         M = x.shape[0]
@@ -391,17 +415,9 @@ def check_kernels(pipe, frame, report):
             raise AssertionError(f"MLP run kernel, M={M}: two launches on "
                                  f"the same input differ")
 
-        def library(x=x):
-            hb = x.to(torch.bfloat16)
-            for w in wb:
-                hb = torch.matmul(hb, w)
-            return hb
-
-        ms, lib_ms = in_turns(run, library)
-        # x read once, y written once, every weight and bias read once
-        bytes_ = (4 * x.numel() + 4 * M * layers[-1].w.shape[1]
-                  + sum(w.numel() * 2 + b.numel() * 4 for w, b in layers))
-        flops = sum(2 * M * w.shape[0] * w.shape[1] for w, _ in layers)
+        lib = lambda x=x: library(x)  # noqa: E731
+        ms, lib_ms = in_turns(run, lib)
+        bytes_, flops = run_costs(layers, x)
         t_b, t_f = bytes_ / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS
         rows[M] = {
             "name": "mlp_run", "route": "cuda",
@@ -422,7 +438,7 @@ def check_kernels(pipe, frame, report):
               f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms "
               f"({k['bound_by']}: {bytes_} bytes); device time alone "
               f"(profiler): kernel {k['device_ms']:.4f} ms, library "
-              f"{device_ms(library):.4f} ms")
+              f"{device_ms(lib):.4f} ms")
     report.append(rows[nets.shape[0]])
     print(f"  mlp_run (bf16 kind): each of the {len(layers)} layers alone "
           f"within {MLP_LAYER_TOL:g} x max|out| of its plain version; each "
@@ -437,10 +453,25 @@ def check_kernels(pipe, frame, report):
           f"{n_k:g} CUDA launches a call")
 
 
+def run_costs(layers, x):
+    """(bytes, operations) of the given packed lifter layers as ONE run
+    launch on the rows x [M, K]: x read once, the last layer's M rows
+    written once, every weight, scale and bias read once (what the function
+    must move: the activations between its layers are its own); 2 M K N
+    operations a layer."""
+    from mpe3d_tpu_torch.ops.fused_mlp import layer_shape
+    M = x.shape[0]
+    shapes = [layer_shape(layer) for layer in layers]
+    bytes_ = (4 * x.numel() + 4 * M * shapes[-1][1]
+              + sum(t.numel() * t.element_size()
+                    for layer in layers for t in layer))
+    return bytes_, sum(2 * M * K * N for K, N in shapes)
+
+
 def mlp_costs(layers, M):
-    """(bytes, operations) of the given packed lifter layers on M rows: each
-    layer's input rows, weights, scales and bias read once, its output
-    written once; 2 M K N operations a layer."""
+    """(bytes, operations) of the given packed lifter layers on M rows as a
+    launch a layer: each layer's input rows, weights, scales and bias read
+    once, its output written once; 2 M K N operations a layer."""
     from mpe3d_tpu_torch.ops.fused_mlp import layer_shape
     bytes_ = flops = 0
     for layer in layers:
@@ -454,7 +485,7 @@ def mlp_costs(layers, M):
 def check_int8_layers(label, lifter, x):
     """Each int8 layer of ``lifter`` on the input the serving path gives it
     (the plain version's output of the layer before) through the run kernel
-    (``int8_layer_matmul``: a run of the one layer a group of at most 16
+    (``int8_layer_matmul``: a run of the one layer a group of at most 64
     rows) against its plain version; returns the layers' inputs."""
     import torch
     from mpe3d_tpu_torch.ops import fused_mlp, quant_matmul
@@ -528,7 +559,7 @@ def check_int8_kernels(pipe, frame, int8_lifter, compact_lifter, report,
                        bf16_ms):
     """Phase 3, the int8 layer kind of the run kernel: each int8 layer of
     the pan_irls and pan_compact lifters on the serving path's inputs (M=8
-    lifter rows of a random-matcher frame) and at M=40 (three runs a
+    lifter rows of a random-matcher frame) and at M=40 (one run a
     layer); ``int8_weight_matmul`` on row-major weights at M=40; the whole
     mixed nets (8 int8 layers and a bf16 head, one launch) against their
     plain versions at M=8 and M=16, two launches bit-equal.  Two report
@@ -599,10 +630,6 @@ def check_int8_kernels(pipe, frame, int8_lifter, compact_lifter, report,
     body = layers[:-1]
     acts = [True] * len(body)
     label, library = int8_yardstick(body, slope)
-    bytes_, flops = mlp_costs(body, M)
-    t_b, t_f = bytes_ / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS
-    bound_ms = 1e3 * max(t_b, t_f)
-    bound_by = "bytes" if t_b > t_f else "operations"
     one_run = lambda: fused_mlp.run_layers(nets, body, slope, acts)  # noqa
     alone = lambda: [quant_matmul.int8_layer_matmul(h, layer, slope)  # noqa
                      for h, layer in inputs]
@@ -610,11 +637,17 @@ def check_int8_kernels(pipe, frame, int8_lifter, compact_lifter, report,
     plain_alone = lambda: [fused_mlp.layer_plain(h, layer, slope, True)  # noqa
                            for h, layer in inputs]
     lib = lambda: library(nets)  # noqa: E731
-    rows = []
-    for replaces, kernel, plain in (
-            ("mpe3d_tpu/ops/fused_mlp.py:80", one_run, plain_run),
-            ("mpe3d_tpu/ops/quant_matmul.py:73", alone, plain_alone)):
+    rows, bounds = [], []
+    for replaces, kernel, plain, (bytes_, flops) in (
+            ("mpe3d_tpu/ops/fused_mlp.py:80", one_run, plain_run,
+             run_costs(body, nets)),
+            ("mpe3d_tpu/ops/quant_matmul.py:73", alone, plain_alone,
+             mlp_costs(body, M))):
         ms, lib_ms = in_turns(kernel, lib)
+        t_b, t_f = bytes_ / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS
+        bound_ms = 1e3 * max(t_b, t_f)
+        bound_by = "bytes" if t_b > t_f else "operations"
+        bounds.append(f"{bound_ms:.5f} ms ({bound_by}: {bytes_} bytes)")
         rows.append({
             "name": "mlp_run", "route": "cuda",
             "source": "mpe3d_tpu_torch/csrc/fused_mlp.cu",
@@ -630,13 +663,13 @@ def check_int8_kernels(pipe, frame, int8_lifter, compact_lifter, report,
     clayers = compact_lifter.packed_layers()
     c_run = lambda: fused_mlp.run_layers(  # noqa: E731
         nets, clayers[:-1], slope, [True] * (len(clayers) - 1))
-    c_bytes, _ = mlp_costs(clayers[:-1], M)
+    c_bytes, _ = run_costs(clayers[:-1], nets)
     print(f"  mlp_run (int8 kind): pan_irls, its 8 int8 layers as one run on "
           f"{M} rows: {a['ms']:.4f} ms, device {a['device_ms']:.4f} ms; "
           f"each a run of one layer (int8_layer_matmul, 8 launches): "
           f"{b['ms']:.4f} ms, device {b['device_ms']:.4f} ms; plain "
           f"{a['plain_ms']:.4f} / {b['plain_ms']:.4f} ms; bound "
-          f"{bound_ms:.5f} ms ({bound_by}: {bytes_} bytes); library ({label},"
+          f"{bounds[0]} / {bounds[1]}; library ({label},"
           f" 8 chained) {a['library_ms']:.4f} / {b['library_ms']:.4f} ms (in "
           f"turns), device {device_ms(lib):.4f} ms; whole int8 net (one "
           f"launch) {median_ms(net_run):.4f} ms, device "
@@ -1380,7 +1413,7 @@ def run_main_path(gpu, cpu, frames, label):
 
 def frame_stage_times(pipe, frame):
     """Host ms of each stage of one frame-path frame, each stage ended by a
-    device synchronize (mirrors PoseEstimationPipeline._run_frame; the
+    device synchronize (mirrors PoseEstimationPipeline._run_frames; the
     scatter of pruned scores back to the bucket's pairs is left out)."""
     import torch
     from mpe3d_tpu_torch.ops.frame_kernel import frame_decode_pack
@@ -1398,7 +1431,8 @@ def frame_stage_times(pipe, frame):
     with torch.inference_mode():
         S, args = pipe._frame_tensors(frame)
         mark("upload")
-        x, pw, gtopo, pairs, _ = pipe._gat_inputs(S, *args)
+        x, pw, gtopo, pairs, _ = pipe._gat_inputs(
+            S, *(a[None] for a in args), pipe.pair_prune_dist > 0)
         mark("features" + (" + prune" if pipe.pair_prune_dist > 0 else ""))
         scores = pipe._scores(pipe._bucket_state(S), x, pw, gtopo)
         mark("gat")
@@ -1541,12 +1575,12 @@ def pick_gate(qualities):
     return round(float(q[i] + q[i + 1]) / 2, 2), float(gaps[i]) / 2
 
 
-def serve_stdio(lines, depth, gate):
-    """``python3 -m mpe3d_tpu_torch serve`` on the card as a subprocess fed
-    ``lines``: (records, stderr)."""
+def serve_stdio(lines, depth, gate, *extra):
+    """``python3 -m mpe3d_tpu_torch serve`` (with the options ``extra``)
+    on the card as a subprocess fed ``lines``: (records, stderr)."""
     cmd = [sys.executable, "-m", "mpe3d_tpu_torch", "serve", "--modelsdir",
            DEMO, "--depth", str(depth), "--track", "--quality-gate",
-           repr(gate), "--warmup"]
+           repr(gate), "--warmup", *extra]
     proc = subprocess.run(cmd, input="\n".join(lines) + "\n",
                           capture_output=True, text=True, cwd=ROOT,
                           timeout=SERVE_TIMEOUT_S)
@@ -1778,6 +1812,408 @@ def time_parser(lines, rig_config):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3 additions: the run kernel past 16 rows, the decode over a batch
+
+RUN_ROWS = (16, 32, 64, 50)   # the whole nets' row counts (50: ragged)
+BATCH_DECODE = 8              # frames of the S=4 batched decode check
+BATCH_DECODE16 = 6            # frames of the S=16 one (the union's limit)
+
+
+def run_rows_input(nets, M, seed):
+    """M lifter rows from the serving path's rows: repeated, each scaled by
+    a numpy-seeded factor in [0.5, 1.5)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    reps = -(-M // nets.shape[0])
+    x = nets.float().repeat(reps, 1)[:M]
+    return (x * torch.tensor(rng.uniform(0.5, 1.5, (M, 1)),
+                             dtype=torch.float32,
+                             device=nets.device)).contiguous()
+
+
+def check_run_rows(label, lifter, nets, report, replaces, library_of):
+    """Phase 3: the whole net of ``lifter`` as ONE launch of the run kernel
+    at M = 16, 32, 64 and 50 rows against ``run_plain`` (MLP_NET_TOL), two
+    launches bit-equal; each M timed; the M=64 launch's device time in
+    turns against the four M=16 launches it replaces (M=64, 4 x M=16,
+    4 x M=16, M=64 in one call), which must be shorter.  Appends the M=64
+    row (the batch path's row group) to ``report``.  Returns
+    (ms by M, device ms by M, (M=64 device ms, 4 x M=16 device ms))."""
+    import torch
+    from mpe3d_tpu_torch.ops import fused_mlp
+    layers = lifter.packed_layers()
+    if fused_mlp.launch_plan(layers) != [("run", 0, len(layers))]:
+        raise AssertionError(f"{label}: the lifter is not one run")
+    slope = lifter.cfg.negative_slope
+    acts = [i < len(layers) - 1 for i in range(len(layers))]
+    ms, dev, errs, xs = {}, {}, {}, {}
+    for M in RUN_ROWS:
+        x = xs[M] = run_rows_input(nets, M, M)
+        run = lambda x=x: fused_mlp.mlp_run(x, layers, slope, acts)  # noqa
+        before = fused_mlp.mlp_run.launches
+        got, again = run(), run()
+        ref = fused_mlp.run_plain(x, layers, slope, acts)
+        torch.cuda.synchronize()
+        err = errs[M] = float((got - ref).abs().max())
+        if not (bool(torch.isfinite(got).all()) and err <= MLP_NET_TOL):
+            raise AssertionError(f"{label} run, M={M}: max err {err:.3g} > "
+                                 f"{MLP_NET_TOL}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label} run, M={M}: two launches differ")
+        if fused_mlp.mlp_run.launches - before != 2:
+            raise AssertionError(f"{label} run, M={M}: not one launch a call")
+        ms[M], dev[M] = median_ms(run, 20), device_ms(run)
+    x64 = xs[64]
+    one = lambda: fused_mlp.mlp_run(x64, layers, slope, acts)  # noqa: E731
+    four = lambda: [fused_mlp.mlp_run(x64[i:i + 16], layers, slope,  # noqa
+                                      acts) for i in range(0, 64, 16)]
+    turns = [device_ms(f) for f in (one, four, four, one)]
+    d64, d4x16 = (statistics.median([turns[0], turns[3]]),
+                  statistics.median([turns[1], turns[2]]))
+    if not d64 < d4x16:
+        raise AssertionError(f"{label}: the M=64 launch's device time "
+                             f"{d64:.4f} ms is not below four M=16 launches' "
+                             f"{d4x16:.4f} ms")
+    bytes_, flops = run_costs(layers, x64)
+    t_b, t_f = bytes_ / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS
+    lib_label, library = library_of(layers, slope)
+    k_ms, lib_ms = in_turns(one, lambda: library(x64))
+    report.append({
+        "name": "mlp_run", "route": "cuda",
+        "source": "mpe3d_tpu_torch/csrc/fused_mlp.cu", "replaces": replaces,
+        "launches": 0, "max_abs_err": max(errs.values()), "ms": k_ms,
+        "plain_ms": median_ms(lambda: fused_mlp.run_plain(x64, layers, slope,
+                                                          acts), 5),
+        "bound_ms": 1e3 * max(t_b, t_f),
+        "bound_by": "bytes" if t_b > t_f else "operations",
+        "library_ms": lib_ms, "device_ms": dev[64], "case": "M=64",
+        "path": "batch"})
+    print(f"  mlp_run ({label}), the whole net as one launch against "
+          f"run_plain: max err "
+          + ", ".join(f"M={M} {errs[M]:.3g}" for M in RUN_ROWS)
+          + f" (tol {MLP_NET_TOL:g}), two launches bit-equal; ms / device "
+          f"ms: " + ", ".join(f"M={M} {ms[M]:.4f} / {dev[M]:.4f}"
+                              for M in RUN_ROWS)
+          + f"; in turns (M=64, 4 x M=16, 4 x M=16, M=64) device ms "
+          + ", ".join(f"{t:.4f}" for t in turns)
+          + f": M=64 {d64:.4f} against 4 x M=16 {d4x16:.4f}; bound at M=64 "
+          f"{report[-1]['bound_ms']:.5f} ms ({report[-1]['bound_by']}); "
+          f"library ({lib_label}) {lib_ms:.4f} ms in turns with "
+          f"{k_ms:.4f}", flush=True)
+    return ms, dev, (d64, d4x16)
+
+
+def bf16_library(layers, slope):
+    """The bf16 nets' PyTorch yardstick: chained bf16 ``torch.matmul``."""
+    import torch
+    wb = [w.to(torch.bfloat16) for w, _ in layers]
+
+    def run(x):
+        hb = x.to(torch.bfloat16)
+        for w in wb:
+            hb = torch.matmul(hb, w)
+        return hb
+    return f"{len(wb)} chained bf16 torch.matmul", run
+
+
+def int8_net_library(layers, slope):
+    """The int8 nets' yardstick: ``int8_yardstick`` on the int8 layers,
+    then the bf16 head as a bf16 ``torch.matmul``."""
+    import torch
+    label, body = int8_yardstick(layers[:-1], slope)
+    head = layers[-1].w.to(torch.bfloat16)
+    return (f"{label}, and a bf16 torch.matmul head",
+            lambda x: torch.matmul(body(x).to(torch.bfloat16), head))
+
+
+def check_int8_rows64(lifter, nets, report):
+    """Phase 3: ``int8_layer_matmul`` on each int8 layer at M=64 (one run
+    launch a layer: the 64-row groups), against its plain version."""
+    import torch
+    from mpe3d_tpu_torch.ops import fused_mlp, quant_matmul
+    slope = lifter.cfg.negative_slope
+    x = run_rows_input(nets, 64, 64)
+    inputs, h, worst = [], x, 0.0
+    for layer in lifter.packed_layers()[:-1]:
+        before = fused_mlp.mlp_run.launches
+        y = quant_matmul.int8_layer_matmul(h, layer, slope)
+        ref = fused_mlp.layer_plain(h, layer, slope, True)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        tol = MLP_LAYER_TOL * max(1.0, float(ref.abs().max()))
+        if not (err <= tol and fused_mlp.mlp_run.launches - before == 1):
+            raise AssertionError(f"int8 layer at M=64: max err {err:.3g} > "
+                                 f"{tol:.3g}, or not one launch")
+        worst = max(worst, err)
+        inputs.append((h, layer))
+        h = ref
+    alone = lambda: [quant_matmul.int8_layer_matmul(a, layer, slope)  # noqa
+                     for a, layer in inputs]
+    plain = lambda: [fused_mlp.layer_plain(a, layer, slope, True)  # noqa
+                     for a, layer in inputs]
+    label, library = int8_yardstick([layer for _, layer in inputs], slope)
+    bytes_, flops = mlp_costs([layer for _, layer in inputs], 64)
+    t_b, t_f = bytes_ / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS
+    k_ms, lib_ms = in_turns(alone, lambda: library(x))
+    report.append({
+        "name": "mlp_run", "route": "cuda",
+        "source": "mpe3d_tpu_torch/csrc/fused_mlp.cu",
+        "replaces": "mpe3d_tpu/ops/quant_matmul.py:73", "launches": 0,
+        "max_abs_err": worst, "ms": k_ms, "plain_ms": median_ms(plain, 5),
+        "bound_ms": 1e3 * max(t_b, t_f),
+        "bound_by": "bytes" if t_b > t_f else "operations",
+        "library_ms": lib_ms, "device_ms": device_ms(alone), "case": "M=64",
+        "path": "batch"})
+    print(f"  int8_layer_matmul, the 8 int8 layers of pan_irls each alone "
+          f"at M=64 (one launch a layer): max err {worst:.3g}, "
+          f"{k_ms:.4f} ms, device {report[-1]['device_ms']:.4f} ms, library "
+          f"({label}) {lib_ms:.4f} ms in turns", flush=True)
+
+
+def batch_frame_costs(args, kw, out):
+    """``frame_costs`` summed over the frames of a batched call."""
+    from mpe3d_tpu_torch.ops.frame_kernel import FrameOutputs
+    P, bytes_, ops = kw["P"], 0, 0
+    shared = (2, 3, 8, 9)
+    for b in range(args[0].shape[0]):
+        fargs = tuple(a if i in shared else a[b] for i, a in enumerate(args))
+        fout = FrameOutputs(*(t[b * P:(b + 1) * P] for t in out))
+        nb, no = frame_costs(fargs, kw, fout)
+        bytes_, ops = bytes_ + nb, ops + no
+    return bytes_, ops
+
+
+def check_batch_decode(pipe4, frames4, pipe16, frames16, report):
+    """Phase 3: the decode + gather + pack kernel over a batch (a block a
+    frame) against its plain version (frame by frame) on the inputs the
+    batch path gives it: 8 S=4 frames (the pipeline's prior, and the IRLS
+    prior with the gate), 6 S=16 frames (the "mean" prior: the trained
+    matcher's crowded groups, as phase 5); persons, masks and gathered rows
+    exactly equal, the lifter rows to FIELD_TOL / PRIOR_TOL.  Appends the
+    B=8 row."""
+    import torch
+    from mpe3d_tpu_torch.ops import frame_kernel as fk
+    cases = (("S=4", pipe4, frames4[:BATCH_DECODE],
+              [(None, None), ("irls", 8.0)]),
+             ("S=16", pipe16, frames16[:BATCH_DECODE16], [("mean", None)]))
+    errs, row = [], None
+    for label, pipe, frames, priors in cases:
+        _, (args, kw) = pipe.union_stage_inputs(frames)
+        for prior, gate in priors:
+            k = dict(kw, prior=prior or kw["prior"], gate_px=gate)
+            before = fk.frame_decode_pack.launches
+            got = fk.frame_decode_pack(*args, **k)
+            ref = fk.frame_decode_pack_plain(*args, **k)
+            ungated = fk.frame_decode_pack_plain(*args, **dict(k,
+                                                               gate_px=None))
+            torch.cuda.synchronize()
+            if fk.frame_decode_pack.launches - before != 1:
+                raise AssertionError("the batched decode is not one launch")
+            rig = fk.rig_from_consts(args[8], args[9])
+            err, flips, near = compare_frame_outputs(got, ref, ungated, k,
+                                                     rig)
+            errs.append(err)
+            print(f"  frame_decode_pack over {len(frames)} {label} frames "
+                  f"(one launch, a block a frame), prior={k['prior']} "
+                  f"gate={gate}: persons {int(ref.person_mask.sum())}, "
+                  f"persons/gathers equal to the plain loop, net max |d| "
+                  f"{err:.3g}, {flips} ok flags differ ({near} near the "
+                  f"gate)", flush=True)
+        if row is None:
+            call = lambda a=args, k=kw: fk.frame_decode_pack(*a, **k)  # noqa
+            out = call()
+            bytes_, ops = batch_frame_costs(args, kw, out)
+            t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops / FP32_FLOPS
+            ms, dev = median_ms(call), device_ms(call)
+            row = {"name": "frame_decode_pack", "route": "cuda",
+                   "source": "mpe3d_tpu_torch/csrc/frame_decode_pack.cu",
+                   "replaces": "mpe3d_tpu/ops/frame_kernel.py:358",
+                   "launches": 0, "max_abs_err": 0.0, "ms": ms,
+                   "plain_ms": median_ms(lambda a=args, k=kw:
+                                         fk.frame_decode_pack_plain(*a, **k),
+                                         5),
+                   "bound_ms": 1e3 * max(t_b, t_o),
+                   "bound_by": "bytes" if t_b > t_o else "operations",
+                   "library_ms": None, "device_ms": dev,
+                   "case": f"B={len(frames)}, S=4", "path": "batch"}
+    row["max_abs_err"] = max(errs)
+    report.append(row)
+    print(f"  frame_decode_pack B={BATCH_DECODE} S=4: {row['ms']:.4f} ms, "
+          f"device {row['device_ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+          f"ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']})",
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the batch and staged paths
+
+N_BATCH_TIMED = 8        # frames of the timed infer_batch
+STAGED_FRAMES = 6        # frames of each staged check
+
+
+def expected_batch_launches(pipe, frames):
+    """Kernel launches ``infer_batch`` gives these frames (``batch_plan``):
+    a chunk is one GAT call of the bucket's form, one decode launch, and a
+    run launch a group of 64 lifter rows for each run of the lifter."""
+    from mpe3d_tpu_torch.ops.fused_mlp import MAX_ROWS, launch_plan
+    want = dict.fromkeys(launch_counters(), 0)
+    S = pipe._batch_slots(frames)
+    plan = pipe.batch_plan(S, len(frames))
+    if not plan.union:
+        raise AssertionError(f"S={S}: the batch is not on the batch body")
+    form, n_gat, P = pipe._bucket_state(S).form, len(pipe.matcher.dims), \
+        pipe._p_max(S)
+    runs = [k for k, _, _ in launch_plan(pipe.lifter.packed_layers())
+            ].count("run")
+    for m in plan.chunks:
+        if form == "stack":
+            want["gat_stack"] += 1
+        else:
+            want["gat_k1"] += n_gat
+            want["gat_k2"] += n_gat - 1
+        want["frame_decode_pack"] += 1
+        want["mlp_run"] += runs * -(-m * P // MAX_ROWS)
+    return want, plan
+
+
+def compare_outputs(got, ref, label, score_tol=SCORE_TOL,
+                    pose_tol=POSE_TOL_M):
+    """Frame outputs against reference outputs: persons equal (int32),
+    scores and poses within tolerance; returns (persons, max |d score|,
+    max |d pose|)."""
+    import numpy as np
+    n = ds = dp = 0
+    for i, (o, r) in enumerate(zip(got, ref)):
+        for a in (o.poses, o.scores, o.quality):
+            if not np.isfinite(a).all():
+                raise AssertionError(f"{label} frame {i}: non-finite output")
+        if not np.array_equal(o.persons, r.persons):
+            raise AssertionError(f"{label} frame {i}: persons differ:\n"
+                                 f"{o.persons}\n{r.persons}")
+        if o.scores.size:
+            ds = max(ds, float(np.abs(o.scores - r.scores).max()))
+        if len(o.poses):
+            dp = max(dp, float(np.abs(o.poses - r.poses).max()))
+        n += len(o.persons)
+    if len(got) != len(ref) or ds > score_tol or dp > pose_tol:
+        raise AssertionError(f"{label}: {len(got)} / {len(ref)} frames, max "
+                             f"|d score| {ds:.3g} (tol {score_tol}), max "
+                             f"|d pose| {dp:.3g} m (tol {pose_tol})")
+    return n, ds, dp
+
+
+def run_batch_path(gpu, cpu, frames, label):
+    """``infer_batch`` of the frames on the card: its launches as
+    ``batch_plan`` gives them (the counts set to 0 just before, read just
+    after), persons equal to the card's ``infer_fused`` and the CPU's
+    ``infer_batch``, scores within SCORE_TOL, poses within POSE_TOL_M;
+    ``submit_batch`` raises no sync error.  Returns the launches."""
+    import torch
+    want, plan = expected_batch_launches(gpu, frames)
+    gpu.infer_batch(frames[:2])                    # plans and tables
+    gpu.infer_batch(frames)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ticket = gpu.submit_batch(frames)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    gpu.collect_batch(ticket)
+    reset_launches()
+    outs = gpu.infer_batch(frames)
+    launches = read_launches()
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want}")
+    single = [gpu.infer_fused(f) for f in frames]
+    n, ds1, dp1 = compare_outputs(outs, single, f"{label}, against "
+                                  f"infer_fused on the card")
+    _, ds2, dp2 = compare_outputs(outs, cpu.infer_batch(frames),
+                                  f"{label}, against the CPU's infer_batch")
+    print(f"  {label}: {len(frames)} frames, plan {plan.chunks}, launches "
+          f"{ {k: v for k, v in launches.items() if v} }, {n} persons; "
+          f"submit_batch raised no sync error; against infer_fused on the "
+          f"card max |d score| {ds1:.3g}, |d pose| {dp1:.3g} m; against the "
+          f"CPU's infer_batch {ds2:.3g}, {dp2:.3g} m", flush=True)
+    return launches
+
+
+def check_staged(gpu_of, frames):
+    """``pipe(frame)`` on the card against the CPU: host decode, device
+    decode, the triangulation backend (median, IRLS) and geo rerank; the
+    random matcher (live persons at S=4).  ``gpu_of(device, **kw)`` builds
+    the pipeline.  Returns {case: (persons, max |d score|, max |d pose|)}."""
+    cases = {"host decode": {}, "device decode": dict(decode_on_device=True),
+             "triangulation median": dict(backend="triangulation"),
+             "triangulation irls": dict(backend="triangulation",
+                                        tri_variant="irls"),
+             "geo rerank 0.3": dict(geo_rerank=0.3)}
+    out = {}
+    for name, kw in cases.items():
+        gpu, cpu = gpu_of(GPU, **kw), gpu_of("cpu", **kw)
+        got = [gpu(f) for f in frames]
+        out[name] = compare_outputs(got, [cpu(f) for f in frames],
+                                    f"staged, {name}")
+        if name == "geo rerank 0.3":
+            fused = [gpu.infer_fused(f) for f in frames]
+            compare_outputs(fused, [cpu.infer_fused(f) for f in frames],
+                            "geo rerank 0.3, infer_fused (eager path)")
+    print("  staged pipe(frame) on the card against the CPU, "
+          f"{len(frames)} S=4 frames, random matcher: "
+          + "; ".join(f"{k}: {n} persons, max |d score| {ds:.3g}, max "
+                      f"|d pose| {dp:.3g} m" for k, (n, ds, dp)
+                      in out.items()), flush=True)
+    return out
+
+
+def check_stdio_batch(wire4, wire10, gate):
+    """``serve --batch-window 4`` over stdio on the card: records equal to
+    ``--batch-window 1`` on the same lines (control lines flush the
+    window); poses to POSE_TOL_M, quality to tolerance.  Returns the
+    windows' median latency_ms."""
+    lines = ([json.dumps(f) for f in wire4 + wire10] + ['{"cmd": "stats"}']
+             + [json.dumps(f) for f in wire10] + ['{"cmd": "close"}'])
+    recs = {w: serve_stdio(lines, 3, gate, "--batch-window", str(w),
+                           "--batch-linger-ms", "20")[0] for w in (4, 1)}
+    n, dp, dq = compare_records(
+        [{k: v for k, v in r.items() if k != "batch_window"}
+         for r in recs[4]], recs[1], "stdio serve --batch-window 4")
+    lat = {w: statistics.median(r["latency_ms"] for r in recs[w]
+                                if "latency_ms" in r) for w in recs}
+    print(f"  serve --batch-window 4 over stdio on the card: "
+          f"{len(recs[4])} records equal to --batch-window 1 ({n} frames "
+          f"with kept poses), max |d pose| {dp:.3g} m, max |d quality| "
+          f"{dq:.3g} px; median latency_ms window 4 {lat[4]:.3f}, window 1 "
+          f"{lat[1]:.3f}", flush=True)
+    return lat
+
+
+def batch_fps(gpu, frames):
+    """Frames per second of ``infer_batch`` of N_BATCH_TIMED frames against
+    the ``infer_fused`` loop on the same frames, in turns (loop, batch,
+    batch, loop), and the CUDA launches of one batch (profiler)."""
+    import torch
+    frames = frames[:N_BATCH_TIMED]
+
+    def fps(fn, reps=4):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return reps * len(frames) / (time.perf_counter() - t0)
+
+    loop = lambda: [gpu.infer_fused(f) for f in frames]  # noqa: E731
+    batch = lambda: gpu.infer_batch(frames)  # noqa: E731
+    turns = [fps(f) for f in (loop, batch, batch, loop)]
+    dev, n_k = device_profile(batch, 10)
+    dev_loop, n_loop = device_profile(loop, 10)
+    return turns, (dev, n_k), (dev_loop, n_loop)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1878,6 +2314,14 @@ def main() -> int:
                        "S=16, trained matcher": (x16, pw16, stack16,
                                                  trained16.matcher)}, report)
     check_frame_kernel(gpu_r, frames[0], trained16, frames16[0], report)
+    nets8 = gpu_r.stage_inputs(frames[0])[3]
+    _, _, run_turns = check_run_rows(
+        "bf16, pan_irls_bf16", gpu_r.lifter, nets8, report,
+        "mpe3d_tpu/ops/fused_mlp.py:57", bf16_library)
+    check_run_rows("int8, pan_irls", irls_gpu.lifter, nets8, report,
+                   "mpe3d_tpu/ops/fused_mlp.py:80", int8_net_library)
+    check_int8_rows64(irls_gpu.lifter, nets8, report)
+    check_batch_decode(gpu_r, frames, trained16, frames16, report)
     check_tiled_kernels(
         {(m, S, prune): trained16 if (m, S, prune) == ("trained", 16, False)
          else pipeline(matchers[m], GPU, slots=(S,), persons=(16,),
@@ -2052,6 +2496,62 @@ def main() -> int:
     phase("serve path", t0, "python -m mpe3d_tpu_torch serve over stdio "
           "(reload included) and two concurrent TCP clients on pan_res agree "
           "with the CPU; infer_stream is bit-equal to infer_fused")
+
+    t0 = time.perf_counter()
+    iltree, ilcfg, iprior = load_lifter(DEMO_INT8, rig_config)
+    pairs = {"pan_irls_bf16": (ltree, lcfg, prior),
+             "pan_irls (int8)": (iltree, ilcfg, iprior)}
+    batch_runs = {}
+    for (pname, (lt, lc, pr)), mlabel, (blabel, kw, bframes) in (
+            (p, m, b) for p in pairs.items() for m in matchers
+            for b in (("S=4", dict(slots=(4,), persons=(8,)), frames),
+                      ("S=10", dict(slots=(2, 4, 10), persons=(4, 8, 16),
+                                    lifter_prior=CROWDED_PRIOR), frames10))):
+        kw = {"lifter_prior": pr, **kw, "lifter": (lt, lc)}
+        batch_runs[pname, mlabel, blabel] = run_batch_path(
+            pipeline(matchers[mlabel], GPU, **kw),
+            pipeline(matchers[mlabel], "cpu", True, **kw), bframes,
+            f"infer_batch, {pname}, {mlabel} matcher, {len(bframes)} "
+            f"{blabel} frames")
+    staged = check_staged(
+        lambda device, **kw: pipeline(rtree, device, **kw),
+        frames[:STAGED_FRAMES])
+    batch_lat = check_stdio_batch(wire4, wire10, gate)
+    fps_turns, (b_dev, b_n), (l_dev, l_n) = batch_fps(pipeline(rtree, GPU),
+                                                      frames)
+    print(f"  lifter run kernel, device ms in turns: one M=64 launch "
+          f"{run_turns[0]:.4f} against four M=16 launches {run_turns[1]:.4f} "
+          f"(bf16 pair; {smi})")
+    print(f"  frames per second, {N_BATCH_TIMED} S=4 frames x 4, random "
+          f"matcher, in turns: infer_fused loop {fps_turns[0]:.1f}, "
+          f"infer_batch(B={N_BATCH_TIMED}) {fps_turns[1]:.1f}, "
+          f"{fps_turns[2]:.1f}, infer_fused loop {fps_turns[3]:.1f}; under "
+          f"the profiler a batch is {b_n:g} CUDA launches and {b_dev:.4f} "
+          f"ms of device time, the loop {l_n:g} launches and {l_dev:.4f} ms "
+          f"({smi})", flush=True)
+    # each batch row's launches from the batch run of its pair (random
+    # matcher, S=4: live persons)
+    batch_src = {"mpe3d_tpu/ops/fused_mlp.py:57":
+                 batch_runs["pan_irls_bf16", "random", "S=4"],
+                 "mpe3d_tpu/ops/frame_kernel.py:358":
+                 batch_runs["pan_irls_bf16", "random", "S=4"],
+                 "mpe3d_tpu/ops/fused_mlp.py:80":
+                 batch_runs["pan_irls (int8)", "random", "S=4"],
+                 "mpe3d_tpu/ops/quant_matmul.py:73":
+                 batch_runs["pan_irls (int8)", "random", "S=4"]}
+    for k in report:
+        if k.get("path") == "batch":
+            k["launches"] = batch_src[k["replaces"]][k["name"]]
+    missing = [k["name"] for k in report if not k["launches"]]
+    if missing:
+        raise AssertionError(f"kernels never launched on their path: "
+                             f"{missing}")
+    phase("batch and staged paths", t0,
+          f"infer_batch on the card agrees with infer_fused and the CPU for "
+          f"both pairs and matchers at S=4 and S=10; the staged path "
+          f"({', '.join(staged)}) agrees with the CPU; serve --batch-window "
+          f"4 equals --batch-window 1 (median latency_ms "
+          f"{batch_lat[4]:.3f} / {batch_lat[1]:.3f})")
 
     # a device time the profiler did not record is not measured: null
     for k in report:

@@ -5,9 +5,15 @@ Port of the serving subcommands of ``mpe3d_tpu/cli.py`` (``load_rig``
 ``cmd_serve`` :520, the parser :884-1274)::
 
     python -m mpe3d_tpu_torch serve --modelsdir models_demo/pan_irls_bf16 \\
-        [--tcp PORT] [--depth 3] [--track] [--quality-gate PX] [--warmup]
+        [--tcp PORT] [--depth 3] [--track] [--quality-gate PX] [--warmup] \\
+        [--batch-window N] [--batch-linger-ms MS]
     python -m mpe3d_tpu_torch infer --modelsdir DIR --testfiles f.json \\
-        [--stream 3] [--out poses.json]
+        [--stream 3 | --batch] [--out poses.json]
+
+``--backend triangulation`` (with ``--tri-variant median|irls``) and the
+geometric decode options (``--geo-rerank``, ``--geo-rescue``,
+``--geo-rescue-dist``) serve through the eager path; a rig with one
+matching camera through the staged path's single-camera bypass.
 
 Both run on the CUDA card, or with ``--cpu`` on the CPU through the
 kernels' plain versions; without a card and without ``--cpu`` they fail.
@@ -39,28 +45,15 @@ def _refuse(what: str, where: str) -> None:
 
 def _refuse_unported(args) -> None:
     """Exit with a message for every option the port does not have."""
-    item6 = "ROADMAP.md section 1, item 6"
     if args.rig not in RIGS:
         _refuse(f"--rig {args.rig}", "ROADMAP.md section 1, item 3")
-    if getattr(args, "backend", "mlp") != "mlp":
-        _refuse(f"--backend {args.backend}",
-                f"the triangulation backend, {item6}")
-    if args.geo_rerank or args.geo_rescue:
-        _refuse("--geo-rerank / --geo-rescue",
-                f"geometric rerank and rescue, {item6}")
-    if args.tri_variant != "median":
-        _refuse(f"--tri-variant {args.tri_variant}",
-                f"the triangulation backend, {item6}")
     if args.no_pallas_matcher or args.fused_mlp:
         _refuse("--no-pallas-matcher / --fused-mlp (TPU kernel switches)",
                 "they have no meaning in the port: its kernels serve "
                 "every path")
     if getattr(args, "multi_device", False):
-        _refuse("--multi-device", f"multi-device serving, {item6}; not "
-                f"applicable on one card")
-    if getattr(args, "batch_window", 1) > 1 or getattr(args, "batch", False):
-        _refuse("micro-batching (--batch-window > 1, --batch)",
-                f"submit_batch and infer_batch, {item6}")
+        _refuse("--multi-device", "multi-device serving, ROADMAP.md section "
+                "1, item 6; not applicable on one card")
 
 
 def load_rig(args):
@@ -151,7 +144,9 @@ def build_pipeline(args):
         pair_prune_dist=args.pair_prune_dist,
         pair_prune_cap=args.pair_prune_cap,
         use_frame_kernel=False if args.no_frame_kernel else None,
-        device=device)
+        device=device, backend=args.backend, tri_variant=args.tri_variant,
+        geo_rerank=args.geo_rerank, geo_rescue=args.geo_rescue,
+        geo_rescue_dist=args.geo_rescue_dist)
     return rig_config, rig, pipe
 
 
@@ -172,21 +167,24 @@ def _make_tracker(args):
 def cmd_infer(args) -> None:
     """Wire-format JSON files -> one JSON list of {frame, n_persons,
     persons, quality_px, poses_m} (and track_ids with --track), through
-    ``infer_stream`` with ``--stream`` frames in flight."""
+    ``infer_stream`` with ``--stream`` frames in flight, or ``infer_batch``
+    with ``--batch``; with one matching camera, the staged path's bypass."""
     from mpe3d_tpu_torch.data.frames import parse_frames_file
     from mpe3d_tpu_torch.serve import gate_and_track
 
     rig_config, _, pipe = build_pipeline(args)
-    if len(pipe.match_idx) <= 1:
-        _refuse("a rig with at most one matching camera",
-                "the staged single-camera bypass, ROADMAP.md section 1, "
-                "item 6")
     fas = []
     for p in args.testfiles:
         fas.extend(parse_frames_file(p, rig_config, args.max_skeletons))
+    if len(pipe.match_idx) <= 1:
+        outs = [pipe(fa) for fa in fas]
+    elif args.batch:
+        outs = pipe.infer_batch(fas)
+    else:
+        outs = pipe.infer_stream(fas, depth=max(args.stream, 1))
     tracker = _make_tracker(args)
     result = []
-    for i, o in enumerate(pipe.infer_stream(fas, depth=max(args.stream, 1))):
+    for i, o in enumerate(outs):
         poses, quality, persons, ids, dropped = gate_and_track(
             o.poses, o.quality, gate=args.quality_gate, tracker=tracker,
             persons=o.persons)
@@ -214,17 +212,31 @@ def cmd_serve(args) -> None:
     with ``--tcp``.  On exit, one stderr line says how many frame lines
     the C++ parser and the python parser read."""
     from mpe3d_tpu_torch import native
+    from mpe3d_tpu_torch.data.frames import FrameArrays
     from mpe3d_tpu_torch.serve import PoseServer, serve_tcp
 
     rig_config, _, pipe = build_pipeline(args)
     if args.warmup:
-        pipe.warmup()
+        pipe.warmup(fused=len(pipe.match_idx) > 1)
         native.load_library()
+    if args.warmup and args.batch_window > 1 and len(pipe.match_idx) > 1:
+        # the padded batch of each slot bucket once: its plans and tables
+        C, J = rig_config.n_cameras, rig_config.n_joints
+        for S in pipe.slot_buckets:
+            empty = FrameArrays(np.zeros((C, S, J, 2), np.float32),
+                                np.zeros((C, S, J), np.float32),
+                                np.zeros((C, S, J), np.float32),
+                                np.zeros((C, S, J), bool),
+                                np.zeros((C, S), bool), np.zeros(C))
+            pipe.collect_batch(pipe.submit_batch(
+                [empty], slots=S, pad_to=args.batch_window))
     # track state is per stream: every connection starts with fresh ids
     tracker_factory = (lambda: _make_tracker(args)) if args.track else None
     server = PoseServer(pipe, rig_config, max_skeletons=args.max_skeletons,
                         depth=args.depth, tracker_factory=tracker_factory,
-                        quality_gate=args.quality_gate)
+                        quality_gate=args.quality_gate,
+                        batch_window=args.batch_window,
+                        batch_linger_ms=args.batch_linger_ms)
     try:
         if args.tcp is not None:
             serve_tcp(server, host=args.host, port=args.tcp,
@@ -273,7 +285,8 @@ def _add_common(p) -> None:
     p.add_argument("--modelsdir", default="./models",
                    help="directory with the npz checkpoints")
     p.add_argument("--backend", choices=("mlp", "triangulation"),
-                   default="mlp", help="the port serves 'mlp'")
+                   default="mlp", help="3D backend: the learned lifter or "
+                   "the classical triangulation (eager path)")
     p.add_argument("--max-skeletons", type=int, default=10)
     p.add_argument("--serve-dtype", default="auto",
                    choices=tuple(SERVE_DTYPES),
@@ -292,14 +305,18 @@ def _add_common(p) -> None:
     p.add_argument("--no-frame-kernel", action="store_true",
                    help="serve through the eager path (decode and packing "
                    "in PyTorch) instead of the frame path")
-    # options of the JAX command line the port refuses (_refuse_unported)
     p.add_argument("--geo-rerank", type=float, default=0.0,
-                   help="not ported: refused unless 0")
+                   help="geometric decode rerank weight (0 = off; eager "
+                   "path)")
     p.add_argument("--geo-rescue", type=float, default=0.0,
-                   help="not ported: refused unless 0")
+                   help="geometric rescue low-score floor (0 = off; forces "
+                   "the uncapped decode; eager path)")
+    p.add_argument("--geo-rescue-dist", type=float, default=0.05,
+                   help="geometric rescue ray distance (m)")
     p.add_argument("--tri-variant", default="median",
                    choices=("median", "irls"),
-                   help="not ported: refused unless median")
+                   help="triangulator of --backend triangulation")
+    # options of the JAX command line the port refuses (_refuse_unported)
     p.add_argument("--no-pallas-matcher", action="store_true",
                    help="TPU switch, refused")
     p.add_argument("--fused-mlp", action="store_true",
@@ -321,7 +338,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--stream", type=int, default=3,
                    help="frames in flight (infer_stream depth)")
     p.add_argument("--batch", action="store_true",
-                   help="batched inference: not ported, refused")
+                   help="one batched submit (infer_batch) instead of "
+                   "streaming")
     _add_track_flags(p)
     p.set_defaults(fn=cmd_infer)
 
@@ -338,12 +356,17 @@ def make_parser() -> argparse.ArgumentParser:
                    "own window and tracker); more wait")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--warmup", action="store_true",
-                   help="run every slot bucket once, and load the C++ "
-                   "parser, before serving")
+                   help="run every slot bucket once (and its padded batch "
+                   "with --batch-window), and load the C++ parser, before "
+                   "serving")
     p.add_argument("--multi-device", action="store_true",
                    help="not ported: refused")
     p.add_argument("--batch-window", type=int, default=1,
-                   help="micro-batching: not ported, refused above 1")
+                   help="micro-batching: group up to N consecutive frames "
+                   "into one submit_batch (1 = off)")
+    p.add_argument("--batch-linger-ms", type=float, default=5.0,
+                   help="longest a partial batch window waits for more "
+                   "frames")
     _add_track_flags(p)
     p.set_defaults(fn=cmd_serve)
     return ap

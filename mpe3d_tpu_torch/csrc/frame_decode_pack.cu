@@ -17,7 +17,10 @@
 // each (person, joint) prior is a chain of small solves.  The design keeps
 // those chains short and their steps cheap.
 //
-// Design: ONE thread block of 256 threads, all state in shared memory.
+// Design: ONE thread block of 256 threads a frame, all state in shared
+// memory; a batch of B frames (the batch path) is a grid of B blocks, block
+// b reading frame b's scores, pair weights and observations and writing its
+// persons, masks, gathered rows and lifter rows at row b * P (at_frame).
 //  * decode order, built once: each eligible pair (pair present, score
 //    above the threshold) gets a 64-bit key, the order-preserving bits of
 //    its score inverted (descending), then its index (ascending): ascending
@@ -445,7 +448,7 @@ __device__ int pair_prior(const Group& q, const float* cam_s,
 
 // The prior, gate and fields 10-13 of decoded person p's joint j on the
 // group ``q`` (the fields of camera c written by lane c mod G).
-__device__ void prior_joint(const Args& g, const float* cam_s,
+__device__ __forceinline__ void prior_joint(const Args& g, const float* cam_s,
                             const float* delta_s, const float* sx,
                             const float* sy,
                             const float* sxn, const float* syn,
@@ -505,7 +508,28 @@ __device__ void prior_joint(const Args& g, const float* cam_s,
   }
 }
 
-__global__ void __launch_bounds__(THREADS) frame_decode_pack_kernel(Args g) {
+// The arguments of frame b of a batch: the per-frame inputs and outputs
+// offset by b frames (pairs, used cameras and camera tables are shared).
+__device__ __forceinline__ Args at_frame(Args g, int b) {
+  const size_t csj = (size_t)g.Cu * g.S * g.J, pcj = (size_t)g.P * g.Cu * g.J;
+  g.scores += (size_t)b * g.E;
+  g.pmask += (size_t)b * g.E;
+  g.kp += 2 * b * csj;
+  g.valid += b * csj;
+  g.prob += b * csj;
+  g.observed += b * csj;
+  g.persons += (size_t)b * g.P * g.C;
+  g.person_mask += (size_t)b * g.P;
+  g.net += 14 * b * pcj;
+  g.gkp += 2 * b * pcj;
+  g.gval += b * pcj;
+  g.gobs += b * pcj;
+  return g;
+}
+
+__global__ void __launch_bounds__(THREADS)
+frame_decode_pack_kernel(Args frames) {
+  const Args g = at_frame(frames, blockIdx.x);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float cam_s[MAX_CU * 21], cw_s[MAX_CU * 12];
   __shared__ float xz_s[MAX_CU], yz_s[MAX_CU];   // undistorted (0, 0)
@@ -746,8 +770,10 @@ __global__ void __launch_bounds__(THREADS) frame_decode_pack_kernel(Args g) {
 
 }  // namespace
 
-// Decode + gather + pack of one frame on `stream`: one block of 256 threads.
-// Sizes: E <= 4096, H = C*S <= 1024, C <= 32, Cu <= 8; prior 0 mean,
+// Decode + gather + pack of B frames on `stream`: a block of 256 threads a
+// frame.  Per-frame inputs [B, ...] and outputs [B * P, ...] (frame b's
+// rows from b * P); pairs, used_pos, cams and cam_world shared.  Sizes a
+// frame: E <= 4096, H = C*S <= 1024, C <= 32, Cu <= 8; prior 0 mean,
 // 1 median, 2 irls; gate_on 0/1.  Returns cudaGetLastError() after the
 // launch (cudaErrorInvalidValue for sizes out of range).
 extern "C" int frame_decode_pack(
@@ -758,10 +784,11 @@ extern "C" int frame_decode_pack(
     float threshold, int min_views, int k_cap, int prior, int gate_on,
     float gate_px, float img_w, float img_h, int* persons,
     unsigned char* person_mask, float* net, float* gkp, float* gval,
-    unsigned char* gobs, cudaStream_t stream) {
+    unsigned char* gobs, int B, cudaStream_t stream) {
   const int H = C * S;
   if (E < 1 || E > 4096 || H < 1 || H > 1024 || C > 32 || Cu < 1
-      || Cu > MAX_CU || P < 1 || J < 1 || prior < 0 || prior > 2)
+      || Cu > MAX_CU || P < 1 || J < 1 || prior < 0 || prior > 2 || B < 1
+      || B > 65535)
     return cudaErrorInvalidValue;
   const Layout lay(E, H, P, C, Cu, J, S);
   if (lay.total > 200 * 1024) return cudaErrorInvalidValue;
@@ -783,6 +810,6 @@ extern "C" int frame_decode_pack(
          cam_world, E, C, S, J, Cu, P, threshold, min_views, k_cap, prior,
          gate_on, gate_px, img_w, img_h, persons, person_mask, net, gkp,
          gval, gobs};
-  frame_decode_pack_kernel<<<1, THREADS, lay.total, stream>>>(g);
+  frame_decode_pack_kernel<<<B, THREADS, lay.total, stream>>>(g);
   return cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 // A run of consecutive lifter layers for Hopper, in ONE persistent launch:
 // for each layer, y = act(bf16(x) W + b) with bf16 weights W, or
 // y = act((bf16(x * rscale) Wq) * scale + b) with int8 weights Wq, fp32
-// sums, for at most 16 rows.  A bf16 lifter is one run (9 layers, 1 launch
-// a frame), and so is an int8 one (8 int8 layers and its bf16 head).
+// sums, for at most 64 rows.  A bf16 lifter is one run (9 layers, 1 launch
+// a frame, or a batch of frames' rows in groups of 64), and so is an int8
+// one (8 int8 layers and its bf16 head).
 //
 // Replaces the TPU kernel mpe3d_tpu/ops/fused_mlp.py::_fused_mlp_call
 // (:57, pallas_call at :143; entry fused_mlp_forward :223, packing
@@ -10,7 +11,8 @@
 // :80-83, :93, :126), which also runs the whole network in one launch with
 // the weights streamed in double-buffered K-tiles; and, as a run of one
 // int8 layer, mpe3d_tpu/ops/quant_matmul.py::_pallas_int8_matmul (:73,
-// pallas_call :94).  Python side, tile plan and plain PyTorch version:
+// pallas_call :94), which holds all M rows in one block and streams each
+// weight tile once: so does a launch here, for its up to 64 rows.  Python side, tile plan and plain PyTorch version:
 // mpe3d_tpu_torch/ops/fused_mlp.py (and ops/quant_matmul.py).
 //
 // Numerics follow the TPU kernel (fused_mlp.py:93, 114-117, 126):
@@ -38,14 +40,16 @@
 //   launch) a contiguous range of each layer's tiles, chunk-major, so a
 //   block's tiles in a layer mostly share one activation chunk.  Layers with
 //   fewer slabs than blocks split K (the plan's split count balances the
-//   weight bytes per block: an int8 row costs half a bf16 one).  The tile
+//   weight bytes per block: an int8 row costs half a bf16 one; past 32 rows
+//   every layer with K > 512 is split).  The tile
 //   list comes from the device table the wrapper builds once per packed run
 //   and row count.
-// * Weights stream through a 10-stage ring of 16 KB stages, issued by all
-//   threads 9 stages ahead of the one they consume, walking the block's
-//   tile list across layer boundaries, so while a block waits for the
-//   previous layer's activations up to 144 KB of its next weights (about a
-//   whole layer's share) are already in flight.  A bf16 stage is 128 rows
+// * Weights stream through a ring of 16 KB stages (10 up to 16 rows, 8
+//   past them), issued by all threads a ring less one stage ahead of the
+//   one they consume, walking the block's tile list across layer
+//   boundaries, so while a block waits for the previous layer's
+//   activations up to 144 KB (112 KB) of its next weights (about a whole
+//   layer's share) are already in flight.  A bf16 stage is 128 rows
 //   x 64 columns (16-byte cp.async, rows XOR-swizzled for conflict-free
 //   ldmatrix.trans).  An int8 stage holds 256 rows x 64 columns, the same
 //   16 KB: int8 rows are half as wide, and keeping the stage's bytes keeps
@@ -60,15 +64,27 @@
 //   2^23, minus 2^23 + 128, is the exact fp32 value, whose high 16 bits are
 //   the exact bf16 (two packed by one byte permute).
 // * Compute: the transposed product y^T = W^T x^T, so the weights are the
-//   m16 operand and the <=16 activation rows the n8 operand (one or two n8
-//   tiles, straight 32-bit loads from the staged chunk).  The 8 warps split
-//   a stage's rows (16 a warp for bf16, 32 for int8); a tile's warp sums
-//   are added in a fixed tree order.
+//   m16 operand and the <=64 activation rows the n8 operand (NT = 1, 2, 4
+//   or 8 n8 tiles, straight 32-bit loads from the staged chunk), every
+//   loaded weight fragment applied to all of them.  The 8 warps are KG
+//   groups along a stage's rows times MG groups along its 4 m16 tiles
+//   (64 columns): up to 16 rows (NT <= 2) all 8 split the rows (16 a warp
+//   for bf16, 32 for int8) and hold all 4 m-tiles; at 32 rows 4 x 2, at 64
+//   rows 2 x 4, so a thread keeps 32 accumulators (MT m-tiles x NT n8
+//   tiles x 4) at every row count; the KG warps' sums of a tile are added
+//   in a fixed tree order.
+// * Rows and shared memory (the row class of a launch, Rows<NT>): the
+//   staged chunk holds NT x 8 rows of up to KC k-rows, so past 16 rows the
+//   ring has 8 stages (128 KB), and past 32 rows KC is 512: every class
+//   stays within the 227 KB a block may have (ops/fused_mlp.py::
+//   run_smem_bytes mirrors the sizes for the plan).
 // * Split-K: a split tile stores its fp32 partial [M x 64] in scratch.  When
 //   a block leaves a layer it counts its split tiles in per-slab counters
 //   (integer atomics); the block that completes a slab loads the slab's
-//   partials into shared memory at once (one round trip; the plan keeps
-//   them within 32 KB), sums them in chunk order, applies the epilogue and
+//   partials into shared memory at once (one round trip; up to 16 rows the
+//   plan keeps them within 32 KB, past that they go in passes of as many
+//   outputs as the staged chunk's space holds), sums them in chunk order,
+//   applies the epilogue and
 //   writes the bf16 operand of the next layer (fp32 output for the run's
 //   last layer): the same bits from run to run.  Then it arrives at the
 //   layer's grid barrier; a block waits on that barrier only when it starts
@@ -93,22 +109,41 @@ constexpr int SLAB = 64;                  // output columns of a tile
 constexpr int SROWS = 128;                // bf16 weight rows of a stage
 constexpr int SROWS8 = 256;               // int8 weight rows of a stage
 constexpr int FRAG = 16 * SLAB;           // bytes of an int8 k-block
-constexpr int STAGES = 10;                // 16 KB stages
-constexpr int KC_MAX = 1024;              // rows of a tile's K-chunk
-constexpr int XS_LD = KC_MAX + 8;         // bf16 stride of a staged row
 constexpr int MAX_LAYER_TILES = 64;       // tiles of one layer a block owns
 constexpr int MAX_BLOCK_TILES = 96;       // tiles a block owns in a run
 constexpr int MAX_RUN_LAYERS = 16;        // layers of a run
 constexpr int LAYER_FIELDS = 12;          // int64 words of a layer record
-constexpr int X_BATCH = 8;                // loads in flight a thread
-constexpr int R_BATCH = 16;               // partial loads in flight a thread
-// a slab's partials (splits x M x 64 floats) fit the activation buffer
-constexpr int MAX_PARTIAL_FLOATS = 8192;
-constexpr size_t RING_BYTES = (size_t)STAGES * SROWS * SLAB * 2;
-constexpr size_t XS_BYTES = 16 * XS_LD * 2;
-constexpr size_t RED_BYTES = (size_t)(WARPS / 2) * 4 * 2 * 4 * 32 * 4;
-constexpr size_t SMEM_BYTES = RING_BYTES + XS_BYTES + RED_BYTES;
-static_assert(MAX_PARTIAL_FLOATS * 4 <= XS_BYTES, "partials fit xs");
+constexpr int NACC_MAX = 32;              // accumulators a thread
+// the warp sums' exchange: at most 4 warps write NACC_MAX floats a lane
+constexpr size_t RED_BYTES = (size_t)(WARPS / 2) * NACC_MAX * 32 * 4;
+
+// The row class of a launch, NT n8 tiles of activation rows (M <= 8 NT):
+// warps as KG groups along the rows of a stage times MG groups along its
+// four m16 tiles (MT a warp); the ring's 16 KB stages and the staged
+// chunk's k-rows (KC, stride XS_LD: 8 mod 64, so the n8 loads are
+// conflict-free).
+template <int NT>
+struct Rows {
+  static constexpr int MG = NT >= 4 ? NT / 2 : 1;
+  static constexpr int KG = WARPS / MG;
+  static constexpr int MT = 4 / MG;
+  static constexpr int NACC = MT * NT * 4;
+  static constexpr int STAGES = NT <= 2 ? 10 : 8;
+  static constexpr int KC = NT <= 4 ? 1024 : 512;
+  static constexpr int XS_LD = KC + 8;
+  static constexpr int XS_ROWS = NT < 2 ? 16 : NT * 8;
+  // loads in flight a thread: of the staged chunk, and float4 loads of
+  // the slab partials (up to 16 rows 64 bytes, as 16 floats before)
+  static constexpr int X_BATCH = NT <= 4 ? 8 : 16;
+  static constexpr int R_BATCH4 = NT <= 2 ? 4 : 16;
+  static constexpr size_t RING = (size_t)STAGES * SROWS * SLAB * 2;
+  static constexpr size_t XS = (size_t)XS_ROWS * XS_LD * 2;
+  static constexpr size_t SMEM = RING + XS + RED_BYTES;
+  // floats of slab partials one pass of the reduction holds
+  static constexpr int PART_CAP = (int)(XS / 4);
+  static_assert(NACC <= NACC_MAX, "accumulators");
+  static_assert(SMEM + 6 * 1024 <= 227 * 1024, "shared memory");
+};
 
 struct Layer {
   const void* w;            // bf16 [K, N] row-major, or int8 fragments
@@ -232,10 +267,11 @@ __device__ __forceinline__ void int8x4_to_bf16(uint32_t v, uint32_t& lo,
 }
 
 // the n8 operand (activation rows nt*8 + g, k = xk + 2t, +1 and +8, +9)
+template <int LD>
 __device__ __forceinline__ void load_b(const __nv_bfloat16* xs, int nt,
                                        int xk, uint32_t& b0, uint32_t& b1) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* p = xs + (nt * 8 + g) * XS_LD + xk + 2 * t;
+  const __nv_bfloat16* p = xs + (nt * 8 + g) * LD + xk + 2 * t;
   b0 = *reinterpret_cast<const uint32_t*>(p);
   b1 = *reinterpret_cast<const uint32_t*>(p + 8);
 }
@@ -249,78 +285,102 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// an int8 stage: warp w takes k-blocks 2w and 2w + 1 of its ``rows`` rows;
-// lane l's 16 bytes at p * 512 + 16 l of a k-block are its A fragments of
-// m-tiles 2p and 2p + 1 (4 registers of 2 bytes each)
+// an int8 stage: warp (kg, mg) takes the 16 / KG k-blocks from kg * 16 / KG
+// of its ``rows`` rows and the m-tiles mg * MT, ...; lane l's 16 bytes at
+// p * 512 + 16 l of a k-block are its A fragments of m-tiles 2p and 2p + 1
+// (4 registers of 2 bytes each), of which a warp of one m-tile loads 8
 template <int NT>
-__device__ __forceinline__ void mma_stage_int8(uint32_t slot,
-                                               const __nv_bfloat16* xs,
-                                               int xk0, int rows,
-                                               float (&acc)[4][NT][4]) {
+__device__ __forceinline__ void mma_stage_int8(
+    uint32_t slot, const __nv_bfloat16* xs, int xk0, int rows,
+    float (&acc)[Rows<NT>::MT][NT][4]) {
+  using R = Rows<NT>;
+  constexpr int MT = R::MT, KB = SROWS8 / 16 / R::KG;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kg = warp / R::MG, mg = warp % R::MG;
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    const int kb = warp * 2 + kk;
+  for (int kk = 0; kk < KB; ++kk) {
+    const int kb = kg * KB + kk;
     if (kb * 16 >= rows) return;
-    uint32_t a[4][4];
+    uint32_t a[MT][4];
+    if constexpr (MT >= 2) {
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      uint32_t q[4];
-      asm volatile("ld.shared.v4.u32 {%0,%1,%2,%3}, [%4];\n"
-                   : "=r"(q[0]), "=r"(q[1]), "=r"(q[2]), "=r"(q[3])
-                   : "r"(slot + kb * FRAG + p * 512 + lane * 16));
+      for (int p = 0; p < (MT + 1) / 2; ++p) {
+        uint32_t q[4];
+        asm volatile("ld.shared.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+                     : "=r"(q[0]), "=r"(q[1]), "=r"(q[2]), "=r"(q[3])
+                     : "r"(slot + kb * FRAG + (mg * MT / 2 + p) * 512 +
+                           lane * 16));
 #pragma unroll
-      for (int ml = 0; ml < 2; ++ml) {
-        int8x4_to_bf16(q[2 * ml], a[2 * p + ml][0], a[2 * p + ml][1]);
-        int8x4_to_bf16(q[2 * ml + 1], a[2 * p + ml][2], a[2 * p + ml][3]);
+        for (int ml = 0; ml < 2; ++ml) {
+          const int mt = (2 * p + ml) % MT;
+          int8x4_to_bf16(q[2 * ml], a[mt][0], a[mt][1]);
+          int8x4_to_bf16(q[2 * ml + 1], a[mt][2], a[mt][3]);
+        }
       }
+    } else {
+      uint32_t q[2];
+      asm volatile("ld.shared.v2.u32 {%0,%1}, [%2];\n"
+                   : "=r"(q[0]), "=r"(q[1])
+                   : "r"(slot + kb * FRAG + (mg >> 1) * 512 + lane * 16 +
+                         (mg & 1) * 8));
+      int8x4_to_bf16(q[0], a[0][0], a[0][1]);
+      int8x4_to_bf16(q[1], a[0][2], a[0][3]);
     }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       uint32_t b0, b1;
-      load_b(xs, nt, xk0 + kb * 16, b0, b1);
+      load_b<R::XS_LD>(xs, nt, xk0 + kb * 16, b0, b1);
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) mma16816(acc[mt][nt], a[mt], b0, b1);
+      for (int mt = 0; mt < MT; ++mt) mma16816(acc[mt][nt], a[mt], b0, b1);
     }
   }
 }
 
-// a bf16 stage: warp w takes rows [16 w, 16 w + 16) of its ``rows`` rows
+// a bf16 stage: warp (kg, mg) takes the 8 / KG 16-row slices from
+// kg * 8 / KG of its ``rows`` rows and the m-tiles mg * MT, ...
 template <int NT>
 __device__ __forceinline__ void mma_stage(uint32_t slot,
                                           const __nv_bfloat16* xs, int xk0,
-                                          int rows, float (&acc)[4][NT][4]) {
+                                          int rows,
+                                          float (&acc)[Rows<NT>::MT][NT][4]) {
+  using R = Rows<NT>;
+  constexpr int MT = R::MT, KS = SROWS / 16 / R::KG;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int kr = warp * 16;
-  if (kr >= rows) return;
-  // A = W^T: matrices (cols 0-7 | 8-15) x (k 0-7 | 8-15) of each m16 tile
-  const int j = lane >> 3;
-  const int row = kr + (lane & 7) + ((j >> 1) << 3);
-  uint32_t a[4][4];
+  const int kg = warp / R::MG, mg = warp % R::MG;
+  const int j = lane >> 3, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    const uint32_t addr = slot + ring_off(row, mt * 2 + (j & 1));
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-        "[%4];\n"
-        : "=r"(a[mt][0]), "=r"(a[mt][1]), "=r"(a[mt][2]), "=r"(a[mt][3])
-        : "r"(addr));
-  }
-  const int g = lane >> 2, t = lane & 3;
+  for (int ks = 0; ks < KS; ++ks) {
+    const int kr = (kg * KS + ks) * 16;
+    if (kr >= rows) return;
+    // A = W^T: matrices (cols 0-7 | 8-15) x (k 0-7 | 8-15) of each m16 tile
+    const int row = kr + (lane & 7) + ((j >> 1) << 3);
+    uint32_t a[MT][4];
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const __nv_bfloat16* p = xs + (nt * 8 + g) * XS_LD + xk0 + kr + 2 * t;
-    const uint32_t b0 = *reinterpret_cast<const uint32_t*>(p);
-    const uint32_t b1 = *reinterpret_cast<const uint32_t*>(p + 8);
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < MT; ++mt) {
+      const uint32_t addr =
+          slot + ring_off(row, (mg * MT + mt) * 2 + (j & 1));
       asm volatile(
-          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-          : "+f"(acc[mt][nt][0]), "+f"(acc[mt][nt][1]),
-            "+f"(acc[mt][nt][2]), "+f"(acc[mt][nt][3])
-          : "r"(a[mt][0]), "r"(a[mt][1]), "r"(a[mt][2]), "r"(a[mt][3]),
-            "r"(b0), "r"(b1));
+          "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+          "[%4];\n"
+          : "=r"(a[mt][0]), "=r"(a[mt][1]), "=r"(a[mt][2]), "=r"(a[mt][3])
+          : "r"(addr));
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const __nv_bfloat16* p =
+          xs + (nt * 8 + g) * R::XS_LD + xk0 + kr + 2 * t;
+      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(p);
+      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(p + 8);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(acc[mt][nt][0]), "+f"(acc[mt][nt][1]),
+              "+f"(acc[mt][nt][2]), "+f"(acc[mt][nt][3])
+            : "r"(a[mt][0]), "r"(a[mt][1]), "r"(a[mt][2]), "r"(a[mt][3]),
+              "r"(b0), "r"(b1));
+    }
   }
 }
 
@@ -332,6 +392,7 @@ template <int NT, bool INT8>
 __device__ void stage_x(__nv_bfloat16* xs, const float* __restrict__ x,
                         const __nv_bfloat16* acts, const Layer& L, int M,
                         int r0, int r1) {
+  constexpr int XS_LD = Rows<NT>::XS_LD, X_BATCH = Rows<NT>::X_BATCH;
   const int kc = r1 - r0;
   if (L.in_off < 0) {
     const int total = NT * 8 * kc;
@@ -377,6 +438,31 @@ __device__ void stage_x(__nv_bfloat16* xs, const float* __restrict__ x,
   }
 }
 
+// float4 k4 < total4 of one pass of a slab's partials into buf: the
+// pass's outputs [e0, e0 + cnt) of each of its chunks (chunk p's at
+// src + p * per), ``B`` float4 loads in flight a thread; WHOLE: the pass
+// is the whole slab (cnt == per), so the source is contiguous
+template <int B, bool WHOLE>
+__device__ __forceinline__ void load_partials(float4* buf, const float* src,
+                                              int total4, int per, int e0,
+                                              int cnt) {
+  for (int base = 0; base < total4; base += THREADS * B) {
+    float4 v[B];
+#pragma unroll
+    for (int q = 0; q < B; ++q) {
+      const int k4 = base + q * THREADS + threadIdx.x, k = 4 * k4;
+      const int off = WHOLE ? k : (k / cnt) * per + e0 + k % cnt;
+      v[q] = k4 < total4 ? __ldcg(reinterpret_cast<const float4*>(src + off))
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int q = 0; q < B; ++q) {
+      const int k4 = base + q * THREADS + threadIdx.x;
+      if (k4 < total4) buf[k4] = v[q];
+    }
+  }
+}
+
 // the epilogue of one output: (* scale), + b, LeakyReLU, each rounded on
 // its own (the scale's product by __fmul_rn, so that it is not contracted
 // with the bias); fp32 into y for the run's last layer, else the bf16
@@ -408,18 +494,20 @@ mlp_run_kernel(const float* __restrict__ x, float* __restrict__ y,
                const int* __restrict__ tiles,
                const int* __restrict__ block_tiles, __nv_bfloat16* acts,
                float* parts, int* sync, int M, int n_layers, float slope) {
+  using R = Rows<NT>;
+  constexpr int STAGES = R::STAGES, MT = R::MT, NACC = R::NACC;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t ring = smem_u32(smem);
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + RING_BYTES);
-  float* red = reinterpret_cast<float*>(smem + RING_BYTES + XS_BYTES);
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + R::RING);
+  float* red = reinterpret_cast<float*>(smem + R::RING + R::XS);
   __shared__ int last[MAX_LAYER_TILES];
   __shared__ int any_last;
   // the block's tile records and the layer table, loaded once: the loops
   // below then never wait on a global load to find their next tile
   __shared__ __align__(16) int tile_tab[MAX_BLOCK_TILES * 8];
   __shared__ long long layer_tab[MAX_RUN_LAYERS * LAYER_FIELDS];
-  constexpr int NACC = 4 * NT * 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kg = warp / R::MG, mg = warp % R::MG;
   const int t0 = block_tiles[blockIdx.x];
   const int n_tiles = block_tiles[blockIdx.x + 1] - t0;
   for (int i = threadIdx.x; i < n_tiles * 8; i += THREADS)
@@ -475,8 +563,10 @@ mlp_run_kernel(const float* __restrict__ x, float* __restrict__ y,
       __syncthreads();
       if (any_last) {
         // the slab's partials into shared memory (the staged activations'
-        // space, free until the next layer), R_BATCH loads in flight a
-        // thread, then each output summed over them in chunk order
+        // space, free until the next layer), R_BATCH4 float4 loads in
+        // flight a thread (load_partials), then each output summed over
+        // them in chunk order; where they do not fit at once, in passes of
+        // ``cnt`` outputs (whole slab rows, so no float4 crosses a chunk)
         __threadfence();
         const Layer L = load_layer<INT8>(layer_tab, cur);
         const int per = M * SLAB;
@@ -484,29 +574,27 @@ mlp_run_kernel(const float* __restrict__ x, float* __restrict__ y,
         for (int i = 0; i < n; ++i) {
           if (!last[i]) continue;
           const Tile t = load_tile(tile_tab, lt0 + i);
-          const int total = t.nsplit * per;
-          for (int base = 0; base < total; base += THREADS * R_BATCH) {
-            float v[R_BATCH];
-#pragma unroll
-            for (int q = 0; q < R_BATCH; ++q) {
-              const int k = base + q * THREADS + threadIdx.x;
-              v[q] = k < total ? __ldcg(parts + t.pbase + k) : 0.f;
+          const int step = t.nsplit * per <= R::PART_CAP
+                               ? per : R::PART_CAP / t.nsplit / SLAB * SLAB;
+          for (int e0 = 0; e0 < per; e0 += step) {
+            const int cnt = min(step, per - e0), total4 = t.nsplit * cnt / 4;
+            float4* buf4 = reinterpret_cast<float4*>(buf);
+            if (cnt == per)
+              load_partials<R::R_BATCH4, true>(buf4, parts + t.pbase, total4,
+                                               per, e0, cnt);
+            else
+              load_partials<R::R_BATCH4, false>(buf4, parts + t.pbase,
+                                                total4, per, e0, cnt);
+            __syncthreads();
+            for (int e = threadIdx.x; e < cnt; e += THREADS) {
+              const int col = t.n0 + (e0 + e) % SLAB;
+              if (col >= L.N) continue;
+              float s = buf[e];
+              for (int p = 1; p < t.nsplit; ++p) s += buf[p * cnt + e];
+              store_out<INT8>(L, y, acts, (e0 + e) / SLAB, col, s, slope);
             }
-#pragma unroll
-            for (int q = 0; q < R_BATCH; ++q) {
-              const int k = base + q * THREADS + threadIdx.x;
-              if (k < total) buf[k] = v[q];
-            }
+            __syncthreads();
           }
-          __syncthreads();
-          for (int e = threadIdx.x; e < per; e += THREADS) {
-            const int col = t.n0 + e % SLAB;
-            if (col >= L.N) continue;
-            float s = buf[e];
-            for (int p = 1; p < t.nsplit; ++p) s += buf[p * per + e];
-            store_out<INT8>(L, y, acts, e / SLAB, col, s, slope);
-          }
-          __syncthreads();
         }
       }
       __threadfence();
@@ -538,9 +626,9 @@ mlp_run_kernel(const float* __restrict__ x, float* __restrict__ y,
       x_layer = t.layer;
       x_r0 = t.r0;
     }
-    float acc[4][NT][4];
+    float acc[MT][NT][4];
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -558,13 +646,14 @@ mlp_run_kernel(const float* __restrict__ x, float* __restrict__ y,
       issue_next();
       slot = slot + 1 == STAGES ? 0 : slot + 1;
     }
-    // warp sums in a fixed tree: w += w + h for h = 4, 2, 1
+    // each m-group's warp sums in a fixed tree over its k-groups:
+    // kg += kg + h for h = KG / 2, ..., 1
 #pragma unroll
-    for (int h = WARPS / 2; h >= 1; h >>= 1) {
-      if (warp >= h && warp < 2 * h) {
-        float* dst = red + (size_t)(warp - h) * NACC * 32 + lane;
+    for (int h = R::KG / 2; h >= 1; h >>= 1) {
+      if (kg >= h && kg < 2 * h) {
+        float* dst = red + (size_t)((kg - h) * R::MG + mg) * NACC * 32 + lane;
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -572,10 +661,10 @@ mlp_run_kernel(const float* __restrict__ x, float* __restrict__ y,
               dst[((mt * NT + nt) * 4 + e) * 32] = acc[mt][nt][e];
       }
       __syncthreads();
-      if (warp < h) {
-        const float* src = red + (size_t)warp * NACC * 32 + lane;
+      if (kg < h) {
+        const float* src = red + (size_t)(kg * R::MG + mg) * NACC * 32 + lane;
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -584,16 +673,17 @@ mlp_run_kernel(const float* __restrict__ x, float* __restrict__ y,
       }
       __syncthreads();
     }
-    if (warp == 0) {
+    if (kg == 0) {
       const int g = lane >> 2, q = lane & 3;
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int c = mt * 16 + g + (e >> 1) * 8;   // column in the slab
-            const int m = nt * 8 + q * 2 + (e & 1);      // activation row
+            // column in the slab, activation row
+            const int c = (mg * MT + mt) * 16 + g + (e >> 1) * 8;
+            const int m = nt * 8 + q * 2 + (e & 1);
             if (m >= M) continue;
             if (t.part >= 0)
               parts[t.part + m * SLAB + c] = acc[mt][nt][e];
@@ -605,12 +695,22 @@ mlp_run_kernel(const float* __restrict__ x, float* __restrict__ y,
   leave(n_layers, t_end);
 }
 
-// the kernel's instances: [int8 kind][rows > 8]
-const void* const KERNELS[2][2] = {
+// the kernel's instances: [int8 kind][row class: M <= 8, 16, 32, 64], and
+// each row class's dynamic shared memory
+constexpr int N_CLASSES = 4;
+const void* const KERNELS[2][N_CLASSES] = {
     {(const void*)mlp_run_kernel<1, false>,
-     (const void*)mlp_run_kernel<2, false>},
+     (const void*)mlp_run_kernel<2, false>,
+     (const void*)mlp_run_kernel<4, false>,
+     (const void*)mlp_run_kernel<8, false>},
     {(const void*)mlp_run_kernel<1, true>,
-     (const void*)mlp_run_kernel<2, true>}};
+     (const void*)mlp_run_kernel<2, true>,
+     (const void*)mlp_run_kernel<4, true>,
+     (const void*)mlp_run_kernel<8, true>}};
+const size_t SMEM[N_CLASSES] = {Rows<1>::SMEM, Rows<2>::SMEM, Rows<4>::SMEM,
+                                Rows<8>::SMEM};
+
+int row_class(int M) { return M <= 8 ? 0 : M <= 16 ? 1 : M <= 32 ? 2 : 3; }
 
 }  // namespace
 
@@ -626,14 +726,13 @@ extern "C" int mlp_run_blocks() {
           cudaSuccess)
     return -1;
   for (int q = 0; q < 2; ++q)
-    for (int wide = 0; wide < 2; ++wide) {
+    for (int c = 0; c < N_CLASSES; ++c) {
       int per_sm = 0;
-      if (cudaFuncSetAttribute(KERNELS[q][wide],
+      if (cudaFuncSetAttribute(KERNELS[q][c],
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)SMEM_BYTES) != cudaSuccess ||
+                               (int)SMEM[c]) != cudaSuccess ||
           cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-              &per_sm, KERNELS[q][wide], THREADS, SMEM_BYTES) !=
-              cudaSuccess ||
+              &per_sm, KERNELS[q][c], THREADS, SMEM[c]) != cudaSuccess ||
           per_sm < 1)
         return -1;
       least = least == 0 || per_sm < least ? per_sm : least;
@@ -642,7 +741,7 @@ extern "C" int mlp_run_blocks() {
   return cached;
 }
 
-// x [M, K0] fp32, y [M, N_last] fp32, M in 1..16; layers [L][12] int64,
+// x [M, K0] fp32, y [M, N_last] fp32, M in 1..64; layers [L][12] int64,
 // tiles [T][8] int32, block_tiles [n_blocks + 1] int32 (device tables of
 // ops/fused_mlp.py::run_tables); ws: n_sync int32 sync words (zeroed here),
 // then the bf16 activations at acts_off bytes and the fp32 partials at
@@ -654,7 +753,7 @@ extern "C" int mlp_run(const float* x, float* y, const long long* layers,
                        int n_sync, long long acts_off, long long parts_off,
                        int M, int n_layers, int n_blocks, float slope,
                        int any_int8, cudaStream_t stream) {
-  if (M < 1 || M > 16 || n_layers < 1 || n_layers > MAX_RUN_LAYERS ||
+  if (M < 1 || M > 64 || n_layers < 1 || n_layers > MAX_RUN_LAYERS ||
       n_blocks < 1 || mlp_run_blocks() < 1)
     return cudaErrorInvalidValue;
   int* sync = static_cast<int*>(ws);
@@ -667,9 +766,9 @@ extern "C" int mlp_run(const float* x, float* y, const long long* layers,
       reinterpret_cast<float*>(static_cast<char*>(ws) + parts_off);
   void* args[] = {&x, &y, &layers, &tiles, &block_tiles, &acts, &parts,
                   &sync, &M, &n_layers, &slope};
-  const void* fn = KERNELS[any_int8 != 0][M > 8];
-  err = cudaLaunchCooperativeKernel(fn, dim3(n_blocks), dim3(THREADS), args,
-                                    SMEM_BYTES, stream);
+  const int c = row_class(M);
+  err = cudaLaunchCooperativeKernel(KERNELS[any_int8 != 0][c], dim3(n_blocks),
+                                    dim3(THREADS), args, SMEM[c], stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

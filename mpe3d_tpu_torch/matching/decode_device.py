@@ -17,6 +17,8 @@ back once per frame.
 
 Order: ``lax.top_k`` keeps the lower index on ties and ``torch.topk`` promises
 no tie order, so candidates are ranked with a stable descending sort.
+``order_scores`` (the geometric rerank) replaces the scores in that order;
+eligibility still comes from the scores.
 ``reference_merge_quirk`` (the default) keeps the reference's camera-list
 loss on cluster-cluster merges, with endpoint roles in CPython's
 set-iteration order (``matching/decode.py::reference_pair_order``).
@@ -24,38 +26,13 @@ set-iteration order (``matching/decode.py::reference_pair_order``).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from mpe3d_tpu_torch.matching.decode import reference_pair_order
 from mpe3d_tpu_torch.matching.features import PairTopology
-
-
-def _cpython_set2_order(x: int, y: int):
-    """Iteration order of the CPython set ``{x, y}`` built by add(x) then
-    add(y), for non-negative ints: 8-slot open addressing, slot = hash & 7,
-    on collision i = i*5 + 1 + (perturb >>= 5)."""
-    mask = 7
-    table = {}
-    for v in (x, y):
-        i = v & mask
-        perturb = v
-        while i in table:
-            perturb >>= 5
-            i = (i * 5 + 1 + perturb) & mask
-        table[i] = v
-    out = [table[i] for i in sorted(table)]
-    return out[0], out[1]
-
-
-def reference_pair_order(e1: np.ndarray, e2: np.ndarray):
-    """Per-pair (a, b) endpoint roles in the reference's set order."""
-    a = np.empty_like(e1)
-    b = np.empty_like(e2)
-    for k in range(len(e1)):
-        a[k], b[k] = _cpython_set2_order(int(e1[k]), int(e2[k]))
-    return a, b
 
 
 def decode_pairs(topo: PairTopology,
@@ -74,35 +51,39 @@ def decode_person_proposals_device(
         scores: torch.Tensor, pair_mask: torch.Tensor, topo: PairTopology,
         min_views: int = 2, threshold: float = 0.5, max_persons: int = 0,
         top_k: int = 0, reference_merge_quirk: bool = True,
+        order_scores: Optional[torch.Tensor] = None,
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """scores/pair_mask [E] -> (persons [P_max, C] int64 slot per camera,
     -1 = none; person_mask [P_max] bool), P_max = max_persons or
     H // min_views.  ``top_k`` bounds the loop to the K best candidates
-    (0 = all E)."""
+    (0 = all E); ``order_scores`` [E] ranks them instead of ``scores``."""
     E, H = topo.n_pairs, topo.n_heads
     pairs = torch.as_tensor(decode_pairs(topo, reference_merge_quirk),
                             device=scores.device)
     return greedy_decode(
         scores, pair_mask, pairs, topo.n_cameras, topo.n_slots, min_views,
         threshold, max_persons or max(H // max(min_views, 1), 1),
-        min(top_k, E) if top_k else E, reference_merge_quirk)
+        min(top_k, E) if top_k else E, reference_merge_quirk, order_scores)
 
 
 def greedy_decode(scores: torch.Tensor, pair_mask: torch.Tensor,
                   pairs: torch.Tensor, C: int, S: int, min_views: int,
                   threshold: float, P_max: int, K: int,
                   reference_merge_quirk: bool = True,
+                  order_scores: Optional[torch.Tensor] = None,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The decode on explicit pairs [E, 4] (``decode_pairs``): at most K
-    trips; persons [P_max, C] int64 and person_mask [P_max]."""
+    trips, in the order of ``order_scores`` where given; persons
+    [P_max, C] int64 and person_mask [P_max]."""
     dev = scores.device
     H = C * S
     ends = pairs[:, :2].long()                                    # [E, 2]
     cams = pairs[:, 2:].long()
 
     eligible = (pair_mask > 0.5) & (scores > threshold)
-    masked = torch.where(eligible, scores,
-                         torch.full_like(scores, float("-inf")))
+    rank = scores if order_scores is None else order_scores
+    masked = torch.where(eligible, rank,
+                         torch.full_like(rank, float("-inf")))
     order = torch.sort(masked, descending=True, stable=True).indices[:K]
     n_live = min(int(eligible.sum()), K)
 

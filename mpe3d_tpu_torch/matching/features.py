@@ -81,29 +81,35 @@ def head_features(kp: torch.Tensor, valid: torch.Tensor, prob: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Alt-3 head-node features for every (camera, slot).
 
-    kp [C, S, J, 2] raw pixels; valid/prob/observed [C, S, J]; present
-    [C, S]; ``rig`` restricted to the matching cameras (tensors).
-    Returns (feats [H, 2 + C*J*10], head_mask [H]), H = C*S."""
-    C, S, J, _ = kp.shape
+    kp [..., C, S, J, 2] raw pixels; valid/prob/observed [..., C, S, J];
+    present [..., C, S] (leading dims: a batch of frames); ``rig``
+    restricted to the matching cameras (tensors).
+    Returns (feats [..., H, 2 + C*J*10], head_mask [..., H]), H = C*S."""
+    C, S, J, _ = kp.shape[-4:]
+    lead = tuple(kp.shape[:-4])
     W, H_img = image_size
     m = observed.to(kp.dtype)[..., None]
     ni = (kp[..., 0:1] - W / 2.0) / (W / 2.0)
     nj = (H_img / 2.0 - kp[..., 1:2]) / (H_img / 2.0)          # flipped y
-    line_p = cam_centers_world(rig.T_cw)[:, None, None, :].expand(C, S, J, 3)
+    line_p = cam_centers_world(rig.T_cw)[:, None, None, :].expand(
+        *lead, C, S, J, 3)
     line_v = pixel_rays_world(kp, rig.K_inv[:, None, None],
                               rig.T_cw[:, None, None])
     per_joint = torch.cat([ni, nj, valid[..., None], prob[..., None],
                            line_p, line_v], -1) * m               # [C,S,J,10]
-    flat = per_joint.reshape(C, S, J * 10)
-    # each head's block goes to its own camera section of the C*J*10 vector
-    blocks = torch.zeros((C, S, C, J * 10), dtype=kp.dtype, device=kp.device)
-    cams = torch.arange(C, device=kp.device)
-    blocks[cams, :, cams] = flat
-    one_hot = torch.zeros((C * S, 2), dtype=kp.dtype, device=kp.device)
-    one_hot[:, 0] = 1.0
-    feats = torch.cat([one_hot, blocks.reshape(C * S, C * J * 10)], -1)
-    head_mask = present.reshape(C * S).to(kp.dtype)
-    return feats * head_mask[:, None], head_mask
+    flat = per_joint.reshape(*lead, C, S, J * 10)
+    # each head's block goes to its own camera section of the C*J*10 vector:
+    # the (camera, camera) diagonal of [..., C, S, C, J*10]
+    blocks = torch.zeros(lead + (C, S, C, J * 10), dtype=kp.dtype,
+                         device=kp.device)
+    blocks.diagonal(dim1=-4, dim2=-2).copy_(flat.movedim(-3, -1))
+    one_hot = torch.zeros(lead + (C * S, 2), dtype=kp.dtype,
+                          device=kp.device)
+    one_hot[..., 0] = 1.0
+    feats = torch.cat([one_hot, blocks.reshape(*lead, C * S, C * J * 10)],
+                      -1)
+    head_mask = present.reshape(*lead, C * S).to(kp.dtype)
+    return feats * head_mask[..., None], head_mask
 
 
 def edge_node_features(n_pairs: int, feat_dim: int,
@@ -117,10 +123,10 @@ def edge_node_features(n_pairs: int, feat_dim: int,
 
 def pair_mask_from_present(present: torch.Tensor, e1: torch.Tensor,
                            e2: torch.Tensor) -> torch.Tensor:
-    """pair valid <=> both endpoint slots occupied.  present [C, S];
-    e1/e2 [E] head indices (tensors on present's device)."""
-    flat = present.reshape(-1).to(torch.float32)
-    return flat[e1.long()] * flat[e2.long()]
+    """pair valid <=> both endpoint slots occupied.  present [..., C, S];
+    e1/e2 [E] head indices (tensors on present's device) -> [..., E]."""
+    flat = present.reshape(*present.shape[:-2], -1).to(torch.float32)
+    return flat[..., e1.long()] * flat[..., e2.long()]
 
 
 def _index(a, device) -> torch.Tensor:

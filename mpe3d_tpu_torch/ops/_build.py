@@ -1,18 +1,24 @@
-"""Build and load the port's CUDA kernels: one ``nvcc`` call, one shared
-library, bound with ``ctypes``.
+"""Build and load the port's CUDA kernels: one shared library, bound with
+``ctypes``.
 
 Every ``csrc/*.cu`` file (with the shared ``csrc/*.cuh`` headers) exposes
 plain ``extern "C"`` functions (device pointers, sizes, a
 ``cudaStream_t``; they return ``cudaGetLastError()`` after their
 launches), so the build needs neither PyTorch's headers nor ``ninja``.
-All sources compile in ONE call::
+Each source compiles in its own ``nvcc`` process, all started together::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o _build/libmpe3d_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c -o _build/<source>.o csrc/<source>.cu
+
+and one more call links the objects::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o _build/libmpe3d_kernels.so _build/*.o
 
 at first use, into ``mpe3d_tpu_torch/_build/`` (git-ignored), and again only
 when a hash of the sources and flags changes.  A missing ``nvcc`` or a
-failed build raises with the compiler's output.
+failed build raises with the compiler's output, once every compiler it
+started has ended.
 """
 
 from __future__ import annotations
@@ -31,8 +37,10 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_PATH = BUILD_DIR / "libmpe3d_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
+LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,9 +76,9 @@ _SIGNATURES = {
     # scores, pmask, pairs, used_pos, kp, valid, prob, observed, cams,
     # cam_world, E, C, S, J, Cu, P, threshold, min_views, k_cap, prior,
     # gate_on, gate_px, img_w, img_h, persons, person_mask, net, gkp, gval,
-    # gobs, stream
+    # gobs, B, stream
     "frame_decode_pack": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _I, _I]
-                         + [_F] * 3 + [_P] * 7,
+                         + [_F] * 3 + [_P] * 6 + [_I, _P],
 }
 
 
@@ -94,7 +102,7 @@ def _nvcc() -> str:
 
 
 def _digest(sources) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -114,18 +122,10 @@ def library() -> KernelLibrary:
     if not (LIB_PATH.exists() and stamp.exists()
             and stamp.read_text() == digest):
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f"libmpe3d_kernels.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        output = _compile_and_link(sources)
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, LIB_PATH)
-        log.write_text(proc.stdout + proc.stderr)
+        log.write_text(output)
         stamp.write_text(digest)
     cdll = ctypes.CDLL(str(LIB_PATH))
     for name, argtypes in _SIGNATURES.items():
@@ -134,6 +134,42 @@ def library() -> KernelLibrary:
         fn.restype = ctypes.c_int
     return KernelLibrary(cdll, seconds,
                          log.read_text() if log.exists() else "")
+
+
+def _compile_and_link(sources) -> str:
+    """Compile every source in its own ``nvcc`` process, all at once, then
+    link the objects into ``LIB_PATH``; returns the compilers' output."""
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    jobs = []
+    for src, obj in zip(sources, objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE,
+                                           text=True)))
+    outputs, failed = [], []
+    for cmd, proc in jobs:              # wait for every compiler first
+        out, err = proc.communicate()
+        outputs.append(out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (exit {proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}{err}")
+    tmp = BUILD_DIR / f"libmpe3d_kernels.{tag}.so"
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):"
+                               f"\n{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        tmp.unlink(missing_ok=True)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return "".join(outputs)
 
 
 def check(code: int, what: str) -> None:

@@ -9,7 +9,7 @@ also runs the GAT stack and the lifter MLP in the same launch; here they stay
 the port's two other kernels (``ops/gat_kernel.py``, ``ops/fused_mlp.py``),
 launched back to back with this one on one stream, so a frame goes from its
 uploaded buffers to its poses with no host synchronisation
-(``PoseEstimationPipeline._run_frame``).
+(``PoseEstimationPipeline._run_frames``).
 
 The function, for scores [E] of one slot bucket (C matching cameras, S
 slots, H = C*S heads) and the used cameras' per-slot buffers:
@@ -37,8 +37,12 @@ pair table gathered by the kept indices, ``k_cap = min(k_cap, E_k)``
 the kernel (``csrc/frame_decode_pack.cu``) for CUDA tensors, checking the
 arguments at the first call of their signature (sizes, shapes, dtypes) and
 allocating the six outputs as views of one workspace;
-``frame_decode_pack.launches`` counts the kernel launches.  Bound and design:
-see the kernel source.
+``frame_decode_pack.launches`` counts the kernel launches.  Given a batch of
+B frames (scores [B, E] and the per-frame buffers with a leading B; the
+pairs, used cameras and camera tables shared: the batch path) it is one
+launch of B blocks, and the outputs hold B*P rows, frame b's from row b*P,
+so the lifter takes the batch's rows as one input; the plain version runs
+frame by frame.  Bound and design: see the kernel source.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ MAX_ROWS = 16        # person rows: the lifter kernel's activation rows
 # kernel limits: pairs (shared memory), heads (10-bit ids), matching cameras
 # (32-bit camera masks), used cameras (per-thread arrays)
 MAX_PAIRS, MAX_HEADS, MAX_CAMERAS, MAX_USED_CAMERAS = 4096, 1024, 32, 8
+MAX_FRAMES = 65535   # frames of one launch (its grid)
 
 
 class FrameOutputs(NamedTuple):
@@ -111,15 +116,29 @@ def frame_decode_pack_plain(
         scores: torch.Tensor, pair_mask: torch.Tensor, pairs: torch.Tensor,
         used_pos: torch.Tensor, kp: torch.Tensor, valid: torch.Tensor,
         prob: torch.Tensor, observed: torch.Tensor, cams: torch.Tensor,
-        cam_world: torch.Tensor, *, n_cameras: int, threshold: float,
-        min_views: int, k_cap: int, P: int, prior: str,
-        gate_px: Optional[float], image_size: Tuple[float, float],
-        ) -> FrameOutputs:
+        cam_world: torch.Tensor, **kw) -> FrameOutputs:
     """Plain PyTorch version.  scores/pair_mask [E] fp32; pairs [E, 4] int32
     (``decode_pairs``); used_pos [Cu] int32 (matching row of each used
     camera, -1 = none); kp [Cu, S, J, 2], valid/prob [Cu, S, J] fp32,
     observed [Cu, S, J] bool; cams [Cu, 21] (``cam_consts``), cam_world
-    [Cu, 12] (``cam_to_world``)."""
+    [Cu, 12] (``cam_to_world``); the keywords of ``frame_decode_pack``.
+    For a batch (scores [B, E], the per-frame buffers [B, ...]) each frame
+    in turn, the rows concatenated."""
+    if scores.dim() == 1:
+        return _plain_frame(scores, pair_mask, pairs, used_pos, kp, valid,
+                            prob, observed, cams, cam_world, **kw)
+    outs = [_plain_frame(scores[b], pair_mask[b], pairs, used_pos, kp[b],
+                         valid[b], prob[b], observed[b], cams, cam_world,
+                         **kw) for b in range(scores.shape[0])]
+    return FrameOutputs(*(torch.cat(parts) for parts in zip(*outs)))
+
+
+def _plain_frame(
+        scores, pair_mask, pairs, used_pos, kp, valid, prob, observed, cams,
+        cam_world, *, n_cameras: int, threshold: float, min_views: int,
+        k_cap: int, P: int, prior: str, gate_px: Optional[float],
+        image_size: Tuple[float, float]) -> FrameOutputs:
+    """The plain version of one frame."""
     Cu, S = kp.shape[0], kp.shape[1]
     rig = rig_from_consts(cams, cam_world)
     persons, person_mask = greedy_decode(scores, pair_mask, pairs, n_cameras,
@@ -152,9 +171,9 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
                          f"{tuple(t.shape)}, expected {tuple(shape)}")
 
 
-def _check_args(args, dev, E, C, S, J, Cu, P, k_cap, prior):
+def _check_args(args, dev, E, C, S, J, Cu, P, k_cap, prior, B=None):
     """The checks of ``frame_decode_pack``'s arguments (sizes, dtypes,
-    shapes, devices, contiguity)."""
+    shapes, devices, contiguity); ``B``: a batch of B frames."""
     if prior not in PRIORS:
         raise ValueError(f"prior must be one of {PRIORS}, got {prior!r}")
     if not (1 <= E <= MAX_PAIRS and 1 <= C * S <= MAX_HEADS
@@ -168,10 +187,15 @@ def _check_args(args, dev, E, C, S, J, Cu, P, k_cap, prior):
     f32, names = torch.float32, ("scores", "pair_mask", "pairs", "used_pos",
                                  "kp", "valid", "prob", "observed", "cams",
                                  "cam_world")
-    want = ((f32, (E,)), (f32, (E,)), (torch.int32, (E, 4)),
-            (torch.int32, (Cu,)), (f32, (Cu, S, J, 2)), (f32, (Cu, S, J)),
-            (f32, (Cu, S, J)), (torch.bool, (Cu, S, J)), (f32, (Cu, 21)),
+    lead = () if B is None else (B,)
+    want = ((f32, lead + (E,)), (f32, lead + (E,)), (torch.int32, (E, 4)),
+            (torch.int32, (Cu,)), (f32, lead + (Cu, S, J, 2)),
+            (f32, lead + (Cu, S, J)), (f32, lead + (Cu, S, J)),
+            (torch.bool, lead + (Cu, S, J)), (f32, (Cu, 21)),
             (f32, (Cu, 12)))
+    if B is not None and not 1 <= B <= MAX_FRAMES:
+        raise ValueError(f"frame_decode_pack serves 1 to {MAX_FRAMES} "
+                         f"frames a launch, got {B}")
     for t, name, (dtype, shape) in zip(args, names, want):
         _check(t, name, dtype, shape, dev)
 
@@ -218,10 +242,11 @@ def frame_decode_pack(
         min_views: int, k_cap: int, P: int, prior: str,
         gate_px: Optional[float], image_size: Tuple[float, float],
         ) -> FrameOutputs:
-    """Decode + gather + pack of one frame (arguments as the plain version):
-    the plain version for CPU tensors, the CUDA kernel for CUDA tensors.
-    On CUDA the arguments are checked at the first call of their
-    signature, and the six outputs are views of one allocation."""
+    """Decode + gather + pack of one frame, or of a batch of frames (scores
+    [B, E]; arguments as the plain version): the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors (a block a frame).  On CUDA
+    the arguments are checked at the first call of their signature, and
+    the six outputs are views of one allocation."""
     args = (scores, pair_mask, pairs, used_pos, kp, valid, prob, observed,
             cams, cam_world)
     if scores.device.type == "cpu":
@@ -233,16 +258,17 @@ def frame_decode_pack(
         raise ValueError(f"frame_decode_pack: unsupported device "
                          f"{scores.device}")
     dev = scores.device
-    E, C = scores.shape[0], n_cameras
-    Cu, S, J = kp.shape[0], kp.shape[1], kp.shape[2]
+    B = scores.shape[0] if scores.dim() == 2 else None
+    E, C = scores.shape[-1], n_cameras
+    Cu, S, J = kp.shape[-4], kp.shape[-3], kp.shape[-2]
     key = ((dev, C, P, k_cap, prior) + tuple([t.shape for t in args])
            + tuple([t.dtype for t in args]))
     out_layout = _CHECKED.get(key)
     if out_layout is None:
-        _check_args(args, dev, E, C, S, J, Cu, P, k_cap, prior)
+        _check_args(args, dev, E, C, S, J, Cu, P, k_cap, prior, B)
         if len(_CHECKED) >= _MAX_CHECKED:
             _CHECKED.clear()
-        out_layout = _CHECKED[key] = _output_layout(C, J, Cu, P)
+        out_layout = _CHECKED[key] = _output_layout(C, J, Cu, (B or 1) * P)
     ws = torch.empty(out_layout.size, dtype=torch.uint8, device=dev)
     bases = {torch.float32: ws.view(torch.float32),
              torch.int32: ws.view(torch.int32), torch.bool: ws.view(torch.bool)}
@@ -252,7 +278,7 @@ def frame_decode_pack(
         *(t.data_ptr() for t in args), E, C, S, J, Cu, P, threshold,
         min_views, k_cap, PRIORS.index(prior), int(gate_px is not None),
         0.0 if gate_px is None else float(gate_px), float(image_size[0]),
-        float(image_size[1]), *(t.data_ptr() for t in out),
+        float(image_size[1]), *(t.data_ptr() for t in out), B or 1,
         torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(code, "frame_decode_pack")
     frame_decode_pack.launches += 1
@@ -271,14 +297,17 @@ def frame_kernel_fits(E: int, C: int, S: int) -> bool:
 
 
 def frame_kernel_supported(pipe) -> bool:
-    """Configurations the frame path serves (``frame_kernel.py:845-855`` for
-    the ones the port has: it serves only the MLP backend, without geometric
-    rerank): alt-3 graph, no GAT residual, a mean / median / IRLS prior,
-    person buckets of at most 16 rows, camera counts within the kernel's
-    limits, and a bf16 or int8 lifter (an fp32 lifter, the reference's
-    ``serve_dtype=None`` off the TPU, takes the eager path).  Each bucket
-    must also fit (``frame_kernel_fits``)."""
-    return (pipe.rig_config.graph_alternative == "3"
+    """Configurations the frame path serves (``frame_kernel.py:845-855``):
+    the MLP backend with a lifter, no geometric rerank or rescue (the
+    kernel's decode has no order keys), alt-3 graph, no GAT residual, a
+    mean / median / IRLS prior, person buckets of at most 16 rows, camera
+    counts within the kernel's limits, and a bf16 or int8 lifter (an fp32
+    lifter, the reference's ``serve_dtype=None`` off the TPU, takes the
+    eager path).  Each bucket must also fit (``frame_kernel_fits``)."""
+    return (pipe.backend == "mlp"
+            and pipe.lifter is not None
+            and not pipe._geo_active()
+            and pipe.rig_config.graph_alternative == "3"
             and pipe.lifter.serve_dtype != "fp32"
             and not pipe.matcher.cfg.residual
             and pipe.lifter_prior in PRIORS

@@ -16,8 +16,10 @@ A packed lifter is a list of layers of three kinds:
   reference computes its fp32 lifter in XLA, outside any Pallas kernel).
 
 Each maximal run of consecutive bf16 and int8 layers is ONE launch of the
-run kernel ``mlp_run`` (``launch_plan``): the whole network of a bf16 or an
-int8 lifter.  LeakyReLU follows every layer but the last.  Activations are
+run kernel ``mlp_run`` (``launch_plan``) for up to 64 rows: the whole
+network of a bf16 or an int8 lifter; more rows (a batch of frames) take a
+launch a group of 64 (``run_layers``), each streaming the weights once.
+LeakyReLU follows every layer but the last.  Activations are
 fp32 between layers and rounded to bf16 (round to nearest even) as
 operands, as ``fused_mlp.py:114-117`` does; an int8 layer's input is first
 multiplied by its row scales in fp32 (``quant_matmul.py::_fold``).
@@ -33,7 +35,9 @@ registers, exactly), with split-K partials summed in a fixed order and a
 grid barrier between layers.  ``plan_run`` decides which block owns which
 (layer, 64-column slab, K-chunk) tile, balancing weight bytes; ``run_tables``
 turns a plan into the kernel's device tables, built once per packed run and
-row count.
+row count.  The kernel's row classes (up to 8, 16, 32, 64 rows) differ
+in shared memory: past 16 rows the ring is shallower, past 32 a K-chunk is
+at most 512 rows (``kc_max``, ``run_smem_bytes``).
 
 Weights are packed once (``pack_layer``, ``pack_int8_layer``,
 ``pack_fp32_layer``): the output width is padded to a multiple of 16 with
@@ -58,15 +62,22 @@ import torch
 from mpe3d_tpu_torch.ops import _build, quant_matmul
 
 COLS = 16              # output widths are padded to a multiple of this
-MAX_ROWS = 16          # activation rows the run kernel serves
+MAX_ROWS = 64          # activation rows one launch of the run kernel serves
 SLAB = 64              # output columns of a run tile
 KBLOCK = 16            # rows of a k-block; K-chunks are whole k-blocks
 KC_MAX = 1024          # rows of a K-chunk (the kernel stages its activations)
+STAGE_BYTES = 16384    # a stage of the kernel's weight ring
+RED_BYTES = 16384      # the kernel's exchange of warp sums
+STATIC_SMEM = 6 * 1024  # the kernel's static shared memory, at most
+SMEM_OPTIN = 227 * 1024  # shared memory a block may have on an H100
 MAX_LAYER_TILES = 64   # tiles of one layer a block may own
 MAX_BLOCK_TILES = 96   # tiles a block may own in a run (kept in its smem)
 MAX_RUN_LAYERS = 16    # layers of one run
 TILE_COST_ROWS = 32    # a tile's fixed cost in the plan, in bf16 weight rows
 SPLIT_COST_ROWS = 16   # a slab's cost in the plan for each extra K-chunk
+# past 16 rows, that cost for each 16 rows: one block reduces the slab's
+# partials (M x 64 floats a chunk), so its passes grow with M
+WIDE_SPLIT_COST_ROWS = 16
 MAX_PARTIAL_FLOATS = 8192   # a slab's partials the kernel reduces in smem
 FRAG_BYTES = KBLOCK * SLAB  # bytes of one int8 k-block of a slab
 
@@ -211,17 +222,60 @@ def run_plain(x: torch.Tensor, layers: Sequence[Union[Bf16Layer, Int8Layer]],
 
 def run_layers(x: torch.Tensor, layers: Sequence[Union[Bf16Layer, Int8Layer]],
                slope: float, acts: Sequence[bool]) -> torch.Tensor:
-    """A run of consecutive bf16 and int8 layers, x [M <= 16, K0] fp32 ->
-    [M, Np] fp32: the plain version for CPU tensors, the run kernel (one
-    launch) for CUDA tensors."""
+    """A run of consecutive bf16 and int8 layers, x [M, K0] fp32 ->
+    [M, Np] fp32: the plain version for CPU tensors; for CUDA tensors the
+    run kernel, one launch a group of at most 64 rows."""
     if x.device.type == "cpu":
         return run_plain(x, layers, slope, acts)
     if x.device.type != "cuda":
         raise ValueError(f"run_layers: unsupported device {x.device}")
-    return mlp_run(x, layers, slope, acts)
+    if x.shape[0] <= MAX_ROWS:
+        return mlp_run(x, layers, slope, acts)
+    return torch.cat([mlp_run(x[m:m + MAX_ROWS], layers, slope, acts)
+                      for m in range(0, x.shape[0], MAX_ROWS)])
 
 
 # ---- the run kernel's tile plan ----------------------------------------
+
+def row_tiles(M: int) -> int:
+    """n8 tiles of the kernel's row class for M rows: 1, 2, 4 or 8."""
+    return 1 if M <= 8 else 2 if M <= 16 else 4 if M <= 32 else 8
+
+
+def kc_max(M: int) -> int:
+    """Rows of a K-chunk the row class of M rows stages (``Rows<NT>::KC``
+    in ``csrc/fused_mlp.cu``)."""
+    return KC_MAX if M <= 32 else KC_MAX // 2
+
+
+def run_smem_bytes(M: int) -> int:
+    """Dynamic shared memory of the row class of M rows (``Rows<NT>::
+    SMEM``): the ring (10 stages up to 16 rows, else 8), the staged chunk
+    (8 NT rows, at least 16, of kc_max + 8 bf16) and the warp sums."""
+    nt = row_tiles(M)
+    stages = 10 if nt <= 2 else 8
+    return (stages * STAGE_BYTES + max(nt * 8, 16) * (kc_max(M) + 8) * 2
+            + RED_BYTES)
+
+
+def partial_cap(M: int) -> int:
+    """Floats of slab partials one pass of the kernel's reduction holds
+    (its staged chunk's space)."""
+    nt = row_tiles(M)
+    return max(nt * 8, 16) * (kc_max(M) + 8) * 2 // 4
+
+
+def split_cost_rows(M: int) -> int:
+    """A slab's cost in the plan for each extra K-chunk on M rows."""
+    return SPLIT_COST_ROWS if M <= 16 else WIDE_SPLIT_COST_ROWS * M // 16
+
+
+def max_splits(M: int, K: int) -> int:
+    """K-chunks a layer of K rows may have on M rows: up to 16 rows as
+    many as one pass reduces (8192 floats of M x 64 partials), past that 8
+    (the reduction goes in passes), and at most its k-blocks."""
+    return min(_cdiv(K, KBLOCK),
+               MAX_PARTIAL_FLOATS // (min(M, 16) * SLAB))
 
 class RunTile(NamedTuple):
     """Columns [n0, n0 + SLAB) x weight rows [r0, r1) of one layer: slab
@@ -265,19 +319,19 @@ def run_splits(K: int, N: int, M: int, n_blocks: int,
     """K-chunks of a layer: the split count that minimises the most weight
     bytes a block streams, each of its tiles counted with a fixed overhead,
     plus a cost for each extra chunk of a slab (its partial's round trip);
-    at most as many chunks as the kernel reduces in shared memory (8192
-    floats of M x 64 partials); fewer splits on ties.  Costs are in bytes
-    of a 64-column slab row over 64: 2 a bf16 row, 1 an int8 row."""
+    at most ``max_splits`` chunks of at most ``kc_max`` rows; fewer splits
+    on ties.  Costs are in bytes of a 64-column slab row over 64: 2 a bf16
+    row, 1 an int8 row."""
     n_slabs, nkb = _cdiv(N, SLAB), _cdiv(K, KBLOCK)
     row_cost = 1 if int8 else 2
     best = None
-    for s in range(1, min(nkb, MAX_PARTIAL_FLOATS // (M * SLAB)) + 1):
+    for s in range(1, max_splits(M, K) + 1):
         rows = _cdiv(nkb, s) * KBLOCK
         per = _cdiv(n_slabs * s, n_blocks)
-        if rows > KC_MAX or per > MAX_LAYER_TILES:
+        if rows > kc_max(M) or per > MAX_LAYER_TILES:
             continue
         cost = (per * (rows * row_cost + 2 * TILE_COST_ROWS)
-                + 2 * (s - 1) * SPLIT_COST_ROWS)
+                + 2 * (s - 1) * split_cost_rows(M))
         if best is None or cost < best[0]:
             best = (cost, s)
     if best is None:
@@ -433,7 +487,7 @@ def _check_run_layers(layers: Sequence[Union[Bf16Layer, Int8Layer]], K0: int,
 
 def mlp_run(x: torch.Tensor, layers: Sequence[Union[Bf16Layer, Int8Layer]],
             slope: float, acts: Sequence[bool]) -> torch.Tensor:
-    """Launch the run kernel on CUDA tensors: x [M, K0] fp32, M <= 16.
+    """Launch the run kernel on CUDA tensors: x [M, K0] fp32, M <= 64.
     The layers are checked and the plan and its device tables built at the
     first call for these layers and this M, and kept; a call then checks
     only x."""

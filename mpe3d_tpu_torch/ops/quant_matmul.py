@@ -18,8 +18,9 @@ exact zeros.
 
 On the card the layer is a run of one int8 layer of the lifter's run kernel
 (``ops/fused_mlp.py::mlp_run``, ``csrc/fused_mlp.cu``), one launch for each
-group of at most 16 rows: ``int8_weight_matmul`` packs ``wq`` into the
-kernel's fragment order at each call, ``int8_layer_matmul`` takes a layer
+group of at most 64 rows, each streaming the weights once (the TPU kernel
+holds all M rows in one block): ``int8_weight_matmul`` packs ``wq`` into
+the kernel's fragment order at each call, ``int8_layer_matmul`` takes a layer
 packed once (``fused_mlp.pack_int8_layer``).  Both take the plain version
 for CPU tensors.
 """
@@ -64,7 +65,7 @@ def int8_layer_matmul(x: torch.Tensor, layer, alpha: Optional[float],
                       ) -> torch.Tensor:
     """One packed int8 layer (``fused_mlp.Int8Layer``) on x [M, K] for any
     M, [M, Np] fp32: its plain version for CPU tensors; for CUDA tensors
-    one launch of the run kernel for each group of at most 16 rows."""
+    one launch of the run kernel for each group of at most 64 rows."""
     from mpe3d_tpu_torch.ops import fused_mlp
     act = alpha is not None
     slope = alpha if act else 0.0

@@ -1,10 +1,15 @@
-"""End-to-end multi-person 3D pose estimation, one frame at a time.
+"""End-to-end multi-person 3D pose estimation: one frame, a batch of frames,
+or the staged debug path.
 
-Port of the fused serving path of ``mpe3d_tpu/pipeline.py``
+Port of ``mpe3d_tpu/pipeline.py``: the fused serving path
 (``PoseEstimationPipeline.infer_fused`` :1215, program body ``_fused_impl``
 :804-892): alt-3 features -> GAT pair scores -> greedy decode on the device
--> per-person gather -> lifter input with its triangulated prior -> MLP
-lifter -> poses in metres plus the reprojection quality column.
+-> per-person gather -> the 3D backend -> poses in metres plus the
+reprojection quality column.  The 3D backend is the MLP lifter (the lifter
+input with its triangulated prior, ``backend="mlp"``) or the classical
+triangulation (``backend="triangulation"``: ``triangulate_median_filtered``
+or, with ``tri_variant="irls"``, ``triangulate_irls``; plain PyTorch, as
+the reference's are plain JAX).
 
 The serving path is resolved per slot bucket, as a pure function of the
 bucket's sizes and the configuration (``serving_path``), where the JAX
@@ -15,7 +20,7 @@ package probes its kernels per bucket (``pipeline.py:59-164``):
   kernels a layer) when the bucket has E >= 1000 pairs (where the
   reference retires its megakernel, ``pipeline.py:80-93``), heads of more
   than 64 incident edges (the stack kernel's cap), or pair pruning on;
-* the frame path (``_run_frame``, the counterpart of
+* the frame path (``_run_frames``, the counterpart of
   ``ops/frame_kernel.py::build_frame_program``: its "full" variant with the
   stack form, its "split" variant with the tiled form, :965-1103): the GAT,
   one decode + gather + pack kernel (``ops/frame_kernel.py``) and the lifter
@@ -24,13 +29,42 @@ package probes its kernels per bucket (``pipeline.py:59-164``):
   the split path scores and decodes only the compacted candidate pairs and
   scatters the scores back (pruned pairs exactly 0);
 * else the eager path (``_run``, the branch without the whole-frame
-  kernel): the same GAT form and lifter kernel around a decode loop and
+  kernel): the same GAT form and 3D backend around a decode loop and
   packing in PyTorch, all pairs (no pruning), as the reference falls back
   to its two-stage program.  With ``use_layer_matcher`` (the reference's
   ``use_pallas_matcher=False``, :354-373) the eager path's GAT takes the
   per-layer form ``"layer"`` instead: one fused projection kernel a layer
   (``ops/fused_proj.py``) and the attention in PyTorch, as the reference's
   XLA program runs ``_gat_layer``; the frame path keeps its own GAT.
+  The triangulation backend and the geometric rerank / rescue of the
+  decode (``geo_rerank``, ``geo_rescue``: ``_geo_decode_scores``) serve
+  only here, as the reference's frame kernel excludes them
+  (``frame_kernel_supported``).
+
+The batch path (``infer_batch`` / ``submit_batch`` / ``collect_batch``,
+reference :898-1012, its offline and micro-batched throughput mode) runs B
+frames of one slot bucket as one ticket.  Where the bucket's frame path is
+on, each chunk of at most ``batch_plan`` frames is one run of the frame
+path's body (``_run_frames``, a served frame is its one-frame case): the B
+frames' features in batched tensor ops, ONE GAT call on the disjoint union of their
+graphs (heads of frame b offset by b*H, edges by b*E: a GAT layer mixes a
+head only with its own incident edges, so the union computes each frame's
+scores), the decode + gather + pack kernel over a grid of the B frames, the
+lifter kernel on the B*P rows (a launch a group of 64 rows), the quality
+column; then one download for all chunks.  Otherwise (the eager path's
+configurations: the CPU unless ``use_frame_kernel=True``, geo rerank or
+rescue, the triangulation backend, an fp32 lifter) the chunk is the eager
+body frame by frame, as ``batch_plan`` reports.  The batch scores all
+pairs: pair pruning, like the reference's batch program, does not apply.
+
+The staged path (reference :1220-1370: ``match``, ``match_decode``,
+``host_decode_scores``, ``gather_person_obs``, ``lift``, ``__call__``) is
+the reference's debug path: the matcher's scores to the host, the host
+decode (``matching/decode.py``; or the device decode with
+``decode_on_device``), the 3D backend on the person bucket's rows; a rig
+with one matching camera takes every present skeleton as a person
+(``single_camera_bypass``).  Its slot bucket counts the matching cameras'
+skeletons only, as the reference's does.
 
 The lifter serves in the dtype its weights were loaded for
 (``weights.lifter_from_tree``, ``from_checkpoint(serve_dtype=...)``, as
@@ -59,8 +93,10 @@ from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import threading
-from typing import Dict, Iterable, Iterator, NamedTuple, Optional, Tuple
+from typing import (Dict, Iterable, Iterator, List, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -71,13 +107,18 @@ from mpe3d_tpu_torch.config import (PANOPTIC, LifterConfig, MatcherConfig,
                                     RigConfig)
 from mpe3d_tpu_torch.data.frames import FrameArrays
 from mpe3d_tpu_torch.geometry.camera import CameraRig, project_points
+from mpe3d_tpu_torch.geometry.triangulate import (triangulate_irls,
+                                                  triangulate_median_filtered)
 from mpe3d_tpu_torch.lifting.pack import pack_lifter_input
+from mpe3d_tpu_torch.matching.decode import (decode_person_proposals,
+                                             single_camera_bypass)
 from mpe3d_tpu_torch.matching.decode_device import (
     decode_pairs, decode_person_proposals_device)
 from mpe3d_tpu_torch.matching.features import (PairTopology, build_topology,
                                                edge_node_features,
                                                head_features,
                                                pair_mask_from_present,
+                                               pair_ray_distances,
                                                prune_pair_candidates)
 from mpe3d_tpu_torch.models.gat import Matcher, gat_topology
 from mpe3d_tpu_torch.models.mlp import Lifter, lifter_is_quantized
@@ -86,6 +127,7 @@ from mpe3d_tpu_torch.ops.frame_kernel import (cam_consts, cam_to_world,
                                               frame_kernel_fits,
                                               frame_kernel_supported)
 from mpe3d_tpu_torch.ops.gat_kernel import MAX_D, GatTopology
+from mpe3d_tpu_torch.ops.gat_tiled import MAX_HEADS, MAX_PAIRS
 from mpe3d_tpu_torch.weights import lifter_from_tree, matcher_from_tree
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -102,14 +144,20 @@ class PipelineOutput(NamedTuple):
 
 def pose_quality_px(poses_m: torch.Tensor, kp: torch.Tensor,
                     valid: torch.Tensor, observed: torch.Tensor,
-                    rig: CameraRig) -> torch.Tensor:
+                    rig: CameraRig,
+                    joint_ok: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-person masked mean reprojection residual in pixels
     (reference pipeline.py:229).  poses_m [P, J, 3]; kp [P, Cu, J, 2];
-    valid/observed [P, Cu, J].  -1 for persons with no valid observation."""
+    valid/observed [P, Cu, J]; joint_ok [P, J] (the triangulation backend's
+    reconstructed joints: the others are zero-filled and do not count).
+    -1 for persons with no valid observation."""
     pix = project_points(poses_m[:, None], rig.T_wc[None, :, None],
                          rig.K[None, :, None], rig.dist[None, :, None],
                          min_depth=1e-4)                     # [P, Cu, J, 2]
-    mf = ((valid > 0) & observed).to(torch.float32)
+    m = (valid > 0) & observed
+    if joint_ok is not None:
+        m = m & joint_ok[:, None, :]
+    mf = m.to(torch.float32)
     d = torch.linalg.norm(torch.clamp(kp - pix, -1e5, 1e5), dim=-1)
     tot = torch.sum(mf, (1, 2))
     q = torch.sum(d * mf, (1, 2)) / torch.clamp(tot, min=1.0)
@@ -160,6 +208,24 @@ class _Bucket(NamedTuple):
     dtopo: PairTopology      # the topology's arrays as device tensors
 
 
+class BatchPlan(NamedTuple):
+    """How ``submit_batch`` runs the frames of one slot bucket: each chunk
+    (its frame count, in order) is one body of the batch path (``union``:
+    the union GAT and the decode kernel over the chunk's frames) or, where
+    the bucket's frame path is off, the eager body frame by frame."""
+
+    union: bool
+    chunks: Tuple[int, ...]
+
+
+BACKENDS = ("mlp", "triangulation")
+TRI_VARIANTS = ("median", "irls")
+PRIORS = ("mean", "median", "irls")
+# the frame buffers a submit uploads, with their dtypes (fp32 ones first:
+# every offset of the packed upload stays aligned)
+_BUFFERS = (("kp", np.float32), ("valid", np.float32), ("prob", np.float32),
+            ("in_view", np.bool_), ("present", np.bool_))
+
 # the pipeline's lifter dtype -> the serve_dtype of weights.lifter_from_tree
 _TREE_DTYPE = {"bf16": None, "fp32": "fp32", "int8": "int8"}
 
@@ -175,7 +241,11 @@ def _slot_view(a: np.ndarray, S: int) -> np.ndarray:
 
 
 class PoseEstimationPipeline:
-    """Frame -> poses with the learned lifter, on ``device``.
+    """Frame -> poses, on ``device``.
+
+    ``backend``: "mlp" (the learned lifter; ``lifter`` required) or
+    "triangulation" (``tri_variant`` "median", the reference's median
+    filter, or "irls"; ``lifter`` may be None).
 
     ``use_frame_kernel``: None ("auto") serves a bucket through the frame
     path on a CUDA device when ``frame_kernel_supported`` holds and the
@@ -190,14 +260,24 @@ class PoseEstimationPipeline:
     the ``prune_cap`` best-ranked pairs.  Opt-in: pruned edges leave the
     head softmax, so surviving scores move.
 
+    ``geo_rerank`` (0 = off) orders the decode by score - geo_rerank *
+    clip(d / geo_scale, 0, 1), d the pair's mean ray distance in metres;
+    ``geo_rescue`` (0 = off) makes pairs scoring above it with d below
+    ``geo_rescue_dist`` eligible, and forces the uncapped decode
+    (``mpe3d_tpu/pipeline.py:279-300``).  Either takes the eager path.
+
+    ``decode_on_device``: the staged ``__call__`` decodes on the device
+    (``match_decode``) instead of on the host.
+
     ``use_layer_matcher``: the eager path's GAT runs in the per-layer form
     (module header); ``serving_path(S)`` reports it.
 
     The lifter's dtype is the one it was built for (``Lifter.serve_dtype``,
-    also ``self.serve_dtype``); ``from_checkpoint`` takes ``serve_dtype``."""
+    also ``self.serve_dtype``; None without a lifter); ``from_checkpoint``
+    takes ``serve_dtype``."""
 
     def __init__(self, rig_config: RigConfig, rig: CameraRig,
-                 matcher: Matcher, lifter: Lifter,
+                 matcher: Matcher, lifter: Optional[Lifter],
                  slot_buckets: Tuple[int, ...] = (2, 4, 10),
                  person_buckets: Tuple[int, ...] = (4, 8, 16),
                  threshold: float = 0.5, decode_top_k: int = 64,
@@ -205,9 +285,27 @@ class PoseEstimationPipeline:
                  prior_gate_px: Optional[float] = None,
                  use_frame_kernel: Optional[bool] = None,
                  pair_prune_dist: float = 0.0, pair_prune_cap: int = 0,
-                 use_layer_matcher: bool = False, device="cuda"):
+                 use_layer_matcher: bool = False, device="cuda", *,
+                 backend: str = "mlp", tri_variant: str = "median",
+                 decode_on_device: bool = False, geo_rerank: float = 0.0,
+                 geo_scale: float = 0.3, geo_rescue: float = 0.0,
+                 geo_rescue_dist: float = 0.05):
         if rig_config.graph_alternative != "3":
             raise NotImplementedError("only the alt-3 matcher graph is ported")
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got "
+                             f"{backend!r}")
+        if lifter is None and backend == "mlp":
+            raise ValueError("backend='mlp' needs a lifter")
+        if tri_variant not in TRI_VARIANTS:
+            raise ValueError(f"tri_variant must be 'median' or 'irls', got "
+                             f"{tri_variant!r}")
+        if lifter_prior not in PRIORS:
+            raise ValueError(f"lifter_prior must be 'mean', 'median' or "
+                             f"'irls', got {lifter_prior!r}")
+        if prior_gate_px is not None and prior_gate_px <= 0:
+            raise ValueError(f"prior_gate_px must be positive or None, got "
+                             f"{prior_gate_px!r}")
         if pair_prune_dist < 0:
             raise ValueError(f"pair_prune_dist must be >= 0 (metres), got "
                              f"{pair_prune_dist!r}")
@@ -216,7 +314,14 @@ class PoseEstimationPipeline:
         self.rig_config = rig_config
         self.device = torch.device(device)
         self.matcher = matcher.to(self.device)
-        self.lifter = lifter.to(self.device)
+        self.lifter = None if lifter is None else lifter.to(self.device)
+        self.backend = backend
+        self.tri_variant = tri_variant
+        self.decode_on_device = bool(decode_on_device)
+        self.geo_rerank = float(geo_rerank)
+        self.geo_scale = float(geo_scale)
+        self.geo_rescue = float(geo_rescue)
+        self.geo_rescue_dist = float(geo_rescue_dist)
         self.slot_buckets = slot_buckets
         self.person_buckets = person_buckets
         self.threshold = threshold
@@ -225,7 +330,8 @@ class PoseEstimationPipeline:
         self.prior_gate_px = prior_gate_px
         self.use_frame_kernel = use_frame_kernel
         self.use_layer_matcher = bool(use_layer_matcher)
-        self.serve_dtype = self.lifter.serve_dtype
+        self.serve_dtype = (None if self.lifter is None
+                            else self.lifter.serve_dtype)
         self.match_idx = rig_config.matching_camera_indices()
         self.used_idx = rig_config.used_camera_indices()
         self.match_rig = rig.select(self.match_idx).to(self.device)
@@ -244,6 +350,9 @@ class PoseEstimationPipeline:
         self._match_sel = torch.tensor(self.match_idx, device=self.device)
         self._used_sel = torch.tensor(self.used_idx, device=self.device)
         self._topos: Dict[int, _Bucket] = {}
+        # the batch path's union topologies and edge rows, by (slots, frames)
+        self._unions: Dict[Tuple[int, int], Tuple[GatTopology,
+                                                  torch.Tensor]] = {}
         # serialises submits (their launches share cached scratch) and the
         # weight swap of reload_weights
         self._submit_lock = threading.Lock()
@@ -287,6 +396,15 @@ class PoseEstimationPipeline:
         return min(self.person_buckets[-1],
                    max(len(self.match_idx) * S
                        // max(self.rig_config.min_number_of_views, 1), 1))
+
+    def _geo_active(self) -> bool:
+        return self.geo_rerank > 0.0 or self.geo_rescue > 0.0
+
+    @property
+    def _decode_top_k_eff(self) -> int:
+        """The device decode's candidate cap: geo rescue can make nearly
+        every ray-consistent pair eligible, so it decodes uncapped."""
+        return 0 if self.geo_rescue > 0.0 else self.decode_top_k
 
     def topology(self, slots: int) -> PairTopology:
         return self._bucket_state(slots)[0]
@@ -341,17 +459,35 @@ class PoseEstimationPipeline:
             return True
         return supported and self.device.type == "cuda"
 
-    def _frame_tensors(self, frame: FrameArrays):
-        """Bucket the frame and move its five buffers to the device in one
-        copy: packed into one (pinned, on a CUDA device) host buffer,
-        uploaded with ``non_blocking=True``, viewed back on the device."""
-        S = self._bucket(max(1, int(frame.present.sum(axis=1).max())))
-        host = [np.ascontiguousarray(_slot_view(a, S), dtype=dt)
-                for a, dt in ((frame.kp, np.float32),
-                              (frame.valid, np.float32),
-                              (frame.prob, np.float32),
-                              (frame.in_view, np.bool_),
-                              (frame.present, np.bool_))]
+    def batch_plan(self, slots: int, n_frames: int) -> BatchPlan:
+        """How ``submit_batch`` runs ``n_frames`` frames (pad frames
+        included) of the slot bucket ``slots``: where the bucket's frame
+        path serves all its pairs, in chunks of as many frames as the union
+        GAT takes (n*H <= MAX_HEADS heads and n*E <= MAX_PAIRS pairs, the
+        tiled form's incidence build; the stack form is held to the same),
+        full chunks first; else the eager body, a frame a chunk.  A pure
+        function of the sizes and the configuration, like
+        ``serving_path``; raises where ``use_frame_kernel=True`` and the
+        frame path does not serve the bucket's pairs."""
+        if n_frames < 1:
+            raise ValueError(f"batch_plan: n_frames must be >= 1, got "
+                             f"{n_frames}")
+        C = len(self.match_idx)
+        H, E = C * slots, C * (C - 1) // 2 * slots * slots
+        if not (self.frame_path_on() and frame_kernel_fits(E, C, slots)):
+            if self.use_frame_kernel is True:
+                raise ValueError(f"use_frame_kernel=True, but the frame "
+                                 f"path does not serve the S={slots} "
+                                 f"bucket's {E} pairs")
+            return BatchPlan(False, (1,) * n_frames)
+        per = max(1, min(MAX_HEADS // H, MAX_PAIRS // E))
+        full, rest = divmod(n_frames, per)
+        return BatchPlan(True, (per,) * full + ((rest,) if rest else ()))
+
+    def _upload(self, host):
+        """Move host buffers to the device in one copy: packed into one
+        (pinned, on a CUDA device) host buffer, uploaded with
+        ``non_blocking=True``, viewed back on the device."""
         buf = torch.empty(sum(a.nbytes for a in host), dtype=torch.uint8,
                           pin_memory=self.device.type == "cuda")
         flat, off = buf.numpy(), 0
@@ -363,17 +499,28 @@ class PoseEstimationPipeline:
             dt = torch.float32 if a.dtype == np.float32 else torch.bool
             args.append(dev[off:off + a.nbytes].view(dt).view(a.shape))
             off += a.nbytes
-        return S, args
+        return args
 
-    def _match_inputs(self, S: int, kp, valid, prob, observed, present):
-        """GAT node features [H+E, in_dim] and pair mask [E]."""
-        b = self._bucket_state(S)
-        ms = self._match_sel
-        hfeats, _ = head_features(kp[ms], valid[ms], prob[ms], observed[ms],
-                                  present[ms], self.match_rig,
-                                  self.image_size)
-        pmask = pair_mask_from_present(present[ms], b.gtopo.e1, b.gtopo.e2)
-        return torch.cat([hfeats, b.efeats], 0), pmask
+    def _frame_tensors(self, frame: FrameArrays, S: Optional[int] = None):
+        """Bucket the frame (or take the bucket ``S``) and move its five
+        buffers to the device in one copy (``_upload``)."""
+        if S is None:
+            S = self._bucket(max(1, int(frame.present.sum(axis=1).max())))
+        return S, self._upload([np.ascontiguousarray(
+            _slot_view(getattr(frame, name), S), dtype=dt)
+            for name, dt in _BUFFERS])
+
+    def _batch_tensors(self, frames, S: int, n: int):
+        """The frames' five buffers stacked [n, ...] at S slots, padded
+        with empty frames (nothing present) to ``n``, in one upload."""
+        host = []
+        for name, dt in _BUFFERS:
+            a = np.stack([_slot_view(getattr(f, name), S) for f in frames])
+            if n > len(frames):
+                a = np.concatenate([a, np.zeros((n - len(frames),)
+                                                + a.shape[1:], a.dtype)])
+            host.append(np.ascontiguousarray(a, dtype=dt))
+        return self._upload(host)
 
     def _person_obs(self, persons, kp, valid, prob, observed):
         """Each decoded person's observations in the used cameras:
@@ -398,92 +545,197 @@ class PoseEstimationPipeline:
         return torch.sigmoid(self.matcher(x, pw, gtopo, b.form,
                                           edge_const=True)) * pw
 
-    @torch.inference_mode()
-    def _run(self, S: int, kp, valid, prob, observed, present):
+    def _geo_decode_scores(self, scores, kp, valid, observed, topo):
+        """(eligibility scores, order scores or None) of the decode under
+        the geometric rescue and rerank (``mpe3d_tpu/pipeline.py:671-690``):
+        the scores and None when both are off.  kp/valid/observed: the
+        matching cameras' buffers [C, S, ...] on the scores' device."""
+        if not self._geo_active():
+            return scores, None
+        d = pair_ray_distances(kp, valid * observed.to(kp.dtype),
+                               self.match_rig, topo)
+        eff = scores
+        if self.geo_rescue > 0.0:
+            rescued = (scores > self.geo_rescue) & (d < self.geo_rescue_dist)
+            eff = torch.where(rescued,
+                              torch.clamp(scores, min=self.threshold + 1e-3),
+                              scores)
+        order = None
+        if self.geo_rerank > 0.0:
+            order = eff - self.geo_rerank * torch.clamp(d / self.geo_scale,
+                                                        0.0, 1.0)
+        return eff, order
+
+    def _decode(self, S: int, scores, pmask, kp, valid, observed):
+        """The eager path's device decode of one frame (full-rig buffers):
+        (persons [P, C] int64, person_mask [P])."""
         b = self._bucket_state(S)
-        topo, gtopo = b.topo, b.gtopo
-        p_max = self._p_max(S)
-        x_all, pmask = self._match_inputs(S, kp, valid, prob, observed,
-                                          present)
-        scores = self._scores(b, x_all, pmask, gtopo)
-        persons, person_mask = decode_person_proposals_device(
-            scores, pmask, topo, self.rig_config.min_number_of_views,
-            self.threshold, p_max, top_k=self.decode_top_k)
-        pkp, pval, pprob, pobs = self._person_obs(persons, kp, valid, prob,
-                                                  observed)
+        ms = self._match_sel
+        eff, order = self._geo_decode_scores(scores, kp[ms], valid[ms],
+                                             observed[ms], b.dtopo)
+        return decode_person_proposals_device(
+            eff, pmask, b.topo, self.rig_config.min_number_of_views,
+            self.threshold, self._p_max(S), top_k=self._decode_top_k_eff,
+            order_scores=order)
+
+    def _lift_rows(self, pkp, pval, pprob, pobs):
+        """The 3D backend on P person rows of gathered observations:
+        (poses [P, J, 3] metres, joint ok [P, J] or None, quality [P],
+        lifter input [P, F] or None).  The triangulation backend's quality
+        leaves out the joints it could not reconstruct."""
+        J = self.rig_config.n_joints
+        if self.backend == "triangulation":
+            tri = (triangulate_irls if self.tri_variant == "irls"
+                   else triangulate_median_filtered)
+            poses, ok = tri(pkp, pobs.to(pkp.dtype), self.used_rig)
+            return poses, ok, pose_quality_px(poses, pkp, pval, pobs,
+                                              self.used_rig, ok), None
         nets, _ = pack_lifter_input(pkp, pval, pprob, pobs, self.used_rig,
                                     self.image_size, prior=self.lifter_prior,
                                     prior_gate_px=self.prior_gate_px)
-        out = self.lifter(nets)
-        poses = out.reshape(p_max, self.rig_config.n_joints, 3) * 10.0
-        quality = pose_quality_px(poses, pkp, pval, pobs, self.used_rig)
+        poses = self.lifter(nets).reshape(pkp.shape[0], J, 3) * 10.0
+        return poses, None, pose_quality_px(poses, pkp, pval, pobs,
+                                            self.used_rig), nets
+
+    @torch.inference_mode()
+    def _run(self, S: int, kp, valid, prob, observed, present):
+        b = self._bucket_state(S)
+        x_all, pmask, gtopo, _, _ = self._gat_inputs(
+            S, *(a[None] for a in (kp, valid, prob, observed, present)))
+        scores = self._scores(b, x_all, pmask, gtopo)
+        persons, person_mask = self._decode(S, scores, pmask, kp, valid,
+                                            observed)
+        pkp, pval, pprob, pobs = self._person_obs(persons, kp, valid, prob,
+                                                  observed)
+        poses, _, quality, nets = self._lift_rows(pkp, pval, pprob, pobs)
         poses = poses * person_mask[:, None, None]
         return ((poses, persons.to(torch.int32), person_mask, scores,
-                 quality), (x_all, pmask, gtopo, nets))
+                 quality), (x_all, pmask, b.gtopo, nets))
 
     def _frame_decode_args(self, S: int, scores, pmask, kp, valid, prob,
                            observed, pairs=None):
         """(positional, keyword) arguments of ``frame_decode_pack``; its
-        pairs are the bucket's or, under pruning, the compacted ones."""
+        pairs are the bucket's or, under pruning, the compacted ones.  With
+        scores [n, E] and buffers [n, C, ...] the arguments of a batch of
+        n frames."""
         b = self._bucket_state(S)
         pairs = b.pairs if pairs is None else pairs
         us = self._used_sel
-        args = (scores, pmask, pairs, self._used_pos32, kp[us], valid[us],
-                prob[us], observed[us], self._cams, self._cam_world)
+        sel = ((lambda t: t[:, us]) if scores.dim() == 2  # noqa: E731
+               else (lambda t: t[us]))
+        args = (scores, pmask, pairs, self._used_pos32, sel(kp), sel(valid),
+                sel(prob), sel(observed), self._cams, self._cam_world)
         E, top_k = b.topo.n_pairs, self.decode_top_k
         k_cap = min(top_k, E) if top_k else E
         kw = dict(n_cameras=b.topo.n_cameras, threshold=self.threshold,
                   min_views=self.rig_config.min_number_of_views,
-                  k_cap=min(k_cap, scores.shape[0]), P=self._p_max(S),
+                  k_cap=min(k_cap, scores.shape[-1]), P=self._p_max(S),
                   prior=self.lifter_prior, gate_px=self.prior_gate_px,
                   image_size=self.image_size)
         return args, kw
 
-    def _gat_inputs(self, S: int, kp, valid, prob, observed, present):
-        """What the frame path gives the GAT: (node features, pair weights,
-        topology tensors, decode pairs, compaction indices or None).  Under
-        pruning the gate and compaction (``frame_kernel.py:1003-1044``):
-        the heads and the first ``cap`` edge rows (all edge rows are the
-        same one-hot), the kept pairs' weights and endpoints."""
+    def _union(self, S: int, n: int) -> Tuple[GatTopology, torch.Tensor]:
+        """The disjoint union of n frames' graphs of the bucket S: its
+        topology tensors (heads of frame b offset by b*H, edges by b*E, in
+        the bucket's form) and its n*E edge rows; one frame's are the
+        bucket's own."""
         b = self._bucket_state(S)
-        x_all, pmask = self._match_inputs(S, kp, valid, prob, observed,
-                                          present)
-        if self.pair_prune_dist <= 0:
-            return x_all, pmask, b.gtopo, b.pairs, None
+        if n == 1:
+            return b.gtopo, b.efeats
+        key = (S, n)
+        if key not in self._unions:
+            H, E = b.topo.n_heads, b.topo.n_pairs
+            off = torch.arange(n, dtype=torch.int32, device=self.device)
+
+            def shift(t, step):
+                lead = off.view(-1, *([1] * t.dim())) * step
+                return (t[None] + lead).reshape(-1, *t.shape[1:]).contiguous()
+
+            inc = None if b.gtopo.inc is None else shift(b.gtopo.inc, E)
+            self._unions[key] = (
+                GatTopology(shift(b.gtopo.e1, H), shift(b.gtopo.e2, H),
+                            n * H, inc),
+                edge_node_features(n * E, self.rig_config.matcher_feature_dim,
+                                   device=self.device))
+        return self._unions[key]
+
+    def _gat_inputs(self, S: int, kp, valid, prob, observed, present,
+                    prune: bool = False):
+        """What n frames' buffers [n, C, S, ...] give the GAT: (node
+        features, pair weights, topology tensors of the union of their
+        graphs (``_union``), decode pairs, compaction indices or None); the
+        rows are the n*H heads, frame by frame, then the edge rows.  With
+        ``prune`` (one frame: the frame path under pair pruning) the gate
+        and compaction (``frame_kernel.py:1003-1044``): the heads and the
+        first ``cap`` edge rows (all edge rows are the same one-hot), the
+        kept pairs' weights and endpoints."""
+        b = self._bucket_state(S)
+        n = kp.shape[0]
+        gtopo, efeats = self._union(S, n)
         ms = self._match_sel
+        hfeats, _ = head_features(kp[:, ms], valid[:, ms], prob[:, ms],
+                                  observed[:, ms], present[:, ms],
+                                  self.match_rig, self.image_size)
+        pmask = pair_mask_from_present(present[:, ms], b.gtopo.e1,
+                                       b.gtopo.e2).reshape(-1)
+        x = torch.cat([hfeats.reshape(n * b.topo.n_heads, -1), efeats], 0)
+        if not prune:
+            return x, pmask, gtopo, b.pairs, None
+        if n != 1:
+            raise ValueError(f"pair pruning serves one frame, got {n}")
         cap = prune_cap(b.topo.n_pairs, self.pair_prune_cap)
         idx, w = prune_pair_candidates(
-            kp[ms], valid[ms] * observed[ms].to(kp.dtype), self.match_rig,
-            b.dtopo, pmask, self.pair_prune_dist, cap)
+            kp[0, ms], valid[0, ms] * observed[0, ms].to(kp.dtype),
+            self.match_rig, b.dtopo, pmask, self.pair_prune_dist, cap)
         H = b.topo.n_heads
         gtopo = GatTopology(b.gtopo.e1[idx], b.gtopo.e2[idx], H)
-        return x_all[:H + cap], w, gtopo, b.pairs[idx], idx
+        return x[:H + cap], w, gtopo, b.pairs[idx], idx
 
     @torch.inference_mode()
-    def _run_frame(self, S: int, kp, valid, prob, observed, present):
-        """The frame path: features, (under pruning: the gate and
-        compaction,) the GAT, the decode + gather + pack kernel, the lifter
-        kernel and the epilogue, with no host synchronisation
-        (``frame_kernel.py:883-1103``).  Pruned scores are scattered back
-        to the bucket's pairs, pruned ones exactly 0 (:1098-1102)."""
+    def _run_frames(self, S: int, kp, valid, prob, observed, present,
+                    prune: bool = False):
+        """The frame path on n frames [n, C, S, ...] (a served frame is
+        n = 1, a batch chunk n >= 1): features, (with ``prune``: the gate
+        and compaction,) ONE GAT call on the union of the frames' graphs,
+        the decode + gather + pack kernel over the n frames (frame b's
+        lifter rows from b*P; one frame in the kernel's one-frame form),
+        the lifter kernel on the n*P rows and the epilogue, with no host
+        synchronisation (``frame_kernel.py:883-1103``).  Pruned scores are
+        scattered back to the bucket's pairs, pruned ones exactly 0
+        (:1098-1102).  Returns (outputs with a leading frame axis, the
+        decode kernel's (positional, keyword) arguments)."""
         b = self._bucket_state(S)
+        n, E, P = kp.shape[0], b.topo.n_pairs, self._p_max(S)
         x, pw, gtopo, pairs, idx = self._gat_inputs(S, kp, valid, prob,
-                                                    observed, present)
+                                                    observed, present, prune)
         scores = self._scores(b, x, pw, gtopo)
-        args, kw = self._frame_decode_args(S, scores, pw, kp, valid, prob,
-                                           observed, pairs)
+        bufs = (kp, valid, prob, observed)
+        if n == 1:
+            bufs = tuple(a[0] for a in bufs)
+        else:
+            scores, pw = scores.view(n, E), pw.view(n, E)
+        args, kw = self._frame_decode_args(S, scores, pw, *bufs, pairs)
         f = frame_decode_pack(*args, **kw)
         # the residual prior (fields 11-13 of camera block 0) is added in
         # Lifter.forward
-        poses = self.lifter(f.net).reshape(kw["P"], -1, 3) * 10.0
+        poses = self.lifter(f.net).reshape(n * P, -1, 3) * 10.0
         quality = pose_quality_px(poses, f.kp, f.valid, f.observed,
                                   self.used_rig)
         poses = poses * f.person_mask[:, None, None]
         if idx is not None:
-            scores = torch.zeros(b.topo.n_pairs, dtype=scores.dtype,
+            scores = torch.zeros(E, dtype=scores.dtype,
                                  device=scores.device).index_copy(0, idx,
                                                                   scores)
-        return (poses, f.persons, f.person_mask, scores, quality), (args, kw)
+        return ((poses.view(n, P, -1, 3), f.persons.view(n, P, -1),
+                 f.person_mask.view(n, P), scores.view(n, E),
+                 quality.view(n, P)), (args, kw))
+
+    def _run_each(self, S: int, *bufs):
+        """The eager body on each of n frames [n, C, S, ...], outputs
+        stacked on a leading frame axis."""
+        outs = [self._run(S, *(a[i] for a in bufs))[0]
+                for i in range(bufs[0].shape[0])]
+        return tuple(torch.stack(parts) for parts in zip(*outs))
 
     def stage_inputs(self, frame: FrameArrays):
         """The inputs the frame gives the kernels on the eager path: (GAT
@@ -492,20 +744,40 @@ class PoseEstimationPipeline:
         S, args = self._frame_tensors(frame)
         return self._run(S, *args)[1]
 
+    def _chunk(self, frames, slots: Optional[int] = None):
+        """(slots, buffers [n, C, S, ...], prune) of frames as the frame
+        path takes them in one body: one frame is compacted under pruning,
+        as ``submit_fused`` serves it."""
+        S = slots or self._batch_slots(frames)
+        return (S, self._batch_tensors(frames, S, len(frames)),
+                len(frames) == 1 and self.pair_prune_dist > 0)
+
     def frame_stage_inputs(self, frame: FrameArrays):
         """(positional arguments, keyword arguments) the frame path gives
         ``frame_decode_pack`` for this frame."""
-        S, args = self._frame_tensors(frame)
-        return self._run_frame(S, *args)[1]
+        S, bufs, prune = self._chunk([frame])
+        return self._run_frames(S, *bufs, prune)[1]
 
     @torch.inference_mode()
     def gat_stage_inputs(self, frame: FrameArrays):
         """(node features, pair weights, topology tensors, matcher form)
         the frame path gives the GAT for this frame (compacted under
         pruning).  For checks and measurements of the kernels alone."""
-        S, args = self._frame_tensors(frame)
-        x, pw, gtopo, _, _ = self._gat_inputs(S, *args)
-        return x, pw, gtopo, self._bucket_state(S).form
+        S, bufs, prune = self._chunk([frame])
+        return (self._gat_inputs(S, *bufs, prune)[:3]
+                + (self._bucket_state(S).form,))
+
+    def union_stage_inputs(self, frames, slots: Optional[int] = None):
+        """What the batch path gives the GAT and the decode kernel for
+        these frames as one chunk: ((node features, pair weights, union
+        topology, matcher form), (positional, keyword) arguments of
+        ``frame_decode_pack`` on the union's scores).  For checks and
+        measurements of the kernels alone."""
+        S, bufs, prune = self._chunk(frames, slots)
+        with torch.inference_mode():
+            gat = (self._gat_inputs(S, *bufs, prune)[:3]
+                   + (self._bucket_state(S).form,))
+        return gat, self._run_frames(S, *bufs, prune)[1]
 
     def _on_device(self):
         """This pipeline's device as the current CUDA device (the calling
@@ -515,7 +787,7 @@ class PoseEstimationPipeline:
         return contextlib.nullcontext()
 
     def _download(self, out):
-        """Start the copy of a frame's five outputs to the host: on a CUDA
+        """Start the copy of a ticket's outputs to the host: on a CUDA
         device into one pinned buffer that the ticket owns (in flight
         tickets never share one), each copy ``non_blocking``, then a CUDA
         event that :meth:`collect_fused` waits on.  Returns (host tensors,
@@ -542,8 +814,13 @@ class PoseEstimationPipeline:
         time only, the launches are asynchronous)."""
         with self._submit_lock, torch.inference_mode(), self._on_device():
             S, args = self._frame_tensors(frame)
-            run = self._run_frame if self.serving_path(S)[1] else self._run
-            return (frame,) + self._download(run(S, *args)[0])
+            if self.serving_path(S)[1]:
+                out = [t[0] for t in self._run_frames(
+                    S, *(a[None] for a in args),
+                    prune=self.pair_prune_dist > 0)[0]]
+            else:
+                out = self._run(S, *args)[0]
+            return (frame,) + self._download(out)
 
     def collect_fused(self, ticket) -> PipelineOutput:
         """Wait for a ticket's download and crop to the real persons (int32
@@ -575,25 +852,246 @@ class PoseEstimationPipeline:
         while pending:
             yield self.collect_fused(pending.pop(0))
 
+    # ---- the batch path ---------------------------------------------------
+
+    def _batch_slots(self, frames) -> int:
+        """The slot bucket of the fullest frame."""
+        return self._bucket(max(1, max(int(f.present.sum(axis=1).max())
+                                       for f in frames)))
+
+    def submit_batch(self, frames, slots: Optional[int] = None,
+                     pad_to: Optional[int] = None):
+        """Start a batch of frames on the device and its download, without
+        waiting; returns a ticket for :meth:`collect_batch`
+        (``mpe3d_tpu/pipeline.py:958``).  The bucket is ``slots`` or the
+        fullest frame's; ``pad_to`` pads the batch with empty frames, so a
+        micro-batcher with a varying fill reuses one set of plans and
+        tables.  The chunks of ``batch_plan`` run in order, each one body;
+        one upload, one pinned download, no host synchronisation on the
+        batch path (the eager body synchronises in its decode)."""
+        if not frames:
+            raise ValueError("submit_batch: no frames")
+        S = slots or self._batch_slots(frames)
+        n = max(len(frames), pad_to or 0)
+        plan = self.batch_plan(S, n)
+        with self._submit_lock, torch.inference_mode(), self._on_device():
+            bufs = self._batch_tensors(frames, S, n)
+            outs, i = [], 0
+            for m in plan.chunks:
+                chunk = [a[i:i + m] for a in bufs]
+                outs.append(self._run_frames(S, *chunk)[0] if plan.union
+                            else self._run_each(S, *chunk))
+                i += m
+            out = (outs[0] if len(outs) == 1
+                   else tuple(torch.cat(parts) for parts in zip(*outs)))
+            return (frames,) + self._download(out)
+
+    def collect_batch(self, ticket):
+        """Wait for a :meth:`submit_batch` ticket's download: a
+        PipelineOutput a frame, pad frames cropped."""
+        frames, host, done = ticket
+        if done is not None:
+            done.synchronize()
+        poses, persons, person_mask, scores, quality = (t.numpy()
+                                                        for t in host)
+        res = []
+        for i, f in enumerate(frames):
+            n = int(person_mask[i].sum())
+            res.append(PipelineOutput(poses[i][:n],
+                                      persons[i][:n].astype(np.int32),
+                                      scores[i], int(f.present.sum()),
+                                      quality[i][:n]))
+        return res
+
+    def infer_batch(self, frames, slots: Optional[int] = None,
+                    mesh=None) -> List[PipelineOutput]:
+        """Batched inference over a list of frames: one ticket
+        (``submit_batch``), a PipelineOutput a frame.  ``mesh`` (the
+        reference's frame axis sharded over several devices) raises: the
+        port serves one card."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "infer_batch(mesh=...): the frame axis sharded over several "
+                "cards is multi-device serving, not in the port (ROADMAP.md "
+                "section 1, item 6); the port serves one card")
+        if not frames:
+            return []
+        return self.collect_batch(self.submit_batch(frames, slots))
+
+    # ---- the staged path --------------------------------------------------
+
+    def _match_slots(self, frame: FrameArrays) -> int:
+        """The staged path's slot bucket: the matching cameras' skeletons."""
+        mi = np.asarray(self.match_idx)
+        return self._bucket(max(1, int(frame.present[mi].sum(axis=1).max())))
+
+    def _match_device(self, frame: FrameArrays):
+        """(slots, the frame's buffers on the device, scores [E], pair mask
+        [E]) of the staged matcher stage, through the bucket's form."""
+        S, args = self._frame_tensors(frame, self._match_slots(frame))
+        x_all, pmask, gtopo, _, _ = self._gat_inputs(
+            S, *(a[None] for a in args))
+        return (S, args, self._scores(self._bucket_state(S), x_all, pmask,
+                                      gtopo), pmask)
+
+    def match(self, frame: FrameArrays):
+        """Matcher stage: (scores [E], pair mask [E], topology, slots) on
+        the host."""
+        with self._submit_lock, torch.inference_mode(), self._on_device():
+            S, _, scores, pmask = self._match_device(frame)
+            return (scores.cpu().numpy(), pmask.cpu().numpy(),
+                    self.topology(S), S)
+
+    def match_decode(self, frame: FrameArrays):
+        """Matcher stage with the decode on the device (the eager path's
+        decode, geometric rerank and rescue included): (scores, pair mask,
+        topology, slots, persons [n, C] int32)."""
+        with self._submit_lock, torch.inference_mode(), self._on_device():
+            S, args, scores, pmask = self._match_device(frame)
+            persons, mask = self._decode(S, scores, pmask, args[0], args[1],
+                                         args[3])
+            n = int(mask.sum())
+            return (scores.cpu().numpy(), pmask.cpu().numpy(),
+                    self.topology(S), S,
+                    persons[:n].cpu().numpy().astype(np.int32))
+
+    def host_decode_scores(self, frame: FrameArrays, scores: np.ndarray,
+                           topo: PairTopology, slots: int):
+        """(eligibility scores, order scores) for a host decode under the
+        geometric rerank and rescue ((scores, None) when both are off).  A
+        frame parsed with fewer slots than the bucket is zero-padded up to
+        ``slots`` (``_slot_view``): a short buffer would make the ray
+        distances index past its rows and diverge from the other paths."""
+        if not self._geo_active():
+            return scores, None
+        mi = np.asarray(self.match_idx)
+
+        def dev(a, dt):
+            return torch.as_tensor(np.ascontiguousarray(
+                _slot_view(np.asarray(a)[mi], slots), dtype=dt),
+                device=self.device)
+
+        with torch.inference_mode(), self._on_device():
+            eff, order = self._geo_decode_scores(
+                torch.as_tensor(np.array(scores, np.float32),
+                                device=self.device),
+                dev(frame.kp, np.float32), dev(frame.valid, np.float32),
+                dev(frame.in_view, np.bool_), topo)
+            return (eff.cpu().numpy(),
+                    None if order is None else order.cpu().numpy())
+
+    def gather_person_obs(self, frame: FrameArrays, persons: np.ndarray):
+        """Each person's observations in the used cameras, on the host:
+        kp [P, Cu, J, 2], valid/prob [P, Cu, J] fp32, observed [P, Cu, J]
+        bool.  persons [P, C_match]; a used camera that is not a matching
+        one contributes nothing."""
+        P = len(persons)
+        Cu, J = len(self.used_idx), self.rig_config.n_joints
+        kp = np.zeros((P, Cu, J, 2), np.float32)
+        valid = np.zeros((P, Cu, J), np.float32)
+        prob = np.zeros((P, Cu, J), np.float32)
+        observed = np.zeros((P, Cu, J), bool)
+        names = self.rig_config.camera_names
+        match_names = [names[i] for i in self.match_idx]
+        for ui, cam in enumerate(self.used_idx):
+            if names[cam] not in match_names:
+                continue
+            mi = match_names.index(names[cam])
+            for p in range(P):
+                s = persons[p, mi]
+                if s < 0:
+                    continue
+                kp[p, ui] = frame.kp[cam, s]
+                valid[p, ui] = frame.valid[cam, s]
+                prob[p, ui] = frame.prob[cam, s]
+                observed[p, ui] = frame.in_view[cam, s]
+        return kp, valid, prob, observed
+
+    def _lift_host(self, obs):
+        """The 3D backend on host person rows: (poses, quality) numpy."""
+        with self._submit_lock, torch.inference_mode(), self._on_device():
+            rows = [torch.as_tensor(a, device=self.device) for a in obs]
+            poses, _, quality, _ = self._lift_rows(*rows)
+            return poses.cpu().numpy(), quality.cpu().numpy()
+
+    def lift(self, frame: FrameArrays, persons: np.ndarray,
+             with_quality: bool = False):
+        """The 3D stage on decoded persons [P, C_match]: poses [P, J, 3]
+        metres (and the quality column with ``with_quality``), computed on
+        the person bucket's rows.  The host decode has no person cap, so
+        past the largest person bucket the first ones are lifted (the
+        greedy decode emits the most confident first) and the rest dropped,
+        with a note on stderr."""
+        P = len(persons)
+        J = self.rig_config.n_joints
+        if P == 0:
+            empty = np.zeros((0, J, 3), np.float32)
+            return (empty, np.zeros(0, np.float32)) if with_quality else empty
+        PB = self._person_bucket(P)
+        if P > PB:
+            print(f"[mpe3d_torch] {P} person proposals exceed the largest "
+                  f"person bucket ({PB}); lifting the first {PB}",
+                  file=sys.stderr)
+            persons, P = persons[:PB], PB
+        obs = [np.concatenate([a, np.zeros((PB - P,) + a.shape[1:], a.dtype)])
+               for a in self.gather_person_obs(frame, persons)]
+        poses, quality = self._lift_host(obs)
+        return (poses[:P], quality[:P]) if with_quality else poses[:P]
+
+    def __call__(self, frame: FrameArrays) -> PipelineOutput:
+        """The staged path: match, decode (host, or device with
+        ``decode_on_device``; every present skeleton with one matching
+        camera), lift."""
+        if len(self.match_idx) == 1:
+            persons = single_camera_bypass(
+                frame.present[np.asarray(self.match_idx)])
+            scores = np.zeros(0, np.float32)
+        elif self.decode_on_device:
+            scores, _, _, _, persons = self.match_decode(frame)
+        else:
+            scores, pm, topo, S = self.match(frame)
+            eff, order = self.host_decode_scores(frame, scores, topo, S)
+            persons = decode_person_proposals(
+                eff, pm, topo, self.rig_config.min_number_of_views,
+                self.threshold, order_scores=order)
+        poses, quality = self.lift(frame, persons, with_quality=True)
+        # lift truncates past the largest person bucket: keep rows aligned
+        persons = persons[:len(poses)]
+        return PipelineOutput(poses, persons, scores,
+                              int(frame.present.sum()), quality)
+
     def warmup(self, slots: Optional[int] = None,
                persons: Optional[int] = None, fused: bool = True) -> None:
-        """Run one all-present frame of zeros through ``submit_fused`` for
-        every slot bucket (or ``slots`` alone): the first call of a bucket
-        builds its device state, the kernels' plans and tables and, on the
-        card, the kernel library.  The reference's staged path (its
-        ``persons`` buckets and ``fused=False``) is not ported (ROADMAP.md
-        section 1, item 6) and raises."""
-        if persons is not None or not fused:
-            raise NotImplementedError(
-                "warmup(persons=..., fused=False) warms the staged path, "
-                "which is not ported (ROADMAP.md section 1, item 6)")
+        """Run every slot bucket (or ``slots`` alone) once: the first call
+        of a bucket builds its device state, the kernels' plans and tables
+        and, on the card, the kernel library.  ``fused``: an all-present
+        frame of zeros through ``submit_fused``; with ``persons`` given or
+        ``fused=False`` also the staged path (the match of each slot
+        bucket, the 3D stage on each person bucket's rows, or ``persons``
+        rows), as the reference's ``warmup`` compiles it."""
         C, J = self.rig_config.n_cameras, self.rig_config.n_joints
-        for S in ([slots] if slots else self.slot_buckets):
-            self.infer_fused(FrameArrays(
+        buckets = [slots] if slots else list(self.slot_buckets)
+
+        def zeros(S, present):
+            return FrameArrays(
                 np.zeros((C, S, J, 2), np.float32),
                 np.zeros((C, S, J), np.float32),
                 np.zeros((C, S, J), np.float32), np.zeros((C, S, J), bool),
-                np.ones((C, S), bool), np.zeros(C)))
+                np.full((C, S), present), np.zeros(C))
+
+        if persons is not None or not fused:
+            for S in buckets:
+                if len(self.match_idx) > 1:
+                    self.match(zeros(S, True))
+            Cu = len(self.used_idx)
+            for PB in ([persons] if persons else self.person_buckets):
+                self._lift_host([np.zeros((PB, Cu, J, 2), np.float32),
+                                 np.zeros((PB, Cu, J), np.float32),
+                                 np.zeros((PB, Cu, J), np.float32),
+                                 np.zeros((PB, Cu, J), bool)])
+        if fused:
+            for S in buckets:
+                self.infer_fused(zeros(S, True))
 
     def reload_weights(self, matcher_tree=None, lifter_tree=None) -> None:
         """Swap the serving weights for trees in the JAX package's layout
@@ -604,16 +1102,17 @@ class PoseEstimationPipeline:
         The new weights get the construction's serving transform (the
         lifter in this pipeline's ``serve_dtype``: int8 quantised, bf16
         cast or fp32) and must have the current architecture: a shape
-        mismatch, or an int8 tree for a pipeline that does not serve int8,
-        raises ValueError with the serving weights untouched.  Everything
-        is built and checked first; then the matcher and lifter are swapped
-        together under the submit lock, so each frame sees old or new
-        weights, never a mix.  Frames submitted earlier keep reading the
-        old tensors: every launch is on one stream, so the caching
-        allocator hands their memory to a later allocation only in stream
-        order, after those launches.  The lifter's run tables are keyed by
-        weight addresses (``ops/fused_mlp.py::mlp_run``) and hold only
-        addresses and shapes, and the tiled GAT's cached plans
+        mismatch, an int8 tree for a pipeline that does not serve int8, or
+        a lifter for a pipeline built without one raises ValueError with
+        the serving weights untouched.  Everything is built and checked
+        first; then the matcher and lifter are swapped together under the
+        submit lock, so each frame sees old or new weights, never a mix.
+        Frames submitted earlier keep reading the old tensors: every
+        launch is on one stream, so the caching allocator hands their
+        memory to a later allocation only in stream order, after those
+        launches.  The lifter's run tables are keyed by weight addresses
+        (``ops/fused_mlp.py::mlp_run``) and hold only addresses and
+        shapes, and the tiled GAT's cached plans
         (``ops/gat_tiled.py::_stack_plan``) no weight address, so neither
         serves stale weights."""
         matcher, lifter = self.matcher, self.lifter
@@ -621,6 +1120,9 @@ class PoseEstimationPipeline:
             matcher = matcher_from_tree(matcher_tree, self.matcher.cfg,
                                         self.device)
         if lifter_tree is not None:
+            if self.lifter is None:
+                raise ValueError("reload_weights: this pipeline was built "
+                                 "without a lifter")
             if (lifter_is_quantized(lifter_tree)
                     and self.serve_dtype != "int8"):
                 raise ValueError(

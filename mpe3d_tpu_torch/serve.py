@@ -31,9 +31,16 @@ responses never reorder.  Frame lines go through the port's C++ parser
 sent as JSON lists instead of strings) take the python parser, which also
 validates and raises on malformed frames.
 
-Not ported, and refused: micro-batching (``batch_window > 1``, which needs
-``submit_batch``: ROADMAP.md section 1, item 6) and rigs with at most one
-matching camera (the reference's staged single-camera bypass, item 6).
+Micro-batching (``batch_window`` > 1, ``mpe3d_tpu/serve.py:95-103``,
+:373-560): consecutive frames gather into one ``submit_batch`` of the
+window (padded to it, so one set of plans serves every fill), submitted
+when the window fills, when the oldest pending frame has waited
+``batch_linger_ms`` (a flusher thread), or before a control command or an
+error answer; a batch that fails to submit answers each of its frames with
+an error through the FIFO, in order, and a host failure on one frame of a
+collected batch answers that frame alone.  A rig with one matching camera
+cannot run the pair decode: each frame goes through the pipeline's staged
+``__call__`` (``single_camera_bypass``) synchronously.
 """
 
 from __future__ import annotations
@@ -97,22 +104,15 @@ class PoseServer:
     :class:`~mpe3d_tpu_torch.tracking.PoseTracker` shared by every stream;
     ``tracker_factory`` makes a fresh one for each stream (each TCP
     connection is its own camera feed).  ``quality_gate`` (px) drops poses
-    whose quality exceeds it, before tracking."""
+    whose quality exceeds it, before tracking.  ``batch_window`` > 1
+    gathers up to that many frames into one ``submit_batch``; a partial
+    window is submitted after ``batch_linger_ms`` (at least 1 ms: the
+    flusher wakes at half of it), the latency the batcher may add."""
 
     def __init__(self, pipe, rig_config, max_skeletons: int = 10,
                  depth: int = 3, tracker=None, tracker_factory=None,
                  quality_gate: Optional[float] = None,
-                 batch_window: int = 1):
-        if batch_window > 1:
-            raise NotImplementedError(
-                f"batch_window={batch_window}: micro-batching needs "
-                f"submit_batch, not ported yet (ROADMAP.md section 1, "
-                f"item 6)")
-        if len(pipe.match_idx) <= 1:
-            raise NotImplementedError(
-                "a rig with at most one matching camera is served by the "
-                "reference's staged single-camera bypass, not ported yet "
-                "(ROADMAP.md section 1, item 6)")
+                 batch_window: int = 1, batch_linger_ms: float = 5.0):
         self.pipe = pipe
         self.rig_config = rig_config
         self.max_skeletons = max_skeletons
@@ -120,6 +120,10 @@ class PoseServer:
         self.tracker = tracker
         self.tracker_factory = tracker_factory
         self.quality_gate = quality_gate
+        self.batch_window = max(1, int(batch_window))
+        self.batch_linger_ms = max(1.0, float(batch_linger_ms))
+        # one matching camera: the staged path's bypass, synchronously
+        self._bypass = len(pipe.match_idx) <= 1
         self.frames_served = 0
         self.errors = 0
         self.dropped_low_quality = 0
@@ -179,7 +183,14 @@ class PoseServer:
 
     def _submit(self, frame, misses=None):
         t0 = time.perf_counter()
-        return t0, self.pipe.submit_fused(self._parse(frame, misses))
+        fa = self._parse(frame, misses)
+        if self._bypass:
+            return t0, self.pipe(fa)
+        return t0, self.pipe.submit_fused(fa)
+
+    def _collect(self, seq: int, t0: float, ticket, tracker=None):
+        out = ticket if self._bypass else self.pipe.collect_fused(ticket)
+        return self._finish(seq, t0, out, tracker)
 
     def _new_stream_tracker(self):
         if self.tracker_factory is not None:
@@ -273,6 +284,8 @@ class PoseServer:
                    "depth": self.depth,
                    "tracking": (self.tracker is not None
                                 or self.tracker_factory is not None)}
+            if self.batch_window > 1:
+                rec["batch_window"] = self.batch_window
             if self.quality_gate is not None:
                 rec["quality_gate_px"] = self.quality_gate
                 rec["dropped_low_quality"] = self.dropped_low_quality
@@ -310,17 +323,43 @@ class PoseServer:
                 # would wait forever on frames it never marks done
                 dead.set()
 
+        def collect_batch(items, ticket):
+            """Answer a batch's frames: an error for each when the batch
+            fails, else each frame's record (a host failure of one frame
+            answers that frame alone)."""
+            try:
+                outs = self.pipe.collect_batch(ticket)
+            except Exception as e:
+                self._bump("errors")
+                for s, _, _ in items:
+                    emit({"seq": s, "error": f"{type(e).__name__}: {e}"})
+                return
+            for (s, t0, _), out in zip(items, outs):
+                try:
+                    emit(self._finish(s, t0, out, tracker))
+                except Exception as e:
+                    self._bump("errors")
+                    emit({"seq": s, "error": f"{type(e).__name__}: {e}"})
+
         def collector():
             while True:
                 item = q.get()
                 try:
                     if item is None:
                         return
+                    if item[0] == "batch_error":
+                        # a batch that failed to submit: its error lines
+                        # ride the FIFO behind the batches before it
+                        self._bump("errors")
+                        for s, _, _ in item[1]:
+                            emit({"seq": s, "error": item[2]})
+                        continue
+                    if item[0] == "batch":
+                        collect_batch(item[1], item[2])
+                        continue
                     s, t0, ticket = item
                     try:
-                        emit(self._finish(s, t0,
-                                          self.pipe.collect_fused(ticket),
-                                          tracker))
+                        emit(self._collect(s, t0, ticket, tracker))
                     except Exception as e:   # device or host failure of
                         self._bump("errors")  # one frame: report it
                         emit({"seq": s, "error": f"{type(e).__name__}: {e}"})
@@ -330,17 +369,68 @@ class PoseServer:
         thread = threading.Thread(target=collector, daemon=True)
         thread.start()
 
+        # the micro-batcher: frames waiting for a batch, oldest first
+        batching = self.batch_window > 1 and not self._bypass
+        pending: list = []            # [(seq, t0, FrameArrays)]
+        plock = threading.Lock()
+        stop_flush = threading.Event()
+
+        def flush_pending(min_age_s: Optional[float] = None) -> None:
+            """Submit the pending frames as one batch padded to the
+            window (only if the oldest has waited ``min_age_s``).  The
+            queue put stays under the lock, so batches enter the FIFO in
+            seq order."""
+            with plock:
+                if not pending or (min_age_s is not None
+                                   and time.perf_counter() - pending[0][1]
+                                   < min_age_s):
+                    return
+                items = pending[:]
+                pending.clear()
+                try:
+                    ticket = self.pipe.submit_batch(
+                        [fa for _, _, fa in items], pad_to=self.batch_window)
+                except Exception as e:
+                    q.put(("batch_error", items, f"{type(e).__name__}: {e}"))
+                    return
+                q.put(("batch", items, ticket))
+
+        def flusher() -> None:
+            while not stop_flush.wait(self.batch_linger_ms / 2e3):
+                flush_pending(min_age_s=self.batch_linger_ms / 1e3)
+
+        if batching:
+            threading.Thread(target=flusher, daemon=True).start()
+
+        def drain() -> None:
+            """Every frame before this point answered."""
+            if batching:
+                flush_pending()
+            q.join()
+
         def submit(frame) -> None:
-            """Parse and submit one frame, or answer its error."""
+            """Parse and submit one frame (or add it to the pending
+            batch), or answer its error."""
             nonlocal seq
             try:
-                ticket = self._submit(frame, misses)
+                if batching:
+                    t0 = time.perf_counter()
+                    fa = self._parse(frame, misses)
+                else:
+                    ticket = self._submit(frame, misses)
             except Exception as e:   # malformed frame payloads
-                q.join()
+                drain()
                 self._bump("errors")
                 emit({"seq": seq, "error": f"{type(e).__name__}: {e}"})
             else:
-                q.put((seq, *ticket))   # blocks while the window is full
+                if batching:
+                    with plock:
+                        pending.append((seq, t0, fa))
+                        full = len(pending) >= self.batch_window
+                    if full:
+                        flush_pending()
+                else:
+                    q.put((seq, *ticket))   # blocks while the window is full
             seq += 1
 
         try:
@@ -362,13 +452,13 @@ class PoseServer:
                     obj = json.loads(line)
                 except (ValueError, RecursionError) as e:
                     # RecursionError: hostile deep nesting; answer and go on
-                    q.join()
+                    drain()
                     self._bump("errors")
                     emit({"seq": seq, "error": f"bad json: {e}"})
                     seq += 1
                     continue
                 if isinstance(obj, dict) and "cmd" in obj:
-                    q.join()   # strict ordering around control responses
+                    drain()   # strict ordering around control responses
                     cmd = obj["cmd"]
                     if cmd == "ping":
                         emit({"pong": True})
@@ -395,12 +485,13 @@ class PoseServer:
                 if isinstance(obj, dict):
                     submit(obj)
                     continue
-                q.join()
+                drain()
                 self._bump("errors")
                 emit({"seq": seq, "error": "frame must be a JSON object"})
                 seq += 1
         finally:
-            q.join()
+            drain()
+            stop_flush.set()
             q.put(None)
             thread.join(timeout=30)
 

@@ -71,8 +71,9 @@ def build() -> ctypes.CDLL:
     src = _build.BUILD_DIR / "decode_phases.cu"
     lib = _build.BUILD_DIR / "libdecode_phases.so"
     src.write_text(instrumented_source())
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                           str(src)], capture_output=True, text=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                           "-o", str(lib), str(src)], capture_output=True,
+                          text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
     cdll = ctypes.CDLL(str(lib))
@@ -94,7 +95,7 @@ def phases(lib, args, kw, n: int = 30) -> dict:
             fk.PRIORS.index(kw["prior"]), int(kw["gate_px"] is not None),
             0.0 if kw["gate_px"] is None else kw["gate_px"],
             float(kw["image_size"][0]), float(kw["image_size"][1]),
-            *(t.data_ptr() for t in out),
+            *(t.data_ptr() for t in out), 1,
             torch.cuda.current_stream().cuda_stream)
         _build.check(code, "decode_phases")
         torch.cuda.synchronize()

@@ -173,7 +173,7 @@ def crowded_decode_inputs(pipe, frame):
     import torch
     with torch.inference_mode():
         S, bufs = pipe._frame_tensors(frame)
-        pmask = pipe._match_inputs(S, *bufs)[1]
+        pmask = pipe._gat_inputs(S, *(a[None] for a in bufs))[1]
         scores = consistency_scores(pipe, S, bufs[0], bufs[3], pmask)
         args, kw = pipe._frame_decode_args(S, scores, pmask, *bufs[:4])
     kw["k_cap"] = scores.numel()

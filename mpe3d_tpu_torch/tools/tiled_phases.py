@@ -83,7 +83,7 @@ def build() -> ctypes.CDLL:
     src = _build.BUILD_DIR / "tiled_phases.cu"
     lib = _build.BUILD_DIR / "libtiled_phases.so"
     src.write_text(instrumented_source())
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
                            str(_build.SRC_DIR), "-o", str(lib), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:

@@ -5,7 +5,9 @@ package's PoseServer answers in-process on the same pair
 (``models_demo/pan_irls_bf16``, the CLI's default buckets, bf16 lifter, the
 synthetic ring rig both command lines fall back to), and ``infer --cpu``
 must give the JAX ``cmd_infer``'s records; the tolerances are those of
-``tests/test_torch_serve.py``.  Every option the port does not have is
+``tests/test_torch_serve.py``.  So must ``infer --batch``, ``infer`` with
+the triangulation backend (median, IRLS) and with geo rerank / rescue, and
+``serve --batch-window 3``.  Every option the port does not have is
 refused with its ROADMAP.md item, and without a card and without ``--cpu``
 the command fails instead of serving on the CPU.
 """
@@ -85,16 +87,12 @@ def test_infer_matches_jax_cmd_infer(wire_lines, tmp_path):
 
 
 @pytest.mark.parametrize("args, message", [
-    (["serve", "--backend", "triangulation"], "item 6"),
-    (["serve", "--geo-rerank", "0.5"], "item 6"),
-    (["serve", "--geo-rescue", "0.01"], "item 6"),
-    (["serve", "--tri-variant", "irls"], "item 6"),
     (["serve", "--multi-device"], "item 6"),
     (["serve", "--no-pallas-matcher"], "no meaning"),
     (["serve", "--fused-mlp"], "no meaning"),
-    (["serve", "--batch-window", "2"], "submit_batch"),
     (["serve", "--rig", "ARPLAB"], "item 3"),
-    (["infer", "--batch", "--testfiles", "f.json"], "infer_batch"),
+    (["infer", "--rig", "ARPLAB", "--testfiles", "f.json"], "item 3"),
+    (["infer", "--fused-mlp", "--testfiles", "f.json"], "no meaning"),
 ])
 def test_unported_options_are_refused(args, message):
     with pytest.raises(SystemExit) as e:
@@ -126,3 +124,57 @@ def test_without_cpu_and_without_a_card_serve_fails():
     assert r.returncode != 0
     assert "no CUDA device" in r.stderr and "--cpu" in r.stderr
     assert r.stdout == ""
+
+
+def test_infer_batch_matches_jax_cmd_infer(wire_lines, tmp_path):
+    """``infer --batch``: one ``infer_batch`` over the files' frames."""
+    path = tmp_path / "frames.json"
+    path.write_text("[" + ",".join(wire_lines) + "]")
+    common = ["--modelsdir", DEMO, "--testfiles", str(path), "--batch"]
+    cli.main(["infer", "--cpu", *common, "--out", str(tmp_path / "p.json")])
+    jcli.main(["infer", "--serve-dtype", "bf16", *common,
+               "--out", str(tmp_path / "j.json")])
+    got = json.loads((tmp_path / "p.json").read_text())
+    assert_records_match(got, json.loads((tmp_path / "j.json").read_text()))
+    assert sum(g["n_persons"] for g in got) >= 2
+
+
+@pytest.mark.parametrize("extra", [
+    ["--backend", "triangulation", "--tri-variant", "median"],
+    ["--backend", "triangulation", "--tri-variant", "irls"],
+    ["--geo-rerank", "0.3", "--geo-rescue", "0.001",
+     "--geo-rescue-dist", "0.05"],
+])
+def test_infer_eager_options_match_jax_cmd_infer(wire_lines, tmp_path,
+                                                 extra):
+    """The triangulation backend and the geometric rerank / rescue through
+    ``infer`` (the eager path): the JAX ``cmd_infer``'s records."""
+    path = tmp_path / "frames.json"
+    path.write_text("[" + ",".join(wire_lines) + "]")
+    common = ["--modelsdir", DEMO, "--testfiles", str(path), *extra]
+    cli.main(["infer", "--cpu", *common, "--out", str(tmp_path / "p.json")])
+    jcli.main(["infer", "--serve-dtype", "bf16", *common,
+               "--out", str(tmp_path / "j.json")])
+    got = json.loads((tmp_path / "p.json").read_text())
+    assert_records_match(got, json.loads((tmp_path / "j.json").read_text()))
+
+
+def test_serve_batch_window_stdio_matches_jax(wire_lines):
+    """``serve --batch-window 3 --warmup`` over stdio: the JAX server's
+    records with the same window (control lines flush the window)."""
+    lines = (wire_lines + ['{"cmd": "stats"}'] + wire_lines[:2]
+             + ['{"cmd": "close"}'])
+    r = _run_port(["serve", "--cpu", "--modelsdir", DEMO, "--depth", "2",
+                   "--batch-window", "3", "--batch-linger-ms", "20",
+                   "--warmup"], "\n".join(lines) + "\n")
+    assert r.returncode == 0, r.stderr
+    got = [json.loads(line) for line in r.stdout.splitlines()]
+    mparams, mcfg, lparams, lcfg, prior = jcli.load_models(DEMO, J_PANOPTIC)
+    ref_pipe = JPipeline(J_PANOPTIC, j_ring(J_PANOPTIC), mparams, mcfg,
+                         lparams, lcfg, use_frame_kernel=False,
+                         serve_dtype=jnp.bfloat16, lifter_prior=prior)
+    ref = run_lines(JPoseServer(ref_pipe, J_PANOPTIC, depth=2,
+                                batch_window=3, batch_linger_ms=20.0),
+                    lines)
+    assert_records_match(got, ref)
+    assert got[len(wire_lines)]["batch_window"] == 3

@@ -676,5 +676,5 @@ def test_run_entry_dispatch():
     assert fm.mlp_run.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         fm.run_layers(x.to("meta"), layers, 0.1, acts)
-    with pytest.raises(ValueError, match="serves 1..16 rows"):
-        fm.plan_run(NARROW, 17, N_BLOCKS)
+    with pytest.raises(ValueError, match="serves 1..64 rows"):
+        fm.plan_run(NARROW, 65, N_BLOCKS)

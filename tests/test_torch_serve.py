@@ -205,11 +205,6 @@ def test_tracker_ids_match_jax(pipes, wire_frames):
     assert all(len(r["track_ids"]) == r["n_persons"] for r in got)
 
 
-def test_batch_window_is_refused(pipes):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.PoseServer(pipes[0], PANOPTIC, batch_window=2)
-
-
 def test_disconnect_mid_stream_does_not_wedge(pipes, wire_frames):
     p, j = _servers(pipes, depth=2)
     wrote = []

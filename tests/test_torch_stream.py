@@ -119,9 +119,12 @@ def test_warmup_runs_every_slot_bucket():
     one = _narrow(slots=(2, 4))
     one.warmup(slots=4)
     assert sorted(one._topos) == [4]
-    for kw in ({"persons": 8}, {"fused": False}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pipe.warmup(**kw)
+    # the staged path: the match of each slot bucket, the lifter on each
+    # person bucket's rows (or the given count)
+    staged = _narrow(slots=(2, 4))
+    staged.warmup(persons=8)
+    staged.warmup(fused=False)
+    assert sorted(staged._topos) == [2, 4]
 
 
 @pytest.mark.parametrize("serve_dtype", [None, "int8", "fp32"])
