@@ -52,7 +52,16 @@ failure raises, and the script exits non-zero):
    M=16 launches it replaces (it must be shorter), the int8 layers alone
    at M=64 (one launch a layer); the decode kernel over a batch (a block a
    frame) on 8 S=4 and 6 S=16 frames against its plain version frame by
-   frame.  Every kernel row also carries its device time
+   frame.  At the shapes of phase 8 (rows with a "case"): the stack kernel
+   at ARPLAB S=4 (in_dim 1082, head degree 20; the trained matcher also
+   against fp64), at BODY_25's in_dim 1252 and alt-2's 362; K1/K2 at
+   ARPLAB S=10 (H=60, E=1500, D=50), both matchers; the run kernel on a
+   bf16 ARPLAB lifter (K0=1512) at M=8 and M=16-64 (M=64 in turns against
+   four M=16 launches) and on a BODY_25 lifter (K0=1750, a 75-wide head);
+   ``arp_irls``'s 8 int8 layers as one run and one layer at a time; the
+   decode at Cu=6 (IRLS and median priors: 15 camera pairs) and J=25,
+   every prior and gate; the projection on a residual matcher's five
+   layer inputs.  Every kernel row also carries its device time
    (torch.profiler), and the GAT kernels print their CUDA launches a call.
 4. main path: ``PoseEstimationPipeline.infer_fused`` on 16 synthetic frames
    on the card, once with the trained matcher and once with a numpy-seeded
@@ -123,6 +132,22 @@ failure raises, and the script exits non-zero):
    a batch's CUDA launches and device time (profiler), and the M=64 run's
    device time against four M=16 runs, each with the card's name and
    power limit.
+
+8. second rig and graph variants: ARPLAB (6 cameras, a synthetic ring
+   rig) with ``models_demo/arp_irls`` (int8 lifter, IRLS prior) and a
+   bf16 lifter made from its weights (dequantized, the median prior),
+   each with the trained matcher and a numpy-seeded one that decodes
+   every present pair: ``infer_fused`` on 16 S=4 frames (stack form,
+   frame path) and 6 S=10 frames (tiled form, "mean" prior) against the
+   CPU, the kernels' launch counts, the frame path's stages and busy
+   share; ``infer_batch`` of the 16 S=4 frames; ``python3 -m
+   mpe3d_tpu_torch serve --rig ARPLAB`` over stdio (random matcher on
+   ``arp_irls``'s lifter) against a CPU PoseServer.  Then BODY_25 (random
+   weights at full width) on the frame path, and the alt-2 graph, the
+   alt-1 graph and a residual matcher (random, full width, the Panoptic
+   lifter) on the eager path the reference's gate gives them, each on 6
+   frames against the CPU.  The rows of phase 3 at these shapes take
+   their launches from these runs.
 
 The last lines are the kernel table as one JSON object and the contract
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -691,7 +716,8 @@ def proj_layer_inputs(x, pw, gtopo, m):
         return fused_proj.proj_plain(*a)
 
     gat_kernel.gat_stack_plain(x, pw, gtopo, m.flat, m.dims, m.cfg.alpha,
-                               m.cfg.hidden_slope, proj=record)
+                               m.cfg.hidden_slope, proj=record,
+                               bias=m.cfg.bias, shortcuts=m.shortcuts())
     return calls
 
 
@@ -1325,6 +1351,8 @@ def expected_launches(pipe, frames):
             want["gat_stack"] += 1
         elif form == "layer":
             want["gat_fused_proj"] += n_gat
+        elif form == "alt1":
+            pass    # plain PyTorch, as the reference's XLA
         else:
             want["gat_k1"] += n_gat
             want["gat_k2"] += n_gat - 1
@@ -2214,6 +2242,471 @@ def batch_fps(gpu, frames):
     return turns, (dev, n_k), (dev_loop, n_loop)
 
 
+# ---------------------------------------------------------------------------
+# phase 3 additions and phase 8: the second rig and the graph variants
+
+DEMO_ARP = os.path.join(ROOT, "models_demo", "arp_irls")
+ARPLAB_LIVE_SEED = 2       # the random ARPLAB matcher: every present pair
+#                            scores above the threshold on these frames
+N_VARIANT = 6              # frames of the BODY_25, alt-2, alt-1, residual runs
+# BODY_25 accuracy joints (tests/test_alternatives.py's choice)
+B25_USED_JOINTS = (0, 1, 2, 3, 4, 5, 6, 7, 9, 10, 11, 12, 13, 14)
+
+
+class Variant:
+    """One configuration of phase 8: its rig, synthetic rig and frames (and
+    the wire frames they were parsed from), its matcher trees (label ->
+    tree) and config, and its lifter tree (served in the dtype it is
+    stored in: int8 trees int8, others bf16), config and prior."""
+
+    def __init__(self, name, rig_config, matchers, mcfg, lifter, prior,
+                 frames, wire=None):
+        from mpe3d_tpu_torch.data.synthetic import synthetic_ring_rig
+        self.name, self.rc = name, rig_config
+        self.rig = synthetic_ring_rig(rig_config)
+        self.matchers, self.mcfg = matchers, mcfg
+        self.ltree, self.lcfg = lifter
+        self.prior, self.frames, self.wire = prior, frames, wire
+
+    def pipeline(self, matcher, device, use_frame_kernel=None, slots=(4,),
+                 persons=(8,), prior=None, **kw):
+        from mpe3d_tpu_torch import weights
+        from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
+        return PoseEstimationPipeline(
+            self.rc, self.rig,
+            weights.matcher_from_tree(self.matchers[matcher], self.mcfg,
+                                      device),
+            weights.lifter_from_tree(self.ltree, self.lcfg, device),
+            slot_buckets=slots, person_buckets=persons,
+            lifter_prior=prior or self.prior,
+            use_frame_kernel=use_frame_kernel, device=device, **kw)
+
+
+def variant_setups(panoptic_lifter, panoptic_prior):
+    """The configurations of phase 8, on synthetic ring rigs, weights from
+    the checkout or numpy seeds: ARPLAB with ``models_demo/arp_irls``
+    (int8, IRLS prior; its trained matcher and a random one) and a bf16
+    ARPLAB lifter (``arp_irls``'s weights dequantized, served bf16, the
+    median prior), 16 S=4 frames and 6 S=10 frames; BODY_25 (random
+    matcher at in_dim 1252 and lifter 1750 -> 75 at full width); the alt-2
+    and alt-1 graphs and a residual matcher (random, full width) with the
+    Panoptic lifter of ``pan_irls_bf16``."""
+    import dataclasses
+    import torch
+    from mpe3d_tpu_torch import weights
+    from mpe3d_tpu_torch.checkpoint import load_matcher_checkpoint
+    from mpe3d_tpu_torch.config import (ARPLAB, PANOPTIC, LifterConfig,
+                                        MatcherConfig)
+    from mpe3d_tpu_torch.data.frames import parse_frame
+    from mpe3d_tpu_torch.data.synthetic import (generate_frames,
+                                                synthetic_ring_rig)
+    from mpe3d_tpu_torch.models.mlp import dequantize_lifter_weights
+
+    def frames(rc, n, people, seed):
+        return [parse_frame(f, rc) for f in generate_frames(
+            rc, synthetic_ring_rig(rc), n, n_people=people, seed=seed)]
+
+    am, amcfg = load_matcher_checkpoint(
+        os.path.join(DEMO_ARP, "skeleton_matching"),
+        MatcherConfig(in_dim=ARPLAB.matcher_feature_dim))
+    altree, alcfg, aprior = load_lifter(DEMO_ARP, ARPLAB)
+    amatchers = {"trained": am, "random": weights.random_matcher_tree(
+        amcfg, ARPLAB_LIVE_SEED)}
+    arp_wire = generate_frames(ARPLAB, synthetic_ring_rig(ARPLAB), N_FRAMES,
+                               n_people=(2, 3), seed=1)
+    arp_frames = ([parse_frame(f, ARPLAB) for f in arp_wire],
+                  frames(ARPLAB, N_CROWDED, (6, 8), 3))
+    deq = dequantize_lifter_weights({"layers": [
+        {k: torch.as_tensor(v) for k, v in layer.items()}
+        for layer in altree["layers"]]})
+    V = {"arplab": Variant("ARPLAB arp_irls (int8)", ARPLAB, amatchers,
+                           amcfg, (altree, alcfg), aprior, arp_frames,
+                           arp_wire),
+         "arplab_bf16": Variant("ARPLAB bf16 lifter (arp_irls dequantized)",
+                                ARPLAB, amatchers, amcfg, (deq, alcfg),
+                                "median", arp_frames)}
+    b25 = dataclasses.replace(PANOPTIC, joint_format="BODY_25",
+                              used_joints=B25_USED_JOINTS)
+    bm = MatcherConfig(in_dim=b25.matcher_feature_dim)
+    bl = LifterConfig(in_dim=b25.lifter_input_dim, out_dim=b25.n_joints * 3)
+    V["body25"] = Variant(
+        "BODY_25", b25, {"random": weights.random_matcher_tree(
+            bm, RANDOM_MATCHER_SEED)}, bm,
+        (weights.random_lifter_tree(bl, 1), bl), "irls",
+        (frames(b25, N_VARIANT, (2, 3), 1),))
+    for name, rc, residual in (
+            ("alt2", dataclasses.replace(PANOPTIC, graph_alternative="2"),
+             False),
+            ("alt1", dataclasses.replace(PANOPTIC, graph_alternative="1"),
+             False),
+            ("residual", PANOPTIC, True)):
+        mc = MatcherConfig(in_dim=rc.matcher_feature_dim_alt(
+            rc.graph_alternative), residual=residual)
+        V[name] = Variant(
+            {"alt2": "alt-2 graph", "alt1": "alt-1 graph",
+             "residual": "residual matcher"}[name], rc,
+            {"random": weights.random_matcher_tree(mc, RANDOM_MATCHER_SEED)},
+            mc, panoptic_lifter, panoptic_prior,
+            (frames(rc, N_VARIANT, (2, 3), 1),))
+    return V
+
+
+def gat_stack_entry(label, x, pw, gtopo, m, path):
+    """A report row of the stack GAT kernel at these inputs (with
+    ``edge_const``, as the pipeline serves it): held to its plain version,
+    two calls bit-equal, timed, its bound from ``gat_costs``."""
+    import torch
+    from mpe3d_tpu_torch.ops import gat_kernel
+    args = (x, pw, gtopo, m.flat, m.dims, m.cfg.alpha, m.cfg.hidden_slope)
+    call = lambda: gat_kernel.gat_stack(*args, edge_const=True)  # noqa
+    got, again = call(), call()
+    ref = gat_kernel.gat_stack_plain(*args, edge_const=True)
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    if not bool(torch.isfinite(got).all()) or bool(
+            (err > GAT_RTOL * (1 + ref.abs())).any()):
+        raise AssertionError(f"gat_stack {label}: max |d logit| "
+                             f"{float(err.max()):.3g}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"gat_stack {label}: two calls differ")
+    b_ms, b_by = bound(*gat_costs(x, m.flat.numel(), m.dims, gtopo.n_pairs,
+                                  gtopo.inc.shape[1], True))
+    dev, n_k = device_profile(call)
+    row = {"name": "gat_stack", "route": "cuda",
+           "source": "mpe3d_tpu_torch/csrc/gat_stack.cu",
+           "replaces": "mpe3d_tpu/ops/gat_kernel.py:206", "launches": 0,
+           "max_abs_err": float(err.max()), "ms": median_ms(call),
+           "plain_ms": median_ms(lambda: gat_kernel.gat_stack_plain(
+               *args, edge_const=True)), "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None, "device_ms": dev,
+           "case": label, "path": path}
+    print(f"  gat_stack {label}: H={gtopo.n_heads} E={gtopo.n_pairs} head "
+          f"degree {gtopo.inc.shape[1]} in_dim {x.shape[1]}, max |d logit| "
+          f"{row['max_abs_err']:.3g} (tol {GAT_RTOL:g} x (1+|logit|)), two "
+          f"calls bit-equal; {row['ms']:.4f} ms, device {dev:.4f} ms "
+          f"({n_k:g} CUDA launches a call), plain {row['plain_ms']:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by})", flush=True)
+    return row
+
+
+def run_entry(label, lifter, nets, replaces, library_of, path):
+    """A report row of the whole lifter net as one run launch on the
+    serving path's rows: against its plain version (MLP_NET_TOL), two
+    launches bit-equal, timed in turns with its PyTorch yardstick."""
+    import torch
+    from mpe3d_tpu_torch.ops import fused_mlp
+    layers = lifter.packed_layers()
+    if fused_mlp.launch_plan(layers) != [("run", 0, len(layers))]:
+        raise AssertionError(f"{label}: the lifter is not one run")
+    slope, out_dim = lifter.cfg.negative_slope, lifter.cfg.out_dim
+    x = nets.float().contiguous()
+    run = lambda: fused_mlp.fused_mlp_forward(x, layers, slope,  # noqa
+                                              out_dim)
+    got, again = run(), run()
+    ref = fused_mlp.fused_mlp_plain(x, layers, slope, out_dim)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not (bool(torch.isfinite(got).all()) and err <= MLP_NET_TOL):
+        raise AssertionError(f"{label}: max err {err:.3g} > {MLP_NET_TOL}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two launches differ")
+    lib_label, library = library_of(layers, slope)
+    ms, lib_ms = in_turns(run, lambda: library(x))
+    bytes_, flops = run_costs(layers, x)
+    t_b, t_f = bytes_ / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS
+    row = {"name": "mlp_run", "route": "cuda",
+           "source": "mpe3d_tpu_torch/csrc/fused_mlp.cu",
+           "replaces": replaces, "launches": 0, "max_abs_err": err,
+           "ms": ms, "plain_ms": median_ms(lambda: fused_mlp.fused_mlp_plain(
+               x, layers, slope, out_dim)),
+           "bound_ms": 1e3 * max(t_b, t_f),
+           "bound_by": "bytes" if t_b > t_f else "operations",
+           "library_ms": lib_ms, "device_ms": device_ms(run),
+           "case": f"{label}, M={x.shape[0]}", "path": path}
+    K0 = fused_mlp.layer_shape(layers[0])[0]
+    print(f"  mlp_run {label}: whole net ({len(layers)} layers, K0={K0}, "
+          f"head {out_dim}, one launch) on {x.shape[0]} rows: max err "
+          f"{err:.3g} (tol {MLP_NET_TOL:g}), two launches bit-equal; "
+          f"{ms:.4f} ms, device {row['device_ms']:.4f} ms, library "
+          f"({lib_label}) {lib_ms:.4f} ms in turns, plain "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}: {bytes_} bytes)", flush=True)
+    return row
+
+
+def int8_entries(label, lifter, nets, path):
+    """Report rows of an int8 lifter's int8 layers on the serving path's
+    rows: as one run launch (fused_mlp.py:80) and each alone through
+    ``int8_layer_matmul`` (quant_matmul.py:73), each layer alone held to
+    its plain version (``check_int8_layers``), both timed in turns with the
+    int8 yardstick."""
+    import torch
+    from mpe3d_tpu_torch.ops import fused_mlp, quant_matmul
+    x = nets.float().contiguous()
+    inputs = check_int8_layers(label, lifter, x)
+    layers = lifter.packed_layers()
+    slope = lifter.cfg.negative_slope
+    body = layers[:-1]
+    acts = [True] * len(body)
+    one = lambda: fused_mlp.run_layers(x, body, slope, acts)  # noqa: E731
+    got, again = one(), one()
+    ref = fused_mlp.run_plain(x, body, slope, acts)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not (err <= MLP_NET_TOL and torch.equal(got, again)):
+        raise AssertionError(f"{label}: int8 run max err {err:.3g}, or two "
+                             f"launches differ")
+    alone = lambda: [quant_matmul.int8_layer_matmul(h, layer, slope)  # noqa
+                     for h, layer in inputs]
+    lib_label, library = int8_yardstick(body, slope)
+    rows = []
+    for replaces, kernel, plain, (bytes_, flops) in (
+            ("mpe3d_tpu/ops/fused_mlp.py:80", one,
+             lambda: fused_mlp.run_plain(x, body, slope, acts),
+             run_costs(body, x)),
+            ("mpe3d_tpu/ops/quant_matmul.py:73", alone,
+             lambda: [fused_mlp.layer_plain(h, layer, slope, True)
+                      for h, layer in inputs],
+             mlp_costs(body, x.shape[0]))):
+        ms, lib_ms = in_turns(kernel, lambda: library(x))
+        t_b, t_f = bytes_ / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS
+        rows.append({
+            "name": "mlp_run", "route": "cuda",
+            "source": "mpe3d_tpu_torch/csrc/fused_mlp.cu",
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": median_ms(plain),
+            "bound_ms": 1e3 * max(t_b, t_f),
+            "bound_by": "bytes" if t_b > t_f else "operations",
+            "library_ms": lib_ms, "device_ms": device_ms(kernel),
+            "case": f"{label}, M={x.shape[0]}", "path": path})
+    a, b = rows
+    print(f"  mlp_run (int8 kind) {label}: its {len(body)} int8 layers "
+          f"(K0={fused_mlp.layer_shape(body[0])[0]}) as one run on "
+          f"{x.shape[0]} rows: max err {err:.3g}, two launches bit-equal, "
+          f"{a['ms']:.4f} ms, device {a['device_ms']:.4f} ms, bound "
+          f"{a['bound_ms']:.5f} ms; each alone (int8_layer_matmul): "
+          f"{b['ms']:.4f} ms, device {b['device_ms']:.4f} ms, bound "
+          f"{b['bound_ms']:.5f} ms; library ({lib_label}) "
+          f"{a['library_ms']:.4f} / {b['library_ms']:.4f} ms in turns",
+          flush=True)
+    return rows
+
+
+def frame_entry(label, args, kw, path):
+    """A report row of the decode + gather + pack kernel on one frame's
+    inputs at its pipeline's prior and gate, after every prior with and
+    without the gate is held to the plain version."""
+    from mpe3d_tpu_torch.ops import frame_kernel as fk
+    cases = [(p, g) for p in fk.PRIORS for g in (None, 8.0)]
+    max_err = check_frame_cases(args, kw, cases, label)
+    out = fk.frame_decode_pack(*args, **kw)
+    bytes_, ops = frame_costs(args, kw, out)
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    call = lambda: fk.frame_decode_pack(*args, **kw)  # noqa: E731
+    ms, dev_ms = median_ms(call), device_ms(call)
+    row = {"name": "frame_decode_pack", "route": "cuda",
+           "source": "mpe3d_tpu_torch/csrc/frame_decode_pack.cu",
+           "replaces": "mpe3d_tpu/ops/frame_kernel.py:358", "launches": 0,
+           "max_abs_err": max_err, "ms": ms,
+           "plain_ms": median_ms(lambda: fk.frame_decode_pack_plain(*args,
+                                                                    **kw)),
+           "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes > t_ops else "operations",
+           "library_ms": None, "device_ms": dev_ms,
+           "case": f"{label}, {kw['prior']} prior", "path": path}
+    Cu, S, J = args[4].shape[:3]
+    print(f"  frame_decode_pack {label} (Cu={Cu}, S={S}, J={J}, "
+          f"{kw['prior']} prior, {Cu * (Cu - 1) // 2} camera pairs): "
+          f"{ms:.4f} ms, device {dev_ms:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+          f"({row['bound_by']})", flush=True)
+    return row
+
+
+def check_variant_kernels(V, report):
+    """Phase 3 at the shapes of phase 8, each held to its plain version on
+    the card: ``gat_stack`` at ARPLAB S=4 (in_dim 1082, head degree 20;
+    the random matcher, and the trained one against fp64), at BODY_25's
+    in_dim 1252 and alt-2's 362; K1/K2 at ARPLAB S=10 (H=60, E=1500,
+    D=50), both matchers; ``mlp_run`` bf16 at K0=1512 (M=8, and M=16-64
+    through ``check_run_rows``) and K0=1750 with the 75-wide head; the int8
+    ``arp_irls`` layers as one run and one layer at a time; the decode at
+    Cu=6 (IRLS, median: 15 camera pairs) and J=25; the projection on a
+    residual matcher's layer inputs."""
+    arp, arpb, b25 = V["arplab"], V["arplab_bf16"], V["body25"]
+    f4, f10 = arp.frames
+    rows = []
+    # the stack GAT kernel
+    a4 = arp.pipeline("random", GPU, True)
+    x, pw, gtopo, form = a4.gat_stage_inputs(f4[0])
+    if form != "stack" or gtopo.inc.shape[1] != 20:
+        raise AssertionError(f"ARPLAB S=4: form {form}, head degree "
+                             f"{gtopo.inc.shape}")
+    rows.append(gat_stack_entry("ARPLAB S=4, random matcher", x, pw, gtopo,
+                                a4.matcher, "arplab"))
+    t4 = arp.pipeline("trained", GPU, True)
+    check_stack_trained("ARPLAB S=4", *t4.gat_stage_inputs(f4[0])[:3],
+                        t4.matcher)
+    bp = b25.pipeline("random", GPU, True)
+    x, pw, gtopo, _ = bp.gat_stage_inputs(b25.frames[0][0])
+    rows.append(gat_stack_entry("BODY_25 S=4, in_dim 1252", x, pw, gtopo,
+                                bp.matcher, "body25"))
+    alt2 = V["alt2"].pipeline("random", GPU)
+    x, pw, gtopo, _ = alt2.stage_inputs(V["alt2"].frames[0][0])
+    rows.append(gat_stack_entry("alt-2 S=4, in_dim 362", x, pw, gtopo,
+                                alt2.matcher, "alt2"))
+    # the tiled GAT kernels at ARPLAB S=10
+    errs = []
+    for m in ("trained", "random"):
+        p10 = arp.pipeline(m, GPU, True, slots=(10,), persons=(16,),
+                           prior=CROWDED_PRIOR)
+        x, pw, gtopo, form = p10.gat_stage_inputs(f10[0])
+        if form != "tiled":
+            raise AssertionError(f"ARPLAB S=10: form {form}")
+        errs.append(check_tiled_case(f"ARPLAB S=10, {m} matcher", x, pw,
+                                     gtopo, p10.matcher))
+        if m == "trained":
+            tiled = time_tiled_kernels("ARPLAB S=10", x, pw, gtopo,
+                                       p10.matcher)
+    for r, e in zip(tiled, (max(e[0] for e in errs),
+                            max(e[1] for e in errs))):
+        r.update(max_abs_err=e, case="ARPLAB S=10", path="arplab10")
+    rows += tiled
+    # the lifter run kernel
+    ab = arpb.pipeline("random", GPU, True)
+    nets = ab.stage_inputs(f4[0])[3]
+    rows.append(run_entry("bf16 ARPLAB", ab.lifter, nets,
+                          "mpe3d_tpu/ops/fused_mlp.py:57", bf16_library,
+                          "arplab_bf16"))
+    _, _, turns = check_run_rows("bf16 ARPLAB", ab.lifter, nets, rows,
+                                 "mpe3d_tpu/ops/fused_mlp.py:57",
+                                 bf16_library)
+    rows[-1].update(case="bf16 ARPLAB, M=64", path="arplab_bf16_batch")
+    rows.append(run_entry("bf16 BODY_25", bp.lifter,
+                          bp.stage_inputs(b25.frames[0][0])[3],
+                          "mpe3d_tpu/ops/fused_mlp.py:57", bf16_library,
+                          "body25"))
+    rows += int8_entries("arp_irls", a4.lifter, a4.stage_inputs(f4[0])[3],
+                         "arplab")
+    # the decode + gather + pack kernel
+    rows.append(frame_entry("ARPLAB S=4", *a4.frame_stage_inputs(f4[0]),
+                            "arplab"))
+    rows.append(frame_entry("ARPLAB S=4", *ab.frame_stage_inputs(f4[0]),
+                            "arplab_bf16"))
+    rows.append(frame_entry("BODY_25 S=4",
+                            *bp.frame_stage_inputs(b25.frames[0][0]),
+                            "body25"))
+    # the projection on a residual matcher (the layer form's inputs)
+    res = V["residual"].pipeline("random", GPU)
+    x, pw, gtopo, _ = res.stage_inputs(V["residual"].frames[0][0])
+    before = len(rows)
+    check_proj_kernel({"S=4, residual matcher": (x, pw, gtopo,
+                                                 res.matcher)}, rows)
+    rows[before].update(case="S=4, residual matcher", path="residual")
+    report.extend(rows)
+    return turns
+
+
+def run_variant(v, matcher, frames, label, **kw):
+    """One phase 8 run: the card against the CPU on ``frames``
+    (``run_main_path``); the CPU takes the same path (the frame path's
+    plain versions where the card serves it)."""
+    gpu = v.pipeline(matcher, GPU, **kw)
+    frame_path = any(gpu.serving_path(S)[1] for S in gpu.slot_buckets)
+    cpu = v.pipeline(matcher, "cpu", True if frame_path else None, **kw)
+    return gpu, run_main_path(gpu, cpu, frames, f"{v.name}, {label}")
+
+
+def write_matcher_npz(stem, tree, cfg):
+    """A matcher checkpoint in the JAX package's npz layout
+    (``checkpoint.py``): the leaves in flatten (sorted-key) order and the
+    meta with the architecture."""
+    import dataclasses
+    import numpy as np
+    leaves = [np.asarray(layer[k]) for layer in tree["layers"]
+              for k in sorted(layer)]
+    meta = json.dumps({"matcher_config": dataclasses.asdict(cfg)}).encode()
+    np.savez(stem + ".npz", __meta_json__=np.frombuffer(meta, np.uint8),
+             **{f"p.leaf_{i:05d}": a for i, a in enumerate(leaves)})
+
+
+def check_serve_arplab(v, lines):
+    """``python3 -m mpe3d_tpu_torch serve --rig ARPLAB`` on the card over
+    stdio, on ``arp_irls``'s lifter with the random matcher (a models
+    directory in a temporary directory: the lifter linked, the matcher
+    written in the npz layout), against PoseServer on a CPU pipeline of
+    the same directory.  Returns the median latency_ms."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        for name in ("pose_estimator.npz", "pose_estimator.json"):
+            if os.path.exists(os.path.join(DEMO_ARP, name)):
+                os.symlink(os.path.join(DEMO_ARP, name),
+                           os.path.join(d, name))
+        write_matcher_npz(os.path.join(d, "skeleton_matching"),
+                          v.matchers["random"], v.mcfg)
+        argv = ("--rig", "ARPLAB", "--modelsdir", d)
+        got, err = serve_stdio(lines, 1, 1e6, *argv)
+        rc, _, cpu = cli_pipeline(*argv, "--cpu")
+        ref, _ = serve_in_process(cpu, rc, lines, 1, 1e6)
+    n, dp, dq = compare_records(got, ref, "serve --rig ARPLAB")
+    n_frames = len(lines) - 1
+    if n < n_frames // 2 or f"native {n_frames}, python 0" not in err:
+        raise AssertionError(f"serve --rig ARPLAB: {n} records with persons, "
+                             f"or the parser missed lines: {err[-2000:]}")
+    lats = [g["latency_ms"] for g in got if "latency_ms" in g]
+    print(f"  serve --rig ARPLAB (stdio, depth 1, random matcher on "
+          f"arp_irls's lifter): {len(got)} records equal to the CPU's, {n} "
+          f"with persons, max |d pose| {dp:.3g} m, max |d quality| "
+          f"{dq:.3g} px, latency_ms {lats}; the server's stderr ends: "
+          f"{err.strip()[-600:]!r}", flush=True)
+    return statistics.median(lats)
+
+
+def run_variants(V):
+    """Phase 8: each configuration on the card against the CPU.  Returns
+    (launches by report path, median frame ms by run)."""
+    from mpe3d_tpu_torch.ops.frame_kernel import frame_kernel_supported
+    arp, arpb = V["arplab"], V["arplab_bf16"]
+    f4, f10 = arp.frames
+    launches, ms = {}, {}
+    for v, key in ((arp, "arplab"), (arpb, "arplab_bf16")):
+        for m in ("trained", "random"):
+            gpu, (n, t, paths, _) = run_variant(v, m, f4, f"{m} matcher, "
+                                                f"S=4 frame path")
+            want = "int8" if key == "arplab" else "bf16"
+            if paths != {4: ("stack", True)} or gpu.serve_dtype != want:
+                raise AssertionError(f"{v.name}: paths {paths}, lifter "
+                                     f"{gpu.serve_dtype}")
+            ms[f"{v.name}, {m}, S=4"] = t
+            if m == "random":
+                launches[key] = n
+                stage_table(gpu, f4, f"{v.name}, random matcher, S=4")
+            gpu, (n, t, paths, _) = run_variant(
+                v, m, f10, f"{m} matcher, S=10 (mean prior)", slots=(4, 10),
+                persons=(8, 16), prior=CROWDED_PRIOR)
+            if paths != {10: ("tiled", True)}:
+                raise AssertionError(f"{v.name} S=10: paths {paths}")
+            ms[f"{v.name}, {m}, S=10"] = t
+            if (key, m) == ("arplab", "trained"):
+                launches["arplab10"] = n
+        launches[key + "_batch"] = run_batch_path(
+            v.pipeline("random", GPU), v.pipeline("random", "cpu", True), f4,
+            f"infer_batch, {v.name}, random matcher, {len(f4)} S=4 frames")
+    ms["serve --rig ARPLAB latency_ms"] = check_serve_arplab(
+        arp, [json.dumps(f) for f in arp.wire[:N_SHORT]]
+        + ['{"cmd": "close"}'])
+    for key, want in (("body25", ("stack", True)), ("alt2", ("stack", False)),
+                      ("alt1", ("alt1", False)),
+                      ("residual", ("layer", False))):
+        v = V[key]
+        gpu, (n, t, paths, _) = run_variant(v, "random", v.frames[0],
+                                            "random matcher")
+        if paths != {4: want} or frame_kernel_supported(gpu) != want[1]:
+            raise AssertionError(f"{v.name}: paths {paths}")
+        launches[key], ms[f"{v.name}, random"] = n, t
+    return launches, ms
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2333,6 +2826,8 @@ def main() -> int:
     check_stack_trained("S=4", x4, pw4, topo4, trained4.matcher)
     check_stack_trained("S=16", x16, pw16, stack16, trained16.matcher,
                         tiled_topo=tiled16)
+    variants = variant_setups((ltree, lcfg), prior)
+    arp_turns = check_variant_kernels(variants, report)
     phase("kernels", t0, f"all {len(report)} kernels match their plain "
           f"versions")
 
@@ -2468,9 +2963,11 @@ def main() -> int:
                      "mpe3d_tpu/ops/quant_matmul.py:73": int8_launches,
                      "mpe3d_tpu/ops/fused_proj.py:48": layer_launches}
     for k in report:
-        k["launches"] = path_launches.get(k["replaces"],
-                                          main_launches)[k["name"]]
-    missing = [k["name"] for k in report if not k["launches"]]
+        if "path" not in k:
+            k["launches"] = path_launches.get(k["replaces"],
+                                              main_launches)[k["name"]]
+    missing = [k["name"] for k in report
+               if "path" not in k and not k["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "
                              f"{missing}")
@@ -2542,7 +3039,8 @@ def main() -> int:
     for k in report:
         if k.get("path") == "batch":
             k["launches"] = batch_src[k["replaces"]][k["name"]]
-    missing = [k["name"] for k in report if not k["launches"]]
+    missing = [k["name"] for k in report
+               if k.get("path") in (None, "batch") and not k["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "
                              f"{missing}")
@@ -2552,6 +3050,29 @@ def main() -> int:
           f"({', '.join(staged)}) agrees with the CPU; serve --batch-window "
           f"4 equals --batch-window 1 (median latency_ms "
           f"{batch_lat[4]:.3f} / {batch_lat[1]:.3f})")
+
+    t0 = time.perf_counter()
+    print(f"  ARPLAB: 6 cameras on a synthetic ring rig (world-up from its Z "
+          f"entry), random matcher seed {ARPLAB_LIVE_SEED}; the lifter run "
+          f"kernel at K0=1512, device ms in turns: one M=64 launch "
+          f"{arp_turns[0]:.4f} against four M=16 launches {arp_turns[1]:.4f} "
+          f"(bf16 ARPLAB lifter; {smi})", flush=True)
+    variant_launches, variant_ms = run_variants(variants)
+    for k in report:
+        if k.get("path") in variant_launches:
+            k["launches"] = variant_launches[k["path"]][k["name"]]
+    missing = [f"{k['name']} ({k.get('case')})" for k in report
+               if not k["launches"]]
+    if missing:
+        raise AssertionError(f"kernels never launched on their path: "
+                             f"{missing}")
+    phase("second rig and graph variants", t0,
+          "ARPLAB (arp_irls int8 and a bf16 lifter, trained and random "
+          "matcher, S=4 and S=10, infer_batch, serve --rig ARPLAB), BODY_25 "
+          "on the frame path, alt-2, alt-1 and a residual matcher on the "
+          "eager path agree with the CPU; median frame ms: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in variant_ms.items())
+          + f" ({smi})")
 
     # a device time the profiler did not record is not measured: null
     for k in report:

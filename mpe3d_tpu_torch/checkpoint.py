@@ -3,7 +3,10 @@
 Format (written by ``mpe3d_tpu/train/checkpoint.py::save_checkpoint``):
 ``<stem>.npz`` holds the parameter leaves as ``p.leaf_NNNNN`` in
 ``jax.tree_util`` flatten order — dicts flatten with their keys sorted, so a
-matcher layer's leaves come as ``attn_l, attn_r, b1, b2, w1, w2`` and a
+matcher layer's leaves come as ``attn_l, attn_r, b1, b2, w1, w2`` (a
+bias-free matcher's without ``b1, b2``; a residual matcher's layers after
+the first with a projection shortcut ``wr`` and its bias ``br`` where their
+in and out widths differ, ``mpe3d_tpu/models/gat.py::init_matcher``) and a
 lifter layer's as ``b, w`` — plus the meta JSON as a uint8 leaf
 ``__meta_json__``; ``<stem>.json`` is a sidecar copy of the meta.  bf16
 servable exports (meta ``"stored": "bf16"``) store the weight bit patterns as
@@ -25,7 +28,6 @@ import torch
 
 from mpe3d_tpu_torch.config import LifterConfig, MatcherConfig, config_from_meta
 
-_MATCHER_KEYS = ("attn_l", "attn_r", "b1", "b2", "w1", "w2")
 _LIFTER_KEYS = ("b", "w")
 _INT8_KEYS = ("b", "rscale", "scale", "wq")
 
@@ -55,6 +57,20 @@ def bf16_from_bits(u16: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(u16.view(np.int16)).view(torch.bfloat16)
 
 
+def matcher_layer_keys(cfg: MatcherConfig) -> List[Tuple[str, ...]]:
+    """Each matcher layer's parameter names in flatten (sorted) order, as
+    ``init_matcher`` makes them for ``cfg``."""
+    out = []
+    for li, (d_in, d, _) in enumerate(cfg.layer_dims()):
+        keys = ["attn_l", "attn_r", "w1", "w2"]
+        if cfg.bias:
+            keys += ["b1", "b2"]
+        if cfg.residual and li > 0 and d_in != d:
+            keys += ["wr", "br"] if cfg.bias else ["wr"]
+        out.append(tuple(sorted(keys)))
+    return out
+
+
 def _unflatten(leaves, keys, n_layers: int, stem: str):
     if len(leaves) != len(keys) * n_layers:
         raise ValueError(f"{stem}: {len(leaves)} leaves, expected "
@@ -67,14 +83,20 @@ def _unflatten(leaves, keys, n_layers: int, stem: str):
 def load_matcher_checkpoint(stem: str, default_cfg: MatcherConfig
                             ) -> Tuple[Dict[str, Any], MatcherConfig]:
     """Matcher tree ``{"layers": [{attn_l, attn_r, b1, b2, w1, w2}, ...]}`` of
-    numpy arrays, and the architecture stored in the meta."""
+    numpy arrays (keys per layer as ``matcher_layer_keys``), and the
+    architecture stored in the meta."""
     leaves, meta = read_checkpoint(stem)
     cfg = config_from_meta(MatcherConfig, meta.get("matcher_config"),
                            default_cfg)
-    if cfg.residual or not cfg.bias:
-        raise NotImplementedError(
-            f"{stem}: residual or bias-free matchers are not ported")
-    return _unflatten(leaves, _MATCHER_KEYS, cfg.n_layers, stem), cfg
+    layer_keys = matcher_layer_keys(cfg)
+    if len(leaves) != sum(map(len, layer_keys)):
+        raise ValueError(f"{stem}: {len(leaves)} leaves, the matcher "
+                         f"config has {sum(map(len, layer_keys))}")
+    layers, i = [], 0
+    for keys in layer_keys:
+        layers.append(dict(zip(keys, leaves[i:i + len(keys)])))
+        i += len(keys)
+    return {"layers": layers}, cfg
 
 
 def load_lifter_checkpoint(stem: str, default_cfg: LifterConfig

@@ -5,8 +5,9 @@ Port of the serving subcommands of ``mpe3d_tpu/cli.py`` (``load_rig``
 ``cmd_serve`` :520, the parser :884-1274)::
 
     python -m mpe3d_tpu_torch serve --modelsdir models_demo/pan_irls_bf16 \\
-        [--tcp PORT] [--depth 3] [--track] [--quality-gate PX] [--warmup] \\
-        [--batch-window N] [--batch-linger-ms MS]
+        [--rig PANOPTIC|ARPLAB] [--tcp PORT] [--depth 3] [--track] \\
+        [--quality-gate PX] [--warmup] [--batch-window N] \\
+        [--batch-linger-ms MS]
     python -m mpe3d_tpu_torch infer --modelsdir DIR --testfiles f.json \\
         [--stream 3 | --batch] [--out poses.json]
 
@@ -30,12 +31,11 @@ import sys
 
 import numpy as np
 
-from mpe3d_tpu_torch.config import PANOPTIC, LifterConfig, MatcherConfig
+from mpe3d_tpu_torch.config import LifterConfig, MatcherConfig, get_rig
 
 # the lifter dtype a --serve-dtype asks weights.lifter_from_tree for; auto
 # keeps the port's default, bf16 (int8 exports serve int8 whatever it says)
 SERVE_DTYPES = {"auto": None, "bf16": None, "fp32": "fp32", "int8": "int8"}
-RIGS = {"PANOPTIC": PANOPTIC}
 
 
 def _refuse(what: str, where: str) -> None:
@@ -45,8 +45,6 @@ def _refuse(what: str, where: str) -> None:
 
 def _refuse_unported(args) -> None:
     """Exit with a message for every option the port does not have."""
-    if args.rig not in RIGS:
-        _refuse(f"--rig {args.rig}", "ROADMAP.md section 1, item 3")
     if args.no_pallas_matcher or args.fused_mlp:
         _refuse("--no-pallas-matcher / --fused-mlp (TPU kernel switches)",
                 "they have no meaning in the port: its kernels serve "
@@ -57,14 +55,15 @@ def _refuse_unported(args) -> None:
 
 
 def load_rig(args):
-    """(RigConfig, CameraRig) from ``--rig`` and ``--tm``: the calibration
-    file given, else the rig's default file where it exists, else a
-    synthetic ring rig (with a warning).  A ``--tm`` that does not exist
-    fails."""
+    """(RigConfig, CameraRig) from ``--rig`` (a preset name, any case; an
+    unknown one raises ``get_rig``'s KeyError, as the reference's
+    ``load_rig`` does) and ``--tm``: the calibration file given, else the
+    rig's default file where it exists, else a synthetic ring rig (with a
+    warning).  A ``--tm`` that does not exist fails."""
     from mpe3d_tpu_torch.data.synthetic import synthetic_ring_rig
     from mpe3d_tpu_torch.geometry.calib_io import rig_from_files
 
-    rig_config = RIGS[args.rig]
+    rig_config = get_rig(args.rig)
     tm = args.tm or rig_config.transformations_path
     if tm and os.path.exists(tm):
         return rig_config, rig_from_files(rig_config, tm)
@@ -279,7 +278,7 @@ def _add_common(p) -> None:
                    "(default: the CUDA card; without one the command "
                    "fails)")
     p.add_argument("--rig", default="PANOPTIC",
-                   help="rig preset name (the port has PANOPTIC)")
+                   help="rig preset name: PANOPTIC or ARPLAB (any case)")
     p.add_argument("--tm", default=None,
                    help="calibration file (pytransform3d pickle or JSON)")
     p.add_argument("--modelsdir", default="./models",

@@ -1,9 +1,12 @@
 """Typed configuration for the rig and the two models of the serving path.
 
-Port of ``mpe3d_tpu/config.py`` (``RigConfig`` :45, ``PANOPTIC`` :154,
-``MatcherConfig`` :225, ``LifterConfig`` :260), cut to the fields the
-PyTorch serving path reads.  Kept as a copy so the port never imports the
-JAX package.
+Port of ``mpe3d_tpu/config.py`` (the joint vocabularies :15-34,
+``RigConfig`` :45, the presets ``PANOPTIC`` :154 and ``ARPLAB`` :180 with
+``get_rig`` :210, ``MatcherConfig`` :225, ``LifterConfig`` :260).  A rig
+preset holds every field of the reference's (``dataclasses.asdict`` of
+both are equal); the model configs are cut to the fields the PyTorch
+serving path reads.  Kept as a copy so the port never imports the JAX
+package.
 """
 
 from __future__ import annotations
@@ -18,6 +21,18 @@ COCO_JOINT_NAMES: Tuple[str, ...] = (
     "left_wrist", "right_wrist", "left_hip", "right_hip",
     "left_knee", "right_knee", "left_ankle", "right_ankle", "neck",
 )
+
+# BODY_25 joint vocabulary (reference: skeleton_matching/graph_generator.py:68-74)
+BODY25_JOINT_NAMES: Tuple[str, ...] = (
+    "nose", "neck", "right_shoulder", "right_elbow", "right_hand",
+    "left_shoulder", "left_elbow", "left_hand", "hip",
+    "right_hip", "right_knee", "right_ankle", "left_hip",
+    "left_knee", "left_ankle", "right_eye", "left_eye", "right_ear",
+    "left_ear", "left_foot_ball", "left_toes", "left_heel",
+    "right_foot_ball", "right_toes", "right_heel",
+)
+
+JOINT_NAMES_BY_FORMAT = {"COCO": COCO_JOINT_NAMES, "BODY_25": BODY25_JOINT_NAMES}
 
 
 @dataclass(frozen=True)
@@ -42,11 +57,13 @@ class RigConfig:
     used_cameras_skeleton_matching: Tuple[str, ...]
     used_joints: Tuple[int, ...]
     min_number_of_views: int = 2
+    joint_format: str = "COCO"      # "COCO" (18 joints) or "BODY_25"
     numbers_per_joint: int = 14
-    graph_alternative: str = "3"
+    numbers_per_joint_for_loss: int = 4
     # default calibration file (pytransform3d pickle or JSON), relative to
     # the working directory; the CLI's --tm overrides it
     transformations_path: str = ""
+    graph_alternative: str = "3"    # matcher graph: "1", "2" or "3"
     # drawing axis map: label -> (coordinate index, direction); the
     # synthetic generator reads world-up from its "Z" entry
     axes_3d: Tuple[Tuple[str, Tuple[int, float]], ...] = (
@@ -54,8 +71,12 @@ class RigConfig:
     )
 
     @property
+    def joint_names(self) -> Tuple[str, ...]:
+        return JOINT_NAMES_BY_FORMAT[self.joint_format]
+
+    @property
     def n_joints(self) -> int:
-        return len(COCO_JOINT_NAMES)
+        return len(self.joint_names)
 
     @property
     def n_cameras(self) -> int:
@@ -79,6 +100,15 @@ class RigConfig:
         """Alt-3 head-node feature width: 2 one-hot + 10 per (matching
         camera, joint)."""
         return 2 + self.n_matching_cameras * self.n_joints * 10
+
+    def matcher_feature_dim_alt(self, alt: str = "3") -> int:
+        """Feature width per graph alternative: alt-1 node-type, joint and
+        camera one-hots + 4 joint numbers + the joint count; alt-2 4 and
+        alt-3 10 numbers per (matching camera, joint)."""
+        if alt == "1":
+            return 2 + self.n_joints + self.n_matching_cameras + 4 + 1
+        per = {"2": 4, "3": 10}[alt]
+        return 2 + self.n_matching_cameras * self.n_joints * per
 
     def used_camera_indices(self) -> Tuple[int, ...]:
         return tuple(self.camera_names.index(c) for c in self.used_cameras)
@@ -107,9 +137,51 @@ PANOPTIC = RigConfig(
     used_cameras_skeleton_matching=(
         "trackera", "trackerb", "trackerc", "trackerd", "trackere"),
     used_joints=(0, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17),
-    axes_3d=(("X", (0, 1.0)), ("Y", (2, 1.0)), ("Z", (1, -1.0))),
     transformations_path="tm_panoptic.pickle",
+    axes_3d=(("X", (0, 1.0)), ("Y", (2, 1.0)), ("Z", (1, -1.0))),
 )
+
+_ARP_F = 848.0 / 1280.0
+_ARP_ZF = 720.0 / 1080.0
+
+# ARP Lab: 4 wall cameras + 2 robot-mounted (reference: parameters.py:79-123)
+ARPLAB = RigConfig(
+    name="ARPLAB",
+    image_width=1280,
+    image_height=720,
+    camera_names=("trackera", "trackerb", "trackerc", "trackerd",
+                  "orinbot_l", "orinbot_r"),
+    fx=(634.0370 * _ARP_F, 633.6757 * _ARP_F, 636.5411 * _ARP_F,
+        635.4050 * _ARP_F, 1097.2998046875 * _ARP_ZF, 1097.2998046875 * _ARP_ZF),
+    fy=(633.5662 * _ARP_F, 633.0649 * _ARP_F, 636.1349 * _ARP_F,
+        634.5941 * _ARP_F, 1097.2998046875 * _ARP_ZF, 1097.2998046875 * _ARP_ZF),
+    cx=(631.7626 * _ARP_F, 635.7685 * _ARP_F, 638.4467 * _ARP_F,
+        638.3454 * _ARP_F, 953.3253173828125 * _ARP_ZF, 953.3253173828125 * _ARP_ZF),
+    cy=(355.3067 * _ARP_F, 358.7285 * _ARP_F, 370.3130 * _ARP_F,
+        362.9503 * _ARP_F, 553.707763671875 * _ARP_ZF, 553.707763671875 * _ARP_ZF),
+    kd0=(0.0,) * 6,
+    kd1=(0.0,) * 6,
+    kd2=(0.0,) * 6,
+    p1=(0.0,) * 6,
+    p2=(0.0,) * 6,
+    used_cameras=("trackera", "trackerb", "trackerc", "trackerd",
+                  "orinbot_l", "orinbot_r"),
+    used_cameras_skeleton_matching=("trackera", "trackerb", "trackerc",
+                                    "trackerd", "orinbot_l", "orinbot_r"),
+    used_joints=(0, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17),
+    transformations_path="tm_arp.pickle",
+    axes_3d=(("X", (0, 1.0)), ("Y", (1, 1.0)), ("Z", (2, -1.0))),
+)
+
+_RIGS: Dict[str, RigConfig] = {"PANOPTIC": PANOPTIC, "ARPLAB": ARPLAB}
+
+
+def get_rig(name: str) -> RigConfig:
+    """Look up a rig preset by name (case-insensitive)."""
+    try:
+        return _RIGS[name.upper()]
+    except KeyError:
+        raise KeyError(f"Unknown rig '{name}'. Available: {sorted(_RIGS)}") from None
 
 
 @dataclass(frozen=True)

@@ -3,9 +3,11 @@
 Port of ``mpe3d_tpu/data/synthetic.py``: ``generate_frames`` (:312),
 ``synthetic_ring_rig`` (:419) and what they call, unchanged in arithmetic
 and in the order random numbers are drawn, so the same seed gives the same
-frames as the JAX package.  Random 3D people from a COCO-18 template are
-projected through the rig with the full distortion model, plus detector-like
-pixel noise, joint dropout and spurious detections.
+frames as the JAX package.  Random 3D people from a COCO-18 template
+(BODY_25 people derived from it, ``_body25_from_coco`` :229) are projected
+through the rig with the full distortion model, plus detector-like pixel
+noise, joint dropout and spurious detections.  The ring rig takes world-up
+from the rig's "Z" axis entry (PANOPTIC: (1, -1), ARPLAB: (2, -1)).
 """
 
 from __future__ import annotations
@@ -208,6 +210,36 @@ def sample_pose(rng: np.random.Generator) -> np.ndarray:
     return pts
 
 
+# BODY_25 joint index -> COCO-18 source index for the directly-shared joints
+# (vocabularies: reference skeleton_matching/graph_generator.py:60-74).
+# BODY_25 8 (hip center) and 19-24 (foot points) are derived, not mapped.
+_B25_FROM_COCO = {
+    0: 0, 1: 17, 2: 6, 3: 8, 4: 10, 5: 5, 6: 7, 7: 9,
+    9: 12, 10: 14, 11: 16, 12: 11, 13: 13, 14: 15,
+    15: 2, 16: 1, 17: 4, 18: 3,
+}
+
+
+def _body25_from_coco(p18: np.ndarray) -> np.ndarray:
+    """A BODY_25 skeleton from an articulated COCO-18 pose in the local
+    frame (x lateral, y forward, z up): shared joints copied, the hip
+    center the hips' midpoint, heel / ball / toes points around each
+    ankle."""
+    p25 = np.zeros((25, 3), np.float32)
+    for b, c in _B25_FROM_COCO.items():
+        p25[b] = p18[c]
+    p25[8] = 0.5 * (p18[11] + p18[12])          # hip center
+    fwd = np.array([0.0, 1.0, 0.0], np.float32)
+    dz = np.array([0.0, 0.0, 1.0], np.float32)
+    for ankle, (ball, toes, heel) in ((15, (19, 20, 21)),   # left foot
+                                      (16, (22, 23, 24))):  # right foot
+        ground = p18[ankle] - 0.06 * dz
+        p25[ball] = ground + 0.10 * fwd
+        p25[toes] = ground + 0.17 * fwd
+        p25[heel] = ground - 0.06 * fwd
+    return p25
+
+
 def sample_person(rng: np.random.Generator, rig_config: RigConfig,
                   center: np.ndarray, radius: float = 1.2,
                   jitter: float = 0.02) -> np.ndarray:
@@ -220,6 +252,8 @@ def sample_person(rng: np.random.Generator, rig_config: RigConfig,
     R_yaw = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
     scale = rng.uniform(0.88, 1.10)
     local = sample_pose(rng)
+    if rig_config.joint_format == "BODY_25":
+        local = _body25_from_coco(local)
     local = (local + rng.normal(0, jitter, local.shape)) * scale
     local = local @ R_yaw.T
     # place feet near the floor through the scene center

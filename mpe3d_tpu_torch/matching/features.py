@@ -1,8 +1,8 @@
-"""Skeleton-matching graph over a static topology (alt-3 graph).
+"""Skeleton-matching graph over a static topology (alt-3 and alt-2 graphs).
 
 Port of ``mpe3d_tpu/matching/features.py``: ``PairTopology``,
 ``build_topology`` (:64, exact pair order), ``head_features`` for alt-3
-(:93, flipped y), ``edge_node_features`` (:145), ``pair_mask_from_present``
+and alt-2 (:93, flipped y), ``edge_node_features`` (:145), ``pair_mask_from_present``
 (:156), and the crowded-bucket pair pruning ``pair_ray_distances`` (:163)
 and ``prune_pair_candidates`` (:224), plain PyTorch as they are XLA code in
 the reference.  Every (camera, slot) is a potential head node and every
@@ -11,7 +11,8 @@ cross-camera slot pair a potential edge node, with presence masks.
 Head-node feature layout (alt-3): [0] head one-hot, [1] edge-node one-hot,
 then 10 numbers per (matching camera, joint), only the head's own camera
 block filled: i = (x - W/2)/(W/2), j = (H/2 - y)/(H/2) (y flipped), valid,
-prob, camera origin in world, raw-pixel ray R_cw K^-1 [x, y, 1].
+prob, camera origin in world, raw-pixel ray R_cw K^-1 [x, y, 1].  Alt-2
+keeps the first 4 of them (i, j, valid, prob) per (camera, joint).
 """
 
 from __future__ import annotations
@@ -77,36 +78,43 @@ def incident_edges(topo: PairTopology) -> np.ndarray:
 
 def head_features(kp: torch.Tensor, valid: torch.Tensor, prob: torch.Tensor,
                   observed: torch.Tensor, present: torch.Tensor,
-                  rig: CameraRig, image_size: Tuple[float, float]
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Alt-3 head-node features for every (camera, slot).
+                  rig: CameraRig, image_size: Tuple[float, float],
+                  alt: str = "3") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Alt-3 (default) or alt-2 head-node features for every (camera,
+    slot).
 
     kp [..., C, S, J, 2] raw pixels; valid/prob/observed [..., C, S, J];
     present [..., C, S] (leading dims: a batch of frames); ``rig``
-    restricted to the matching cameras (tensors).
-    Returns (feats [..., H, 2 + C*J*10], head_mask [..., H]), H = C*S."""
+    restricted to the matching cameras (tensors; alt-2 reads none of it).
+    Returns (feats [..., H, 2 + C*J*n], head_mask [..., H]), H = C*S,
+    n = 10 (alt-3) or 4 (alt-2)."""
+    if alt not in ("2", "3"):
+        raise ValueError(f"head_features: alt must be '2' or '3', got "
+                         f"{alt!r}")
     C, S, J, _ = kp.shape[-4:]
     lead = tuple(kp.shape[:-4])
     W, H_img = image_size
     m = observed.to(kp.dtype)[..., None]
     ni = (kp[..., 0:1] - W / 2.0) / (W / 2.0)
     nj = (H_img / 2.0 - kp[..., 1:2]) / (H_img / 2.0)          # flipped y
-    line_p = cam_centers_world(rig.T_cw)[:, None, None, :].expand(
-        *lead, C, S, J, 3)
-    line_v = pixel_rays_world(kp, rig.K_inv[:, None, None],
-                              rig.T_cw[:, None, None])
-    per_joint = torch.cat([ni, nj, valid[..., None], prob[..., None],
-                           line_p, line_v], -1) * m               # [C,S,J,10]
-    flat = per_joint.reshape(*lead, C, S, J * 10)
-    # each head's block goes to its own camera section of the C*J*10 vector:
-    # the (camera, camera) diagonal of [..., C, S, C, J*10]
-    blocks = torch.zeros(lead + (C, S, C, J * 10), dtype=kp.dtype,
+    parts = [ni, nj, valid[..., None], prob[..., None]]
+    if alt == "3":
+        parts.append(cam_centers_world(rig.T_cw)[:, None, None, :].expand(
+            *lead, C, S, J, 3))
+        parts.append(pixel_rays_world(kp, rig.K_inv[:, None, None],
+                                      rig.T_cw[:, None, None]))
+    per_joint = torch.cat(parts, -1) * m                      # [C,S,J,n]
+    npj = per_joint.shape[-1]
+    flat = per_joint.reshape(*lead, C, S, J * npj)
+    # each head's block goes to its own camera section of the C*J*n vector:
+    # the (camera, camera) diagonal of [..., C, S, C, J*n]
+    blocks = torch.zeros(lead + (C, S, C, J * npj), dtype=kp.dtype,
                          device=kp.device)
     blocks.diagonal(dim1=-4, dim2=-2).copy_(flat.movedim(-3, -1))
     one_hot = torch.zeros(lead + (C * S, 2), dtype=kp.dtype,
                           device=kp.device)
     one_hot[..., 0] = 1.0
-    feats = torch.cat([one_hot, blocks.reshape(*lead, C * S, C * J * 10)],
+    feats = torch.cat([one_hot, blocks.reshape(*lead, C * S, C * J * npj)],
                       -1)
     head_mask = present.reshape(*lead, C * S).to(kp.dtype)
     return feats * head_mask[..., None], head_mask

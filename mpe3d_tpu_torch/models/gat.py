@@ -1,7 +1,7 @@
-"""The GAT matcher as an ``nn.Module`` (alt-3 graph, inference).
+"""The GAT matcher as an ``nn.Module`` (alt-3 and alt-2 graphs, inference).
 
-Port of ``mpe3d_tpu/models/gat.py::apply_matcher`` (:272-330) with no
-residual and no dropout: per layer a shared fc1 -> LeakyReLU(alpha) -> fc2
+Port of ``mpe3d_tpu/models/gat.py::apply_matcher`` (:272-330) without
+dropout: per layer a shared fc1 -> LeakyReLU(alpha) -> fc2
 projection, per-destination edge softmax over the alt-3 topology (an edge
 node's in-neighbours are {itself, head1, head2}; a head's are {itself} and
 its incident live edge nodes, weighted by the pair weights), LeakyReLU
@@ -28,6 +28,17 @@ pipeline resolves it per bucket, ``PoseEstimationPipeline.serving_path``):
 
 Each takes its CUDA kernels for CUDA tensors and its plain version for CPU
 tensors.
+
+Residual matchers (``cfg.residual``: every layer but the first adds the
+shortcut ``_residual_val`` of its input to its head and edge outputs,
+``mpe3d_tpu/models/gat.py:112-122, 266-268``) serve through the layer form
+only, as the reference keeps them off its megakernel and tiled form
+(:298, :304); the shortcut's product runs in ``torch.matmul`` (fp32, TF32
+off), as the reference's is an XLA dot.  A bias-free matcher
+(``cfg.bias`` off) packs zero biases, so the stack and tiled kernels
+compute its function unchanged (a zero bias adds exactly nothing); the
+layer form gives the projection no biases at all.  The alt-1 graph has a
+matcher of its own (``matching/alt1.py``) on the same parameters.
 """
 
 from __future__ import annotations
@@ -62,30 +73,59 @@ def gat_topology(topo: PairTopology, device,
 
 
 class Matcher(nn.Module):
-    """Alt-3 GAT matcher.  ``layers``: per layer a dict of fp32 tensors
+    """GAT matcher.  ``layers``: per layer a dict of fp32 tensors
     w1 [d_in, d_in], b1 [d_in], w2 [d_in, F], b2 [F], attn_l/attn_r [nh, d]
-    (the JAX package's parameter layout)."""
+    (the JAX package's parameter layout), without b1/b2 for a bias-free
+    matcher, with the shortcut wr [d_in, F] (and br [F]) on the layers
+    after the first of a residual matcher whose widths differ."""
 
     def __init__(self, cfg: MatcherConfig, layers: List[Dict[str, torch.Tensor]]):
         super().__init__()
-        if cfg.residual or not cfg.bias:
-            raise NotImplementedError("residual or bias-free matchers")
         self.cfg = cfg
         self.dims = cfg.layer_dims()
         if len(layers) != len(self.dims):
             raise ValueError(f"{len(layers)} layers, config has "
                              f"{len(self.dims)}")
         parts = []
-        for layer, (d_in, d, nh) in zip(layers, self.dims):
+        for li, (layer, (d_in, d, nh)) in enumerate(zip(layers, self.dims)):
             want = {"w1": (d_in, d_in), "b1": (d_in,), "w2": (d_in, nh * d),
-                    "b2": (nh * d,), "attn_l": (nh, d), "attn_r": (nh, d)}
-            for k in _LAYER_ORDER:
+                    "b2": (nh * d,), "attn_l": (nh, d), "attn_r": (nh, d),
+                    "wr": (d_in, nh * d), "br": (nh * d,)}
+            proj = cfg.residual and li > 0 and d_in != d
+            keys = set(_LAYER_ORDER) - ({"b1", "b2"} if not cfg.bias else set())
+            if proj:
+                keys |= {"wr", "br"} if cfg.bias else {"wr"}
+            if set(layer) != keys:
+                raise ValueError(f"matcher layer {li}: parameters "
+                                 f"{sorted(layer)}, the config needs "
+                                 f"{sorted(keys)}")
+            for k in sorted(keys):
                 t = torch.as_tensor(layer[k], dtype=torch.float32)
                 if tuple(t.shape) != want[k]:
                     raise ValueError(f"matcher {k}: shape {tuple(t.shape)}, "
                                      f"expected {want[k]}")
-                parts.append(t.reshape(-1))
+            for k in _LAYER_ORDER:
+                parts.append(torch.as_tensor(layer[k], dtype=torch.float32)
+                             .reshape(-1) if k in layer
+                             else torch.zeros(want[k]).reshape(-1))
+            if proj:
+                self.register_buffer(f"wr{li}", torch.as_tensor(
+                    layer["wr"], dtype=torch.float32).contiguous())
+                self.register_buffer(f"br{li}", None if "br" not in layer
+                                     else torch.as_tensor(
+                                         layer["br"], dtype=torch.float32))
         self.register_buffer("flat", torch.cat(parts).contiguous())
+
+    def shortcuts(self):
+        """Per layer the residual shortcut of a residual matcher (None on
+        the first layer; "identity" where its widths agree; else (wr, br or
+        None)), or None for a matcher without."""
+        if not self.cfg.residual:
+            return None
+        return [None if li == 0 else
+                (getattr(self, f"wr{li}"), getattr(self, f"br{li}"))
+                if hasattr(self, f"wr{li}") else "identity"
+                for li in range(len(self.dims))]
 
     def forward(self, x_all: torch.Tensor, pair_w: torch.Tensor,
                 topo: GatTopology, form: str = "stack",
@@ -96,13 +136,19 @@ class Matcher(nn.Module):
         x_all is the same vector, so layer 0 projects it once."""
         args = (x_all.contiguous(), pair_w.contiguous(), topo, self.flat,
                 self.dims, self.cfg.alpha, self.cfg.hidden_slope)
-        if form == "tiled":
-            return gat_stack_tiled(*args, edge_const=edge_const)
         if form == "layer":
-            return gat_stack_plain(*args, proj=fused_linear_leaky_linear)
-        if form != "stack":
+            return gat_stack_plain(*args, proj=fused_linear_leaky_linear,
+                                   bias=self.cfg.bias,
+                                   shortcuts=self.shortcuts())
+        if form not in FORMS:
             raise ValueError(f"matcher form must be one of {FORMS}, got "
                              f"{form!r}")
+        if self.cfg.residual:
+            raise ValueError(f"a residual matcher serves through the layer "
+                             f"form, not {form!r} (the reference keeps it "
+                             f"off its stack and tiled kernels)")
+        if form == "tiled":
+            return gat_stack_tiled(*args, edge_const=edge_const)
         return gat_stack(*args, edge_const=edge_const)
 
 

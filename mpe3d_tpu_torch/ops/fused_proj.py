@@ -26,7 +26,7 @@ counts the calls that launch them.
 from __future__ import annotations
 
 import functools
-from typing import Iterator, NamedTuple, Tuple
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -117,12 +117,16 @@ def layer_plans(H: int, E: int, dims, edge_const: bool,
                  for l, (d_in, d, nh) in enumerate(dims))
 
 
-def proj_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-               w2: torch.Tensor, b2: torch.Tensor,
-               alpha: float) -> torch.Tensor:
-    """Plain version (``xla_proj``): fp32 products and sums."""
-    h = x @ w1 + b1
-    return torch.where(h >= 0, h, alpha * h) @ w2 + b2
+def proj_plain(x: torch.Tensor, w1: torch.Tensor,
+               b1: Optional[torch.Tensor], w2: torch.Tensor,
+               b2: Optional[torch.Tensor], alpha: float) -> torch.Tensor:
+    """Plain version (``xla_proj``): fp32 products and sums; a bias of None
+    is left out."""
+    h = x @ w1
+    if b1 is not None:
+        h = h + b1
+    out = torch.where(h >= 0, h, alpha * h) @ w2
+    return out if b2 is None else out + b2
 
 
 def _check(tensors, shapes, device):
@@ -141,11 +145,14 @@ def sm_count(index: int) -> int:
 
 
 def fused_linear_leaky_linear(x: torch.Tensor, w1: torch.Tensor,
-                              b1: torch.Tensor, w2: torch.Tensor,
-                              b2: torch.Tensor, alpha: float) -> torch.Tensor:
+                              b1: Optional[torch.Tensor], w2: torch.Tensor,
+                              b2: Optional[torch.Tensor],
+                              alpha: float) -> torch.Tensor:
     """leaky(x @ w1 + b1, alpha) @ w2 + b2 for x [N, D], w1 [D, D],
     w2 [D, F]: the plain version for CPU tensors, the CUDA kernels (one
-    call, two GEMM launches) for CUDA tensors."""
+    call, two GEMM launches) for CUDA tensors.  A bias of None (a bias-free
+    matcher) is left out: the kernels get zeros, as the TPU kernel's
+    wrapper pads them (``mpe3d_tpu/ops/fused_proj.py:127-132``)."""
     if x.device.type == "cpu":
         return proj_plain(x, w1, b1, w2, b2, alpha)
     if x.device.type != "cuda":
@@ -157,6 +164,10 @@ def fused_linear_leaky_linear(x: torch.Tensor, w1: torch.Tensor,
                          "matrices")
     N, D = x.shape
     F = w2.shape[1]
+    if b1 is None:
+        b1 = torch.zeros(D, dtype=torch.float32, device=dev)
+    if b2 is None:
+        b2 = torch.zeros(F, dtype=torch.float32, device=dev)
     if min(N, D, F) < 1:
         raise ValueError(f"fused_linear_leaky_linear: empty shapes N={N}, "
                          f"D={D}, F={F}")

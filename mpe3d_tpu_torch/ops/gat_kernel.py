@@ -97,16 +97,32 @@ def _leaky(v: torch.Tensor, a: float) -> torch.Tensor:
     return torch.where(v >= 0, v, a * v)
 
 
+def shortcut(x: torch.Tensor, sc, nh: int, d: int) -> torch.Tensor:
+    """The residual shortcut of a layer on its input rows x [N, d_in]
+    (``mpe3d_tpu/models/gat.py::_residual_val`` :112): x @ wr (+ br) as
+    [N, nh, d] where the layer has a projection (sc = (wr, br or None)),
+    else x broadcast over the heads (sc = "identity", d_in == d)."""
+    if isinstance(sc, str):
+        return x[:, None, :]
+    wr, br = sc
+    r = x @ wr
+    return (r if br is None else r + br).view(-1, nh, d)
+
+
 def gat_stack_plain(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
                     flat: torch.Tensor, dims: Dims, alpha: float,
                     slope: float, edge_const: bool = False,
-                    proj=proj_plain) -> torch.Tensor:
+                    proj=proj_plain, bias: bool = True,
+                    shortcuts=None) -> torch.Tensor:
     """Plain PyTorch version: x [H+E, in_dim], pw [E] -> logits [E].  Each
     layer projects its rows with ``proj(x, w1, b1, w2, b2, alpha)``: the
     plain fc1 -> LeakyReLU -> fc2, or the fused projection kernel
-    (``ops/fused_proj.py``) in the per-layer form (``models/gat.py``).
-    Under ``edge_const`` layer 0 projects rows 0..H and gives every edge
-    row H's projection."""
+    (``ops/fused_proj.py``) in the per-layer form (``models/gat.py``),
+    given None biases where ``bias`` is off (the packed ones are zeros).
+    ``shortcuts`` (a residual matcher, the layer form): per layer None or
+    the residual shortcut (``shortcut``) added to its head and edge
+    outputs.  Under ``edge_const`` layer 0 projects rows 0..H and gives
+    every edge row H's projection."""
     H, E = topo.n_heads, topo.n_pairs
     e1, e2 = topo.e1.long(), topo.e2.long()
     inc = topo.inc.long()
@@ -116,6 +132,9 @@ def gat_stack_plain(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
     layers = layer_views(flat, dims)
     for l, ((d_in, d, nh), (w1, b1, w2, b2, al, ar)) in enumerate(
             zip(dims, layers)):
+        if not bias:
+            b1 = b2 = None
+        sc = None if shortcuts is None else shortcuts[l]
         if edge_const and l == 0:
             z = proj(x[:H + 1], w1, b1, w2, b2, alpha)
             z = torch.cat([z[:H], z[H:].expand(E, -1)])       # [N, F]
@@ -134,6 +153,9 @@ def gat_stack_plain(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
         att = torch.softmax(logits, -1)                       # [E, nh, 3]
         out_e = (att[..., 0:1] * ze + att[..., 1:2] * zh[e1]
                  + att[..., 2:3] * zh[e2])                    # [E, nh, d]
+        if sc is not None:
+            r = shortcut(x, sc, nh, d)
+            out_e = out_e + r[H:]
         if l == len(dims) - 1:
             return out_e.reshape(E)
 
@@ -146,6 +168,8 @@ def gat_stack_plain(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
         denom = es + xw.sum(1)
         num = es[..., None] * zh + (xw[..., None] * ze[inc]).sum(1)
         out_h = num / denom[..., None]                        # [H, nh, d]
+        if sc is not None:
+            out_h = out_h + r[:H]
         x = _leaky(torch.cat([out_h.reshape(H, -1), out_e.reshape(E, -1)]),
                    slope)
     raise ValueError("empty layer list")

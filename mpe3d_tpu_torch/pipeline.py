@@ -3,7 +3,8 @@ or the staged debug path.
 
 Port of ``mpe3d_tpu/pipeline.py``: the fused serving path
 (``PoseEstimationPipeline.infer_fused`` :1215, program body ``_fused_impl``
-:804-892): alt-3 features -> GAT pair scores -> greedy decode on the device
+:804-892): matcher features of the rig's graph alternative -> GAT pair
+scores (``_score_core`` :585-645) -> greedy decode on the device
 -> per-person gather -> the 3D backend -> poses in metres plus the
 reprojection quality column.  The 3D backend is the MLP lifter (the lifter
 input with its triangulated prior, ``backend="mlp"``) or the classical
@@ -20,6 +21,10 @@ package probes its kernels per bucket (``pipeline.py:59-164``):
   kernels a layer) when the bucket has E >= 1000 pairs (where the
   reference retires its megakernel, ``pipeline.py:80-93``), heads of more
   than 64 incident edges (the stack kernel's cap), or pair pruning on;
+  ``"layer"`` for a residual matcher (the reference serves it through its
+  XLA per-layer program, :343-345); ``"alt1"`` on the alt-1 graph
+  (``matching/alt1.py``: a joint-node graph, plain PyTorch as the
+  reference's is XLA);
 * the frame path (``_run_frames``, the counterpart of
   ``ops/frame_kernel.py::build_frame_program``: its "full" variant with the
   stack form, its "split" variant with the tiled form, :965-1103): the GAT,
@@ -36,10 +41,10 @@ package probes its kernels per bucket (``pipeline.py:59-164``):
   per-layer form ``"layer"`` instead: one fused projection kernel a layer
   (``ops/fused_proj.py``) and the attention in PyTorch, as the reference's
   XLA program runs ``_gat_layer``; the frame path keeps its own GAT.
-  The triangulation backend and the geometric rerank / rescue of the
-  decode (``geo_rerank``, ``geo_rescue``: ``_geo_decode_scores``) serve
-  only here, as the reference's frame kernel excludes them
-  (``frame_kernel_supported``).
+  The triangulation backend, the geometric rerank / rescue of the
+  decode (``geo_rerank``, ``geo_rescue``: ``_geo_decode_scores``), the
+  alt-1 and alt-2 graphs and residual matchers serve only here, as the
+  reference's frame kernel excludes them (``frame_kernel_supported``).
 
 The batch path (``infer_batch`` / ``submit_batch`` / ``collect_batch``,
 reference :898-1012, its offline and micro-batched throughput mode) runs B
@@ -110,6 +115,10 @@ from mpe3d_tpu_torch.geometry.camera import CameraRig, project_points
 from mpe3d_tpu_torch.geometry.triangulate import (triangulate_irls,
                                                   triangulate_median_filtered)
 from mpe3d_tpu_torch.lifting.pack import pack_lifter_input
+from mpe3d_tpu_torch.matching.alt1 import (Alt1Graph, alt1_graph,
+                                           alt1_node_features,
+                                           apply_matcher_alt1,
+                                           build_alt1_topology)
 from mpe3d_tpu_torch.matching.decode import (decode_person_proposals,
                                              single_camera_bypass)
 from mpe3d_tpu_torch.matching.decode_device import (
@@ -177,19 +186,24 @@ def prune_cap(n_pairs: int, cap: int) -> int:
 
 def resolve_serving_path(n_cameras: int, slots: int, *, prune: bool,
                          cap: int = 0, frame_ok: bool = True,
-                         layer: bool = False) -> Tuple[str, bool]:
+                         layer: bool = False,
+                         alt1: bool = False) -> Tuple[str, bool]:
     """(matcher form, frame path on) of a slot bucket of ``n_cameras``
     matching cameras and ``slots`` slots.  The frame path is on when the
     configuration allows it (``frame_ok``) and the bucket fits
     ``frame_decode_pack`` with the pairs its decode gets (the compacted
-    ``cap`` under pruning).  The form is "layer" on the eager path when
-    ``layer`` is asked for; else "tiled" when the bucket has
-    E >= TILED_MIN_PAIRS pairs, a head degree D = (C-1)*S above the stack
-    kernel's MAX_D, or pruning on; else "stack"."""
+    ``cap`` under pruning).  The form is "alt1" on the alt-1 graph
+    (``alt1``, never on the frame path); "layer" on the eager path when
+    ``layer`` is asked for (or the matcher is residual); else "tiled" when
+    the bucket has E >= TILED_MIN_PAIRS pairs, a head degree
+    D = (C-1)*S above the stack kernel's MAX_D, or pruning on; else
+    "stack"."""
     E = n_cameras * (n_cameras - 1) // 2 * slots * slots
     D = (n_cameras - 1) * slots
     E_dec = prune_cap(E, cap) if prune else E
     frame = frame_ok and frame_kernel_fits(E_dec, n_cameras, slots)
+    if alt1:
+        return "alt1", False
     if layer and not frame:
         return "layer", frame
     form = ("tiled" if E >= TILED_MIN_PAIRS or D > MAX_D or prune
@@ -204,8 +218,9 @@ class _Bucket(NamedTuple):
     gtopo: GatTopology       # index tensors for the matcher form
     efeats: torch.Tensor     # [E, in_dim] edge-node features
     pairs: torch.Tensor      # [E, 4] int32 decode pairs
-    form: str                # "stack", "tiled" or "layer"
+    form: str                # "stack", "tiled", "layer" or "alt1"
     dtopo: PairTopology      # the topology's arrays as device tensors
+    alt1: Optional[Alt1Graph] = None   # the alt-1 graph's edge list
 
 
 class BatchPlan(NamedTuple):
@@ -219,6 +234,7 @@ class BatchPlan(NamedTuple):
 
 
 BACKENDS = ("mlp", "triangulation")
+GRAPH_ALTERNATIVES = ("1", "2", "3")
 TRI_VARIANTS = ("median", "irls")
 PRIORS = ("mean", "median", "irls")
 # the frame buffers a submit uploads, with their dtypes (fp32 ones first:
@@ -290,8 +306,10 @@ class PoseEstimationPipeline:
                  decode_on_device: bool = False, geo_rerank: float = 0.0,
                  geo_scale: float = 0.3, geo_rescue: float = 0.0,
                  geo_rescue_dist: float = 0.05):
-        if rig_config.graph_alternative != "3":
-            raise NotImplementedError("only the alt-3 matcher graph is ported")
+        if rig_config.graph_alternative not in GRAPH_ALTERNATIVES:
+            raise ValueError(f"graph_alternative must be one of "
+                             f"{GRAPH_ALTERNATIVES}, got "
+                             f"{rig_config.graph_alternative!r}")
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got "
                              f"{backend!r}")
@@ -412,22 +430,25 @@ class PoseEstimationPipeline:
     def _bucket_state(self, slots: int) -> _Bucket:
         """The device state of a bucket (``_Bucket``)."""
         if slots not in self._topos:
+            rc = self.rig_config
             topo = build_topology(len(self.match_idx), slots)
-            form = resolve_serving_path(
-                topo.n_cameras, slots, prune=self.pair_prune_dist > 0,
-                cap=self.pair_prune_cap, frame_ok=self.frame_path_on(),
-                layer=self.use_layer_matcher)[0]
+            form = self._resolve(slots)[0]
             as_t = lambda a: torch.as_tensor(  # noqa: E731
                 a, dtype=torch.int32, device=self.device)
             self._topos[slots] = _Bucket(
-                topo, gat_topology(topo, self.device, form),
-                edge_node_features(topo.n_pairs,
-                                   self.rig_config.matcher_feature_dim,
-                                   device=self.device),
+                topo, gat_topology(topo, self.device,
+                                   "stack" if form == "alt1" else form),
+                edge_node_features(
+                    topo.n_pairs,
+                    rc.matcher_feature_dim_alt(rc.graph_alternative),
+                    device=self.device),
                 as_t(decode_pairs(topo)), form,
                 PairTopology(topo.n_cameras, slots, as_t(topo.e1),
                              as_t(topo.e2), as_t(topo.cam1),
-                             as_t(topo.cam2)))
+                             as_t(topo.cam2)),
+                None if form != "alt1" else alt1_graph(
+                    build_alt1_topology(topo, rc.n_joints, rc.joint_format),
+                    self.device))
         return self._topos[slots]
 
     def serving_path(self, slots: int) -> Tuple[str, bool]:
@@ -435,15 +456,19 @@ class PoseEstimationPipeline:
         pure function of the bucket's sizes and the configuration
         (``resolve_serving_path``).  Raises when ``use_frame_kernel=True``
         and the frame path does not serve the bucket."""
-        form, frame = resolve_serving_path(
-            len(self.match_idx), slots, prune=self.pair_prune_dist > 0,
-            cap=self.pair_prune_cap, frame_ok=self.frame_path_on(),
-            layer=self.use_layer_matcher)
+        form, frame = self._resolve(slots)
         if self.use_frame_kernel is True and not frame:
             raise ValueError(f"use_frame_kernel=True, but the frame path "
                              f"does not serve the S={slots} bucket (it "
                              f"exceeds the limits of frame_decode_pack)")
         return form, frame
+
+    def _resolve(self, slots: int) -> Tuple[str, bool]:
+        return resolve_serving_path(
+            len(self.match_idx), slots, prune=self.pair_prune_dist > 0,
+            cap=self.pair_prune_cap, frame_ok=self.frame_path_on(),
+            layer=self.use_layer_matcher or self.matcher.cfg.residual,
+            alt1=self.rig_config.graph_alternative == "1")
 
     def frame_path_on(self) -> bool:
         """Whether the configuration (on this device) lets ``submit_fused``
@@ -540,10 +565,29 @@ class PoseEstimationPipeline:
 
     def _scores(self, b: _Bucket, x, pw, gtopo):
         """Matcher scores through the bucket's form; the edge rows of x are
-        the shared alt-3 edge one-hot, so the stack and tiled forms project
-        it once."""
+        the shared alt-2/3 edge one-hot, so the stack and tiled forms
+        project it once."""
         return torch.sigmoid(self.matcher(x, pw, gtopo, b.form,
                                           edge_const=True)) * pw
+
+    def _match_scores(self, S: int, kp, valid, prob, observed, present):
+        """One frame's (full-rig buffers) matcher stage on its bucket, for
+        the rig's graph alternative (``mpe3d_tpu/pipeline.py:585-645``):
+        (scores [E], pair mask [E], node features, topology of the form:
+        the GAT topology, or the alt-1 graph)."""
+        b = self._bucket_state(S)
+        if b.form != "alt1":
+            x_all, pmask, gtopo, _, _ = self._gat_inputs(
+                S, *(a[None] for a in (kp, valid, prob, observed, present)))
+            return self._scores(b, x_all, pmask, gtopo), pmask, x_all, gtopo
+        ms = self._match_sel
+        feats, live = alt1_node_features(
+            kp[ms], valid[ms], prob[ms], observed[ms], present[ms],
+            self.image_size, self.rig_config.joint_format)
+        pmask = pair_mask_from_present(present[ms], b.gtopo.e1, b.gtopo.e2)
+        x_all = torch.cat([feats, b.efeats])
+        scores = apply_matcher_alt1(self.matcher, x_all, live, pmask, b.alt1)
+        return scores * pmask, pmask, x_all, b.alt1
 
     def _geo_decode_scores(self, scores, kp, valid, observed, topo):
         """(eligibility scores, order scores or None) of the decode under
@@ -600,9 +644,8 @@ class PoseEstimationPipeline:
     @torch.inference_mode()
     def _run(self, S: int, kp, valid, prob, observed, present):
         b = self._bucket_state(S)
-        x_all, pmask, gtopo, _, _ = self._gat_inputs(
-            S, *(a[None] for a in (kp, valid, prob, observed, present)))
-        scores = self._scores(b, x_all, pmask, gtopo)
+        scores, pmask, x_all, _ = self._match_scores(S, kp, valid, prob,
+                                                     observed, present)
         persons, person_mask = self._decode(S, scores, pmask, kp, valid,
                                             observed)
         pkp, pval, pprob, pobs = self._person_obs(persons, kp, valid, prob,
@@ -655,7 +698,7 @@ class PoseEstimationPipeline:
             self._unions[key] = (
                 GatTopology(shift(b.gtopo.e1, H), shift(b.gtopo.e2, H),
                             n * H, inc),
-                edge_node_features(n * E, self.rig_config.matcher_feature_dim,
+                edge_node_features(n * E, b.efeats.shape[1],
                                    device=self.device))
         return self._unions[key]
 
@@ -675,7 +718,8 @@ class PoseEstimationPipeline:
         ms = self._match_sel
         hfeats, _ = head_features(kp[:, ms], valid[:, ms], prob[:, ms],
                                   observed[:, ms], present[:, ms],
-                                  self.match_rig, self.image_size)
+                                  self.match_rig, self.image_size,
+                                  self.rig_config.graph_alternative)
         pmask = pair_mask_from_present(present[:, ms], b.gtopo.e1,
                                        b.gtopo.e2).reshape(-1)
         x = torch.cat([hfeats.reshape(n * b.topo.n_heads, -1), efeats], 0)
@@ -929,10 +973,7 @@ class PoseEstimationPipeline:
         """(slots, the frame's buffers on the device, scores [E], pair mask
         [E]) of the staged matcher stage, through the bucket's form."""
         S, args = self._frame_tensors(frame, self._match_slots(frame))
-        x_all, pmask, gtopo, _, _ = self._gat_inputs(
-            S, *(a[None] for a in args))
-        return (S, args, self._scores(self._bucket_state(S), x_all, pmask,
-                                      gtopo), pmask)
+        return (S, args) + self._match_scores(S, *args)[:2]
 
     def match(self, frame: FrameArrays):
         """Matcher stage: (scores [E], pair mask [E], topology, slots) on

@@ -4,8 +4,9 @@ A JAX tree given as arrays (numpy, anything ``np.asarray`` takes, or torch
 tensors) becomes the port's module state, so both packages compute with the
 same numbers:
 
-* matcher ``{"layers": [{attn_l, attn_r, b1, b2, w1, w2}, ...]}`` -> ``Matcher``
-  (fp32);
+* matcher ``{"layers": [{attn_l, attn_r, b1, b2, w1, w2}, ...]}`` (with
+  ``wr``/``br`` of a residual matcher, without ``b1``/``b2`` of a bias-free
+  one) -> ``Matcher`` (fp32);
 * lifter ``{"layers": [...]}`` -> ``Lifter``, served in the dtype
   ``serve_dtype`` resolves to (``mpe3d_tpu/pipeline.py:412-456``): a tree
   with int8 layers (``{"wq", "scale", "rscale", "b"}``) always serves int8;
@@ -92,7 +93,10 @@ def lifter_from_tree(tree: Tree, cfg: LifterConfig, device,
 
 
 def random_matcher_tree(cfg: MatcherConfig, seed: int) -> Tree:
-    """Xavier-normal (gain 1.414) weights, uniform biases, as numpy."""
+    """Xavier-normal (gain 1.414) weights, uniform biases, as numpy; the
+    keys ``init_matcher`` gives ``cfg`` (no biases when ``cfg.bias`` is
+    off; a residual matcher's shortcut wr/br on the layers after the first
+    whose widths differ)."""
     rng = np.random.default_rng(seed)
     gain = 1.414
 
@@ -105,12 +109,19 @@ def random_matcher_tree(cfg: MatcherConfig, seed: int) -> Tree:
         return rng.uniform(-bound, bound, n).astype(np.float32)
 
     layers = []
-    for d_in, d, nh in cfg.layer_dims():
-        layers.append({"attn_l": xavier(d, 1, (nh, d)),
-                       "attn_r": xavier(d, 1, (nh, d)),
-                       "b1": bias(d_in, d_in), "b2": bias(d_in, nh * d),
-                       "w1": xavier(d_in, d_in, (d_in, d_in)),
-                       "w2": xavier(d_in, nh * d, (d_in, nh * d))})
+    for li, (d_in, d, nh) in enumerate(cfg.layer_dims()):
+        layer = {"attn_l": xavier(d, 1, (nh, d)),
+                 "attn_r": xavier(d, 1, (nh, d))}
+        if cfg.bias:
+            layer["b1"] = bias(d_in, d_in)
+            layer["b2"] = bias(d_in, nh * d)
+        layer["w1"] = xavier(d_in, d_in, (d_in, d_in))
+        layer["w2"] = xavier(d_in, nh * d, (d_in, nh * d))
+        if cfg.residual and li > 0 and d_in != d:
+            layer["wr"] = xavier(d_in, nh * d, (d_in, nh * d))
+            if cfg.bias:
+                layer["br"] = bias(d_in, nh * d)
+        layers.append(layer)
     return {"layers": layers}
 
 

@@ -7,11 +7,13 @@ synthetic ring rig both command lines fall back to), and ``infer --cpu``
 must give the JAX ``cmd_infer``'s records; the tolerances are those of
 ``tests/test_torch_serve.py``.  So must ``infer --batch``, ``infer`` with
 the triangulation backend (median, IRLS) and with geo rerank / rescue, and
-``serve --batch-window 3``.  Every option the port does not have is
-refused with its ROADMAP.md item, and without a card and without ``--cpu``
+``serve --batch-window 3``, and ``serve`` / ``infer`` with ``--rig
+ARPLAB`` on ``models_demo/arp_irls`` (int8 lifter, IRLS prior).  Every
+option the port does not have is refused with its ROADMAP.md item, and without a card and without ``--cpu``
 the command fails instead of serving on the CPU.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -22,19 +24,23 @@ import pytest
 import torch
 
 from mpe3d_tpu import cli as jcli
+from mpe3d_tpu.config import ARPLAB as J_ARPLAB
 from mpe3d_tpu.config import PANOPTIC as J_PANOPTIC
 from mpe3d_tpu.data.synthetic import synthetic_ring_rig as j_ring
 from mpe3d_tpu.pipeline import PoseEstimationPipeline as JPipeline
 from mpe3d_tpu.serve import PoseServer as JPoseServer
 from mpe3d_tpu.tracking import PoseTracker as JTracker
 from mpe3d_tpu_torch import cli
-from mpe3d_tpu_torch.config import PANOPTIC
+from mpe3d_tpu_torch.config import ARPLAB, PANOPTIC
 from mpe3d_tpu_torch.data.synthetic import generate_frames, synthetic_ring_rig
 
 from test_torch_serve import assert_records_match, run_lines
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 DEMO = os.path.join(ROOT, "models_demo", "pan_irls_bf16")
+ARP_DEMO = os.path.join(ROOT, "models_demo", "arp_irls")
+# the random ARPLAB matcher's seed under which every present pair decodes
+ARP_RANDOM_SEED = 2
 GATE_PX = 40.0
 
 
@@ -90,8 +96,6 @@ def test_infer_matches_jax_cmd_infer(wire_lines, tmp_path):
     (["serve", "--multi-device"], "item 6"),
     (["serve", "--no-pallas-matcher"], "no meaning"),
     (["serve", "--fused-mlp"], "no meaning"),
-    (["serve", "--rig", "ARPLAB"], "item 3"),
-    (["infer", "--rig", "ARPLAB", "--testfiles", "f.json"], "item 3"),
     (["infer", "--fused-mlp", "--testfiles", "f.json"], "no meaning"),
 ])
 def test_unported_options_are_refused(args, message):
@@ -99,6 +103,77 @@ def test_unported_options_are_refused(args, message):
         cli.main([*args, "--cpu", "--modelsdir", DEMO])
     assert "not in the PyTorch port" in str(e.value.code)
     assert message in str(e.value.code)
+
+
+@pytest.fixture(scope="module")
+def arp_lines():
+    frames = generate_frames(ARPLAB, synthetic_ring_rig(ARPLAB), 3,
+                             n_people=(2, 3), seed=1)
+    return [json.dumps(f) for f in frames]
+
+
+@pytest.fixture(scope="module")
+def arp_random(tmp_path_factory):
+    """``models_demo/arp_irls`` with its matcher replaced by a numpy-seeded
+    one under which every present pair decodes (the trained matcher
+    decodes no person on the ring rig's frames)."""
+    from mpe3d_tpu.train.checkpoint import save_checkpoint
+    from mpe3d_tpu_torch import weights
+    from mpe3d_tpu_torch.checkpoint import load_matcher_checkpoint
+    from mpe3d_tpu_torch.config import MatcherConfig
+
+    d = tmp_path_factory.mktemp("arp_random")
+    for name in ("pose_estimator.npz", "pose_estimator.json"):
+        if os.path.exists(os.path.join(ARP_DEMO, name)):
+            os.symlink(os.path.join(ARP_DEMO, name), d / name)
+    _, mcfg = load_matcher_checkpoint(
+        os.path.join(ARP_DEMO, "skeleton_matching"),
+        MatcherConfig(in_dim=ARPLAB.matcher_feature_dim))
+    save_checkpoint(str(d / "skeleton_matching"),
+                    weights.random_matcher_tree(mcfg, ARP_RANDOM_SEED),
+                    meta={"matcher_config": dataclasses.asdict(mcfg)})
+    return str(d)
+
+
+def test_serve_rig_arplab_matches_jax(arp_lines, arp_random):
+    """``serve --rig ARPLAB`` on ``models_demo/arp_irls``'s lifter over
+    stdio against the JAX PoseServer on the same pair and frames."""
+    lines = arp_lines + ['{"cmd": "stats"}', '{"cmd": "close"}']
+    r = _run_port(["serve", "--cpu", "--rig", "ARPLAB", "--modelsdir",
+                   arp_random, "--track", "--depth", "2"],
+                  "\n".join(lines) + "\n")
+    assert r.returncode == 0, r.stderr
+    got = [json.loads(line) for line in r.stdout.splitlines()]
+    mparams, mcfg, lparams, lcfg, prior = jcli.load_models(arp_random,
+                                                           J_ARPLAB)
+    assert prior == "irls"
+    ref_pipe = JPipeline(J_ARPLAB, j_ring(J_ARPLAB), mparams, mcfg, lparams,
+                         lcfg, use_frame_kernel=False, lifter_prior=prior)
+    ref = run_lines(JPoseServer(ref_pipe, J_ARPLAB, depth=2,
+                                tracker_factory=lambda: JTracker()), lines)
+    assert_records_match(got, ref)
+    assert sum(rec.get("n_persons", 0) for rec in got) >= 3 * 2
+    assert f"native {len(arp_lines)}, python 0" in r.stderr
+
+
+def test_infer_rig_arplab_matches_jax_cmd_infer(arp_lines, arp_random,
+                                                tmp_path):
+    """``infer --rig arplab`` (any case, as ``get_rig``) against the JAX
+    ``cmd_infer``, on the trained pair and with the random matcher."""
+    path = tmp_path / "frames.json"
+    path.write_text("[" + ",".join(arp_lines) + "]")
+    n_persons = 0
+    for models in (ARP_DEMO, arp_random):
+        common = ["--modelsdir", models, "--testfiles", str(path)]
+        cli.main(["infer", "--cpu", "--rig", "arplab", *common,
+                  "--out", str(tmp_path / "p.json")])
+        jcli.main(["infer", "--rig", "arplab", *common,
+                   "--out", str(tmp_path / "j.json")])
+        got = json.loads((tmp_path / "p.json").read_text())
+        assert_records_match(got,
+                             json.loads((tmp_path / "j.json").read_text()))
+        n_persons += sum(g["n_persons"] for g in got)
+    assert n_persons >= 3 * 2
 
 
 @pytest.mark.parametrize("torch_file", ["skeleton_matching.tch",
