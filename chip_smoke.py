@@ -149,6 +149,23 @@ failure raises, and the script exits non-zero):
    frames against the CPU.  The rows of phase 3 at these shapes take
    their launches from these runs.
 
+9. evaluation and label-free lifter training: ``train_lifter`` at full
+   width (Panoptic ring rig, in_dim 1260, 29.09 M weights) for two epochs
+   of two batches of 256 (``shuffle=False``) on single-person samples, on
+   the card and on the CPU from the same numpy init, per-epoch train and
+   dev losses within ``TRAIN_RTOL``, then warm for the card's epoch times;
+   the trained lifter saved, loaded by ``from_checkpoint`` (served bf16
+   through ``mlp_run``) and evaluated by ``run_pose_metrics`` on 16 GT
+   frames, ``fused`` and ``stream=3``, trained and random matcher, on the
+   card and the CPU (counts equal, MPJPE within ``POSE_TOL_M``, AP and
+   recall equal unless a pose lies within ``POSE_TOL_M`` of a threshold;
+   the kernels' launches as the buckets' paths give them), and the
+   triangulation backend the same way; ``sm-metrics`` and
+   ``reprojection-error`` in this process on the card against ``--cpu``;
+   ``train-lifter --epochs 2`` and ``metrics-from-model --fused`` as
+   subprocesses on the card in a temporary models directory.  Reads no
+   demo directory the earlier phases do not.
+
 The last lines are the kernel table as one JSON object and the contract
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the repository beside it, the script fails before printing any
@@ -2707,6 +2724,309 @@ def run_variants(V):
     return launches, ms
 
 
+# ---------------------------------------------------------------------------
+# phase 9: evaluation and label-free lifter training
+# ---------------------------------------------------------------------------
+
+TRAIN_SEED = 3             # the numpy init of the full-width lifter
+N_TRAIN, N_DEV, TRAIN_BATCH, TRAIN_EPOCHS = 512, 128, 256, 2
+# per-epoch train and dev losses, card against CPU from the same init: the
+# same fp32 steps (TF32 off) summed in other orders; Adam's normalised
+# steps (lr 1e-4) keep the drift to about that size per step
+TRAIN_RTOL = 1e-3
+N_EVAL_FRAMES, EVAL_STREAM = 16, 3
+# the evaluation's thresholds (mm): an AP or recall entry may differ between
+# the card and the CPU only where a matched pose's error lies within the
+# poses' tolerance (POSE_TOL_M) of a threshold; MPJPE within POSE_TOL_M
+AP_THRESHOLDS_MM = tuple(range(25, 155, 25))
+
+
+def train_full_width(rig_config, rig, smi):
+    """Phase 9 (a): the full-width lifter (``LifterConfig`` defaults, in_dim
+    1260) trained for two epochs of two batches of 256 (``shuffle=False``)
+    on single-person samples, on the card and on the CPU from the same
+    numpy init; per-epoch train and dev losses within ``TRAIN_RTOL``.  Then
+    the card's run again, warm, for its epoch times.  Returns (the card's
+    trained tree, its LifterConfig)."""
+    import dataclasses
+
+    from mpe3d_tpu_torch.config import LifterConfig, LifterTrainConfig
+    from mpe3d_tpu_torch.data.synthetic import generate_single_person_frames
+    from mpe3d_tpu_torch.train.lifter import init_lifter_tree, train_lifter
+    from mpe3d_tpu_torch.train.lifter_data import build_lifter_dataset
+
+    wire = generate_single_person_frames(rig_config, rig, 160, seed=11)
+    net, err = build_lifter_dataset(wire, rig_config, rig, device=GPU)
+    if len(net) < N_TRAIN + N_DEV:
+        raise AssertionError(f"lifter dataset: {len(net)} samples")
+    data = (net[:N_TRAIN], err[:N_TRAIN], net[N_TRAIN:N_TRAIN + N_DEV],
+            err[N_TRAIN:N_TRAIN + N_DEV])
+    cfg = LifterConfig(in_dim=rig_config.lifter_input_dim,
+                       out_dim=rig_config.n_joints * 3)
+    tcfg = LifterTrainConfig(epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH,
+                             eval_every=1, shuffle=False)
+    init = init_lifter_tree(cfg, TRAIN_SEED)
+    runs = {}
+    for device in (GPU, "cpu"):
+        t = time.perf_counter()
+        runs[device] = (train_lifter(*data, rig_config, rig, cfg, tcfg,
+                                     params=init, log=lambda s: None,
+                                     device=device),
+                        time.perf_counter() - t)
+    hist = {d: [(h["train_loss"], h["val_loss"]) for h in r.history]
+            for d, (r, _) in runs.items()}
+    worst = max(abs(a / b - 1.0) for g, c in zip(hist[GPU], hist["cpu"])
+                for a, b in zip(g, c))
+    if len(hist[GPU]) != TRAIN_EPOCHS or worst > TRAIN_RTOL:
+        raise AssertionError(f"train_lifter: card {hist[GPU]} against CPU "
+                             f"{hist['cpu']} (max rel {worst:.3g}, tol "
+                             f"{TRAIN_RTOL})")
+    card = runs[GPU][0]
+
+    def epoch_seconds(res):
+        ends = [h["elapsed_s"] for h in res.history]
+        return [ends[0]] + [b - a for a, b in zip(ends, ends[1:])]
+
+    # the same training again, warm (the allocator's pool and cuBLAS
+    # started by the first call), for the card's steady epoch time
+    warm = train_lifter(*data, rig_config, rig, cfg,
+                        dataclasses.replace(tcfg, epochs=TRAIN_EPOCHS + 2),
+                        params=init, log=lambda s: None, device=GPU)
+    n_weights = sum(a * b for a, b in cfg.layer_dims())
+    warm_s = epoch_seconds(warm)
+    print(f"  train_lifter at full width ({n_weights} weights), {N_TRAIN} "
+          f"train / {N_DEV} dev samples, batch {TRAIN_BATCH}, "
+          f"{TRAIN_EPOCHS} epochs: losses (train, dev) card {hist[GPU]}, "
+          f"CPU {hist['cpu']}, max rel difference {worst:.3g}; card seconds "
+          f"a epoch (dev evaluation included) "
+          f"{[round(t, 4) for t in epoch_seconds(card)]}, whole call "
+          f"{runs[GPU][1]:.2f} s; warm, {TRAIN_EPOCHS + 2} epochs: "
+          f"{[round(t, 4) for t in warm_s]} s a epoch, train samples a "
+          f"second {[round(N_TRAIN / t, 1) for t in warm_s]}; CPU whole "
+          f"call {runs['cpu'][1]:.2f} s ({smi})", flush=True)
+    return card.params, cfg
+
+
+def borderline_poses(cpu, frames, gts, used_joints) -> int:
+    """Matched poses of the CPU's ``infer_fused`` whose error (m) lies
+    within ``POSE_TOL_M`` of an AP threshold."""
+    import numpy as np
+    from mpe3d_tpu_torch.eval.pose_metrics import (best_permutation,
+                                                   pose_error_table)
+    near = 0
+    for fa, gt in zip(frames, gts):
+        poses = cpu.infer_fused(fa).poses
+        table = pose_error_table(gt.gt3d, gt.gt_valid, poses, used_joints)
+        for g, r in enumerate(best_permutation(table)):
+            if r < len(poses):
+                near += int(any(abs(table[g, r] * 1e3 - th)
+                                < POSE_TOL_M * 1e3
+                                for th in AP_THRESHOLDS_MM))
+    return near
+
+
+def compare_pose_reports(got, ref, near, label):
+    """Counts equal, MPJPE within POSE_TOL_M, AP and recall a threshold
+    equal unless ``near`` poses lie near a threshold."""
+    for k in ("n_gt", "n_poses", "n_matched", "n_frames"):
+        if got[k] != ref[k]:
+            raise AssertionError(f"{label}: {k} {got[k]} != CPU {ref[k]}")
+    d_mpjpe = abs(got["mpjpe_mm"] - ref["mpjpe_mm"])
+    if not d_mpjpe <= POSE_TOL_M * 1e3:
+        raise AssertionError(f"{label}: MPJPE {got['mpjpe_mm']} against CPU "
+                             f"{ref['mpjpe_mm']}")
+    d_ap = max(abs(got["ap_per_threshold"][t][m]
+                   - ref["ap_per_threshold"][t][m])
+               for t in ref["ap_per_threshold"] for m in ("ap", "recall"))
+    if near == 0 and d_ap > 1e-9:
+        raise AssertionError(f"{label}: AP/recall differ by {d_ap} with no "
+                             f"pose near a threshold")
+    return d_mpjpe, d_ap
+
+
+def eval_on_card(rig_config, rig, ltree, lcfg, matchers, mcfg, smi, d):
+    """Phase 9 (b)-(d) in the models directory ``d``: the trained lifter
+    served bf16 through the kernels by ``run_pose_metrics`` (fused and
+    stream), ``sm-metrics`` and ``reprojection-error`` in this process,
+    then ``train-lifter`` and ``metrics-from-model --fused`` as
+    subprocesses.  Returns the launches of the fused evaluation run."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    from mpe3d_tpu_torch import cli, weights
+    from mpe3d_tpu_torch.checkpoint import save_checkpoint
+    from mpe3d_tpu_torch.data.frames import load_eval_frames
+    from mpe3d_tpu_torch.data.synthetic import (generate_frames,
+                                                generate_single_person_frames,
+                                                write_frames)
+    from mpe3d_tpu_torch.eval.runners import run_pose_metrics
+    from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
+
+    models = os.path.join(d, "models")
+    save_checkpoint(os.path.join(models, "pose_estimator"), ltree,
+                    meta={"lifter_config": lcfg, "prior": "mean"})
+    write_matcher_npz(os.path.join(models, "skeleton_matching"),
+                      matchers["random"], mcfg)
+    test = os.path.join(d, "test.json")
+    write_frames(generate_frames(rig_config, rig, N_EVAL_FRAMES,
+                                 n_people=(2, 3), seed=21), test)
+    fas, gts = load_eval_frames([test], rig_config)
+
+    def pipe(tree, device, **kw):
+        p = PoseEstimationPipeline.from_checkpoint(
+            models, rig, rig_config, device=device, serve_dtype=None,
+            slot_buckets=(4,), person_buckets=(8,), **kw)
+        p.matcher = weights.matcher_from_tree(tree, mcfg, device)
+        return p
+
+    fused_launches, lines = None, []
+    for mlabel, tree in matchers.items():
+        gpu, cpu = pipe(tree, GPU), pipe(tree, "cpu", use_frame_kernel=True)
+        if gpu.serve_dtype != "bf16" or not gpu.frame_path_on():
+            raise AssertionError(f"the trained lifter serves "
+                                 f"{gpu.serve_dtype}, frame path "
+                                 f"{gpu.frame_path_on()}")
+        near = borderline_poses(cpu, fas, gts, rig_config.used_joints)
+        for mode in (dict(fused=True), dict(stream=EVAL_STREAM)):
+            label = f"run_pose_metrics {mode}, {mlabel} matcher"
+            reset_launches()
+            got = run_pose_metrics((fas, gts), rig_config, gpu, datastep=1,
+                                   **mode)
+            launches = read_launches()
+            want = expected_launches(gpu, fas)
+            if launches != want:
+                raise AssertionError(f"{label}: launches {launches}, "
+                                     f"expected {want}")
+            ref = run_pose_metrics((fas, gts), rig_config, cpu, datastep=1,
+                                   **mode)
+            d_mpjpe, d_ap = compare_pose_reports(got, ref, near, label)
+            fused_launches = fused_launches or launches
+            lines.append(
+                f"{label}: n_gt {got['n_gt']}, n_poses {got['n_poses']}, "
+                f"n_matched {got['n_matched']} (= CPU), MPJPE "
+                f"{got['mpjpe_mm']:.3f} mm (CPU {ref['mpjpe_mm']:.3f}), mAP "
+                f"{got['mAP']:.3f} (CPU {ref['mAP']:.3f}), max |d AP/recall| "
+                f"{d_ap:.3g} with {near} poses within {POSE_TOL_M * 1e3:g} "
+                f"mm of a threshold, t_e2e_ms {got['t_e2e_ms']:.3f}, "
+                f"launches {launches}")
+    # the triangulation backend (median filter) on the eager path: some
+    # poses within centimetres of the GT, so the AP comparison has hits
+    tri = {dev: PoseEstimationPipeline(
+        rig_config, rig, weights.matcher_from_tree(matchers["random"], mcfg,
+                                                   dev), None,
+        slot_buckets=(4,), person_buckets=(8,), device=dev,
+        backend="triangulation", tri_variant="median")
+        for dev in (GPU, "cpu")}
+    near = borderline_poses(tri["cpu"], fas, gts, rig_config.used_joints)
+    label = "run_pose_metrics fused, triangulation backend, random matcher"
+    reset_launches()
+    got = run_pose_metrics((fas, gts), rig_config, tri[GPU], datastep=1,
+                           fused=True)
+    launches = read_launches()
+    if launches["gat_stack"] != len(fas):
+        raise AssertionError(f"{label}: launches {launches}")
+    ref = run_pose_metrics((fas, gts), rig_config, tri["cpu"], datastep=1,
+                           fused=True)
+    d_mpjpe, d_ap = compare_pose_reports(got, ref, near, label)
+    if got["mAP"] <= 0:
+        raise AssertionError(f"{label}: no hit at any threshold")
+    lines.append(f"{label}: n_poses {got['n_poses']}, n_matched "
+                 f"{got['n_matched']} (= CPU), MPJPE {got['mpjpe_mm']:.3f} mm "
+                 f"(CPU {ref['mpjpe_mm']:.3f}), mAP {got['mAP']:.3f} (CPU "
+                 f"{ref['mAP']:.3f}), max |d AP/recall| {d_ap:.3g} with "
+                 f"{near} poses near a threshold, launches {launches}")
+    for ln in lines:
+        print(f"  {ln} ({smi})", flush=True)
+
+    def report(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+        text = out.getvalue()
+        return json.loads(text[text.index("{"):])
+
+    for command in (["sm-metrics", "--datastep", "1"],
+                    ["reprojection-error", "--showgt"]):
+        argv = [*command, "--modelsdir", models, "--testfiles", test]
+        got, ref = report(argv), report([*argv, "--cpu"])
+        if got["n_frames"] != ref["n_frames"] or got["n_frames"] == 0:
+            raise AssertionError(f"{command[0]}: n_frames {got['n_frames']}"
+                                 f" against CPU {ref['n_frames']}")
+        if command[0] == "sm-metrics":
+            diff = max(abs(got[k] - ref[k]) for k in ("ari", "homogeneity",
+                                                      "completeness",
+                                                      "v_measure"))
+            tol = 1e-9
+        else:
+            a = np.array([got[s][m] for s in ("mlp", "triangulation", "gt")
+                          for m in ("mean_px", "median_px")], np.float64)
+            b = np.array([ref[s][m] for s in ("mlp", "triangulation", "gt")
+                          for m in ("mean_px", "median_px")], np.float64)
+            if not np.array_equal(np.isnan(a), np.isnan(b)):
+                raise AssertionError(f"{command[0]}: cameras without "
+                                     f"errors differ from the CPU's")
+            diff = float(np.abs(np.nan_to_num(a - b)).max())
+            tol = QUALITY_TOL_PX
+        if not diff <= tol:
+            raise AssertionError(f"{command[0]} on the card against the CPU:"
+                                 f" max difference {diff} (tol {tol})")
+        print(f"  python -m mpe3d_tpu_torch {' '.join(command)} on the card "
+              f"(in this process): {json.dumps(got)[:400]}; against --cpu: "
+              f"max difference {diff:.3g} (tol {tol})", flush=True)
+
+    sub = os.path.join(d, "cli_models")
+    for name, n, seed in (("train", 64, 12), ("dev", 16, 13)):
+        write_frames(generate_single_person_frames(rig_config, rig, n,
+                                                   seed=seed),
+                     os.path.join(d, f"{name}.json"))
+    t = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "mpe3d_tpu_torch", "train-lifter",
+         "--modelsdir", sub, "--trainset", os.path.join(d, "train.json"),
+         "--devset", os.path.join(d, "dev.json"), "--epochs", "2",
+         "--batch-size", str(TRAIN_BATCH)], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    t_train = time.perf_counter() - t
+    if (r.returncode != 0 or "best dev loss" not in r.stdout
+            or not os.path.exists(os.path.join(sub, "pose_estimator.npz"))):
+        raise AssertionError(f"train-lifter: rc {r.returncode}\n{r.stdout}"
+                             f"\n{r.stderr[-3000:]}")
+    for f in ("skeleton_matching.npz",):
+        shutil.copy(os.path.join(models, f), os.path.join(sub, f))
+    t = time.perf_counter()
+    m = subprocess.run(
+        [sys.executable, "-m", "mpe3d_tpu_torch", "metrics-from-model",
+         "--modelsdir", sub, "--testfiles", test, "--fused", "--datastep",
+         "1"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    t_metrics = time.perf_counter() - t
+    rep = (json.loads(m.stdout[m.stdout.index("{"):])
+           if m.returncode == 0 and "{" in m.stdout else None)
+    if (rep is None or rep["n_frames"] != N_EVAL_FRAMES
+            or rep["n_poses"] == 0 or not np.isfinite(rep["mpjpe_mm"])):
+        raise AssertionError(f"metrics-from-model: rc {m.returncode}\n"
+                             f"{m.stdout}\n{m.stderr[-3000:]}")
+    print(f"  python -m mpe3d_tpu_torch train-lifter --epochs 2 (subprocess, "
+          f"full width, {t_train:.1f} s): "
+          f"{' | '.join(r.stdout.strip().splitlines()[-2:])}; "
+          f"metrics-from-model --fused on its checkpoint (subprocess, "
+          f"{t_metrics:.1f} s): n_frames {rep['n_frames']}, n_poses "
+          f"{rep['n_poses']}, MPJPE {rep['mpjpe_mm']:.1f} mm, t_e2e_ms "
+          f"{rep['t_e2e_ms']:.3f} ({smi})", flush=True)
+    return fused_launches
+
+
+def run_eval_and_training(rig_config, rig, matchers, mcfg, smi):
+    """Phase 9: ``train_full_width`` then ``eval_on_card`` in a temporary
+    directory."""
+    import tempfile
+    ltree, lcfg = train_full_width(rig_config, rig, smi)
+    with tempfile.TemporaryDirectory() as d:
+        return eval_on_card(rig_config, rig, ltree, lcfg, matchers, mcfg,
+                            smi, d)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3073,6 +3393,17 @@ def main() -> int:
           "eager path agree with the CPU; median frame ms: "
           + "; ".join(f"{k} {v:.3f}" for k, v in variant_ms.items())
           + f" ({smi})")
+
+    t0 = time.perf_counter()
+    eval_launches = run_eval_and_training(rig_config, rig, matchers, mcfg,
+                                          smi)
+    phase("evaluation and training", t0,
+          f"train_lifter at full width on the card tracks the CPU within "
+          f"{TRAIN_RTOL} a epoch; run_pose_metrics (fused, stream "
+          f"{EVAL_STREAM}) serves the trained lifter through the kernels "
+          f"(launches {eval_launches}) with the CPU's counts; sm-metrics, "
+          f"reprojection-error, train-lifter and metrics-from-model run on "
+          f"the card ({smi})")
 
     # a device time the profiler did not record is not measured: null
     for k in report:

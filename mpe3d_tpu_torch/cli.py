@@ -1,8 +1,11 @@
-"""Command line of the PyTorch port: ``serve`` and ``infer``.
+"""Command line of the PyTorch port: serving, evaluation and lifter
+training.
 
-Port of the serving subcommands of ``mpe3d_tpu/cli.py`` (``load_rig``
-:35, ``load_models`` :54, ``build_pipeline`` :133, ``cmd_infer`` :454,
-``cmd_serve`` :520, the parser :884-1274)::
+Port of ``mpe3d_tpu/cli.py`` (``load_rig`` :35, ``load_models`` :54,
+``build_pipeline`` :133, ``cmd_train_lifter`` :303, the evaluation
+commands :392-452, ``cmd_infer`` :454, ``cmd_serve`` :520,
+``cmd_merge_jsons`` and ``cmd_generate_synthetic`` :671-691, the parser
+:884-1274)::
 
     python -m mpe3d_tpu_torch serve --modelsdir models_demo/pan_irls_bf16 \\
         [--rig PANOPTIC|ARPLAB] [--tcp PORT] [--depth 3] [--track] \\
@@ -10,16 +13,32 @@ Port of the serving subcommands of ``mpe3d_tpu/cli.py`` (``load_rig``
         [--batch-linger-ms MS]
     python -m mpe3d_tpu_torch infer --modelsdir DIR --testfiles f.json \\
         [--stream 3 | --batch] [--out poses.json]
+    python -m mpe3d_tpu_torch metrics-from-model --modelsdir DIR \
+        --testfiles f.json [--fused | --stream N | --device-decode] \
+        [--dedup-gt] [--dataset-tm TM]    (also metrics-from-triangulation)
+    python -m mpe3d_tpu_torch sm-metrics [--unassigned singleton] ...
+    python -m mpe3d_tpu_torch sm-metrics-without-gt --testfiles a.json ...
+    python -m mpe3d_tpu_torch reprojection-error [--showgt] ...
+    python -m mpe3d_tpu_torch generate-synthetic --output f.json \
+        [--single-person] [--frames 200]
+    python -m mpe3d_tpu_torch merge-jsons a.json b.json out.json
+    python -m mpe3d_tpu_torch train-lifter --modelsdir DIR \
+        --trainset t.json --devset d.json [--resume] [--optimise-matrices]
+
+Each evaluation command prints the JAX command's report (a JSON object);
+``train-lifter`` writes ``pose_estimator.npz`` (and ``refined_rig.npz``
+with ``--optimise-matrices``) into ``--modelsdir``.
 
 ``--backend triangulation`` (with ``--tri-variant median|irls``) and the
 geometric decode options (``--geo-rerank``, ``--geo-rescue``,
 ``--geo-rescue-dist``) serve through the eager path; a rig with one
 matching camera through the staged path's single-camera bypass.
 
-Both run on the CUDA card, or with ``--cpu`` on the CPU through the
-kernels' plain versions; without a card and without ``--cpu`` they fail.
-Options of the JAX command line that the port does not have are refused
-with the ROADMAP.md item that will bring them, never ignored.
+Commands that use a device run on the CUDA card, or with ``--cpu`` on the
+CPU through the kernels' plain versions; without a card and without
+``--cpu`` they fail.  Commands and options of the JAX command line that
+the port does not have are refused with the ROADMAP.md item that will
+bring them, never ignored.
 """
 
 from __future__ import annotations
@@ -117,10 +136,11 @@ def load_models(models_dir: str, rig_config):
     return mtree, mcfg, ltree, lcfg, prior
 
 
-def build_pipeline(args):
+def build_pipeline(args, backend=None):
     """(RigConfig, CameraRig, PoseEstimationPipeline) of the command line,
-    on the card, or on the CPU with ``--cpu``.  A ``refined_rig.npz`` in
-    the models directory (a checkpoint trained with
+    on the card, or on the CPU with ``--cpu``; ``backend`` overrides
+    ``--backend`` (the evaluation commands fix it).  A ``refined_rig.npz``
+    in the models directory (a checkpoint trained with
     ``--optimise-matrices``) replaces the ``--tm`` calibration."""
     from mpe3d_tpu_torch import weights
     from mpe3d_tpu_torch.geometry.camera import load_rig_npz
@@ -143,7 +163,8 @@ def build_pipeline(args):
         pair_prune_dist=args.pair_prune_dist,
         pair_prune_cap=args.pair_prune_cap,
         use_frame_kernel=False if args.no_frame_kernel else None,
-        device=device, backend=args.backend, tri_variant=args.tri_variant,
+        device=device, backend=backend or args.backend,
+        tri_variant=args.tri_variant,
         geo_rerank=args.geo_rerank, geo_rescue=args.geo_rescue,
         geo_rescue_dist=args.geo_rescue_dist)
     return rig_config, rig, pipe
@@ -218,6 +239,9 @@ def cmd_serve(args) -> None:
     if args.warmup:
         pipe.warmup(fused=len(pipe.match_idx) > 1)
         native.load_library()
+        if args.track:
+            # the tracker's Hungarian solver (scipy.optimize) loads with it
+            from mpe3d_tpu_torch import tracking  # noqa: F401
     if args.warmup and args.batch_window > 1 and len(pipe.match_idx) > 1:
         # the padded batch of each slot bucket once: its plans and tables
         C, J = rig_config.n_cameras, rig_config.n_joints
@@ -250,6 +274,202 @@ def cmd_serve(args) -> None:
               file=sys.stderr, flush=True)
 
 
+def _print_report(report: dict) -> None:
+    print(json.dumps(report, indent=2, default=str))
+
+
+def _pose_metrics(args, backend: str) -> None:
+    from mpe3d_tpu_torch.data.frames import load_eval_frames
+    from mpe3d_tpu_torch.eval.runners import run_pose_metrics
+
+    rig_config, _, pipe = build_pipeline(args, backend)
+    dataset_T = None
+    if args.dataset_tm:
+        from mpe3d_tpu_torch.geometry.calib_io import load_transform_manager
+        dataset_T = load_transform_manager(args.dataset_tm).get_transform(
+            "root", rig_config.camera_names[1])
+    pipe.decode_on_device = args.device_decode
+    _print_report(run_pose_metrics(
+        load_eval_frames(args.testfiles, rig_config, args.max_skeletons),
+        rig_config, pipe, datastep=args.datastep, dataset_T_wc1=dataset_T,
+        max_skeletons=args.max_skeletons, fused=args.fused,
+        stream=args.stream, dedup_gt=args.dedup_gt))
+
+
+def cmd_metrics_from_model(args) -> None:
+    """3D accuracy and timing of the lifter pipeline (reference
+    test/metrics_from_model.py)."""
+    _pose_metrics(args, "mlp")
+
+
+def cmd_metrics_from_triangulation(args) -> None:
+    """3D accuracy and timing of the triangulation backend (reference
+    test/metrics_from_triangulation.py)."""
+    _pose_metrics(args, "triangulation")
+
+
+def cmd_sm_metrics(args) -> None:
+    """Matching quality against GT (reference test/sm_metrics.py)."""
+    from mpe3d_tpu_torch.data.frames import load_frames
+    from mpe3d_tpu_torch.eval.runners import run_sm_metrics
+
+    rig_config, _, pipe = build_pipeline(args, "triangulation")
+    pipe.decode_on_device = args.device_decode
+    frames = [f for p in args.testfiles for f in load_frames(p)]
+    _print_report(run_sm_metrics(frames, rig_config, pipe,
+                                 datastep=args.datastep,
+                                 max_skeletons=args.max_skeletons,
+                                 unassigned=args.unassigned))
+
+
+def cmd_sm_metrics_without_gt(args) -> None:
+    """GT-free matching quality on composited single-person recordings
+    (reference test/sm_metrics_without_gt.py)."""
+    from mpe3d_tpu_torch.data.frames import load_frames
+    from mpe3d_tpu_torch.eval.runners import run_sm_metrics_without_gt
+
+    rig_config, _, pipe = build_pipeline(args, "triangulation")
+    _print_report(run_sm_metrics_without_gt(
+        [load_frames(p) for p in args.testfiles], rig_config, pipe,
+        limit=args.limit))
+
+
+def cmd_reprojection_error(args) -> None:
+    """Per-camera reprojection error of the lifter's and the triangulation
+    backend's poses (reference test/reprojection_error.py)."""
+    from mpe3d_tpu_torch.data.frames import load_eval_frames
+    from mpe3d_tpu_torch.eval.runners import run_reprojection_error
+    from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
+
+    rig_config, rig, pipe = build_pipeline(args, "mlp")
+    tri = PoseEstimationPipeline(
+        rig_config, rig, pipe.matcher, None, device=pipe.device,
+        backend="triangulation", tri_variant=args.tri_variant)
+    _print_report(run_reprojection_error(
+        load_eval_frames(args.testfiles, rig_config, args.max_skeletons),
+        rig_config, pipe, tri, datastep=args.datastep,
+        max_skeletons=args.max_skeletons, show_gt=args.showgt))
+
+
+def cmd_merge_jsons(args) -> None:
+    from mpe3d_tpu_torch.data.frames import merge_frame_files
+    n = merge_frame_files(args.inputs, args.output)
+    print(f"wrote {n} frames to {args.output}")
+
+
+def cmd_generate_synthetic(args) -> None:
+    from mpe3d_tpu_torch.data.synthetic import (generate_frames,
+                                                generate_single_person_frames,
+                                                write_frames)
+
+    rig_config, rig = load_rig(args)
+    if args.single_person:
+        frames = generate_single_person_frames(rig_config, rig, args.frames,
+                                               seed=args.seed)
+    else:
+        frames = generate_frames(rig_config, rig, args.frames,
+                                 n_people=(args.min_people, args.max_people),
+                                 seed=args.seed, with_gt=not args.no_gt)
+    write_frames(frames, args.output)
+    print(f"wrote {len(frames)} frames to {args.output}")
+
+
+def cmd_train_lifter(args) -> None:
+    """Self-supervised lifter training into ``--modelsdir``
+    (``train/lifter.py``); ``--resume`` continues from its checkpoint."""
+    from mpe3d_tpu_torch.checkpoint import (checkpoint_exists,
+                                            load_lifter_checkpoint,
+                                            read_meta,
+                                            read_optimizer_leaves)
+    from mpe3d_tpu_torch.config import LifterTrainConfig
+    from mpe3d_tpu_torch.geometry.camera import load_rig_npz, save_rig_npz
+    from mpe3d_tpu_torch.train.lifter import train_lifter
+    from mpe3d_tpu_torch.train.lifter_data import (
+        build_lifter_dataset_from_files)
+
+    if args.ckpt_backend == "orbax":
+        _refuse("--ckpt-backend orbax", "orbax checkpoints, ROADMAP.md "
+                "section 1, item 8")
+    device = "cpu" if args.cpu else "cuda"
+    rig_config, rig = load_rig(args)
+    tcfg = LifterTrainConfig(epochs=args.epochs, batch_size=args.batch_size,
+                             optimise_matrices=args.optimise_matrices,
+                             seed=args.seed, loss=args.loss,
+                             checkpoint_backend=args.ckpt_backend,
+                             ema_decay=args.ema,
+                             compute_dtype=args.compute_dtype)
+    ckpt_path = os.path.join(args.modelsdir, "pose_estimator")
+    refined_rig_path = os.path.join(args.modelsdir, "refined_rig.npz")
+    if args.resume:
+        # checked before the dataset build: a bad resume fails at once
+        if not checkpoint_exists(ckpt_path):
+            sys.exit(f"--resume: no checkpoint at {ckpt_path} (.npz or "
+                     f".orbax/) -- drop --resume to train fresh")
+        if not os.path.exists(ckpt_path + ".npz"):
+            _refuse(f"resuming the orbax checkpoint {ckpt_path}.orbax",
+                    "orbax checkpoints, ROADMAP.md section 1, item 8")
+        meta = read_meta(ckpt_path)
+        if meta.get("stored"):
+            sys.exit(f"{ckpt_path} is a serving-only export (stored="
+                     f"{meta.get('stored')}) -- it has no fp32 master "
+                     f"weights to resume from")
+        ck_prior = meta.get("prior", "mean")
+        if ck_prior != args.prior:
+            sys.exit(f"{ckpt_path} was trained with prior={ck_prior}; pass "
+                     f"--prior {ck_prior} or use a fresh --modelsdir")
+        if os.path.exists(refined_rig_path):
+            # the loaded weights co-adapted to the refined calibration
+            rig = load_rig_npz(refined_rig_path)
+            print(f"[mpe3d_torch] resuming with refined calibration "
+                  f"{refined_rig_path}", file=sys.stderr)
+    net_t, err_t = build_lifter_dataset_from_files(
+        args.trainset, rig_config, rig, cache=args.cache, prior=args.prior,
+        device=device)
+    net_d, err_d = build_lifter_dataset_from_files(
+        args.devset, rig_config, rig, cache=args.cache, prior=args.prior,
+        device=device)
+    print(f"dataset length: {len(net_t)} (dev {len(net_d)})")
+    lcfg = LifterConfig(in_dim=rig_config.lifter_input_dim,
+                        out_dim=rig_config.n_joints * 3,
+                        residual_prior=args.residual_prior)
+    params = opt_state = None
+    if args.resume:
+        # the architecture recorded in the meta overrides the flags
+        params, lcfg, _ = load_lifter_checkpoint(ckpt_path, lcfg)
+        opt_state = read_optimizer_leaves(ckpt_path)
+        meta = read_meta(ckpt_path)
+        print(f"resuming from {ckpt_path} (epoch {meta.get('epoch')}, "
+              f"val {meta.get('val_loss')}, "
+              f"opt_state={'yes' if opt_state is not None else 'no'})")
+    res = train_lifter(net_t, err_t, net_d, err_d, rig_config, rig, lcfg,
+                       tcfg, checkpoint_path=ckpt_path, params=params,
+                       opt_state=opt_state,
+                       extra_meta={"prior": args.prior}, device=device)
+    print(f"best dev loss {res.best_val_loss:.6f} after {res.epochs_run} "
+          f"epochs \u2192 {ckpt_path} [{tcfg.checkpoint_backend}]")
+    if res.rig is not None:
+        save_rig_npz(refined_rig_path, res.rig)
+        print(f"refined calibration (--optimise-matrices) \u2192 "
+              f"{refined_rig_path}")
+    elif not args.resume and os.path.exists(refined_rig_path):
+        # a fresh run trained against the original rig: a refined
+        # calibration left in this directory would be paired with it
+        os.remove(refined_rig_path)
+        print(f"[mpe3d_torch] removed stale {refined_rig_path} (this run "
+              f"did not refine the calibration)", file=sys.stderr)
+
+
+# commands of the JAX command line that later slices port
+REFUSED_COMMANDS = {
+    "train-matcher": "matcher training, ROADMAP.md section 1, item 8",
+    "show-results": "the viewers, ROADMAP.md section 1, item 9",
+    "convert-panoptic": "conversion, ROADMAP.md section 1, item 9",
+    "convert-torch": "conversion, ROADMAP.md section 1, item 9",
+    "export-torch": "conversion, ROADMAP.md section 1, item 9",
+    "export-servable": "conversion, ROADMAP.md section 1, item 9",
+}
+
+
 # ---------------------------------------------------------------------------
 # parser
 # ---------------------------------------------------------------------------
@@ -272,7 +492,7 @@ def _add_track_flags(p) -> None:
                    "(0 = raw)")
 
 
-def _add_common(p) -> None:
+def _add_common(p, models: bool = True, backend: bool = True) -> None:
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU through the kernels' plain versions "
                    "(default: the CUDA card; without one the command "
@@ -281,11 +501,14 @@ def _add_common(p) -> None:
                    help="rig preset name: PANOPTIC or ARPLAB (any case)")
     p.add_argument("--tm", default=None,
                    help="calibration file (pytransform3d pickle or JSON)")
+    if not models:
+        return
     p.add_argument("--modelsdir", default="./models",
                    help="directory with the npz checkpoints")
-    p.add_argument("--backend", choices=("mlp", "triangulation"),
-                   default="mlp", help="3D backend: the learned lifter or "
-                   "the classical triangulation (eager path)")
+    if backend:
+        p.add_argument("--backend", choices=("mlp", "triangulation"),
+                       default="mlp", help="3D backend: the learned lifter "
+                       "or the classical triangulation (eager path)")
     p.add_argument("--max-skeletons", type=int, default=10)
     p.add_argument("--serve-dtype", default="auto",
                    choices=tuple(SERVE_DTYPES),
@@ -326,7 +549,7 @@ def make_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m mpe3d_tpu_torch",
         description="Multi-person 3D pose estimation, PyTorch/CUDA port: "
-        "serve and infer")
+        "serve, infer, evaluate and train the lifter")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("infer", help="wire JSON files -> 3D poses JSON")
@@ -368,12 +591,116 @@ def make_parser() -> argparse.ArgumentParser:
                    "frames")
     _add_track_flags(p)
     p.set_defaults(fn=cmd_serve)
+
+    for name, fn in (("metrics-from-model", cmd_metrics_from_model),
+                     ("metrics-from-triangulation",
+                      cmd_metrics_from_triangulation),
+                     ("sm-metrics", cmd_sm_metrics)):
+        p = sub.add_parser(name, help=name.replace("-", " "))
+        _add_common(p, backend=False)
+        p.add_argument("--testfiles", nargs="+", required=True)
+        p.add_argument("--datastep", type=int, default=12)
+        p.add_argument("--dataset-tm", default=None,
+                       help="dataset calibration if GT is in another frame")
+        p.add_argument("--fused", action="store_true",
+                       help="infer_fused a frame (reports t_e2e_ms)")
+        p.add_argument("--stream", type=int, default=0,
+                       help="infer_stream with N frames in flight")
+        p.add_argument("--device-decode", action="store_true",
+                       help="staged path: decode on the device")
+        p.add_argument("--dedup-gt", action="store_true",
+                       help="drop duplicated GT rows before scoring "
+                       "(data/frames.py::dedup_ground_truth); default: "
+                       "the reference's raw protocol")
+        if name == "sm-metrics":
+            p.add_argument("--unassigned", default="lump",
+                           choices=["lump", "singleton"],
+                           help="label of heads the decode left "
+                           "unassigned: 'lump' (the reference protocol, "
+                           "one shared label) or 'singleton' (one each)")
+        p.set_defaults(fn=fn)
+
+    p = sub.add_parser("sm-metrics-without-gt",
+                       help="GT-free matching quality")
+    _add_common(p, backend=False)
+    p.add_argument("--testfiles", nargs="+", required=True)
+    p.add_argument("--limit", type=int, default=1000)
+    p.set_defaults(fn=cmd_sm_metrics_without_gt)
+
+    p = sub.add_parser("reprojection-error",
+                       help="per-camera reprojection error")
+    _add_common(p, backend=False)
+    p.add_argument("--testfiles", nargs="+", required=True)
+    p.add_argument("--datastep", type=int, default=1)
+    p.add_argument("--showgt", action="store_true",
+                   help="also reproject GT 3D when frames carry it")
+    p.set_defaults(fn=cmd_reprojection_error)
+
+    p = sub.add_parser("merge-jsons", help="concatenate wire files")
+    p.add_argument("inputs", nargs="+")
+    p.add_argument("output")
+    p.set_defaults(fn=cmd_merge_jsons, needs_device=False)
+
+    p = sub.add_parser("generate-synthetic",
+                       help="synthetic wire frames of the rig")
+    _add_common(p, models=False)
+    p.add_argument("--output", required=True)
+    p.add_argument("--frames", type=int, default=200)
+    p.add_argument("--single-person", action="store_true")
+    p.add_argument("--min-people", type=int, default=1)
+    p.add_argument("--max-people", type=int, default=4)
+    p.add_argument("--no-gt", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_generate_synthetic, needs_device=False)
+
+    p = sub.add_parser("train-lifter", help="self-supervised lifter "
+                       "training into --modelsdir")
+    _add_common(p, backend=False)
+    p.add_argument("--trainset", nargs="+", required=True)
+    p.add_argument("--devset", nargs="+", required=True)
+    p.add_argument("--epochs", type=int, default=10000)
+    p.add_argument("--batch-size", type=int, default=2096)
+    p.add_argument("--optimise-matrices", action="store_true",
+                   help="refine the rig's T_wc, K and dist with the lifter; "
+                   "writes refined_rig.npz")
+    p.add_argument("--cache", action="store_true",
+                   help="cache packed datasets next to the last input file")
+    p.add_argument("--seed", type=int, default=58008)
+    p.add_argument("--resume", action="store_true",
+                   help="resume the weights (and the optimizer state where "
+                   "the checkpoint holds it) from --modelsdir")
+    p.add_argument("--loss", default="reference",
+                   choices=["reference", "per_term", "huber"],
+                   help="reprojection-loss kind (lifting/loss.py)")
+    p.add_argument("--prior", default="mean",
+                   choices=["mean", "median", "irls"],
+                   help="triangulated prior of the lifter input; recorded "
+                   "in the checkpoint, read back at inference")
+    p.add_argument("--residual-prior", action="store_true",
+                   help="predict a correction to the triangulated prior "
+                   "(zero head at the start); recorded in the checkpoint")
+    p.add_argument("--ckpt-backend", default="npz",
+                   choices=["npz", "orbax"],
+                   help="checkpoint format: npz (orbax is refused)")
+    p.add_argument("--ema", type=float, default=0.0,
+                   help="EMA weight-averaging decay (0 = off)")
+    p.add_argument("--compute-dtype", default="fp32",
+                   choices=["fp32", "bf16"],
+                   help="training matmul operands: fp32, or bf16 with "
+                   "fp32 sums and fp32 master weights")
+    p.set_defaults(fn=cmd_train_lifter)
+
+    for name in REFUSED_COMMANDS:
+        sub.add_parser(name, help="not ported: refused")
     return ap
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in REFUSED_COMMANDS:
+        _refuse(f"the {argv[0]} command", REFUSED_COMMANDS[argv[0]])
     args = make_parser().parse_args(argv)
-    if not args.cpu:
+    if getattr(args, "needs_device", True) and not args.cpu:
         import torch
         if not torch.cuda.is_available():
             sys.exit("mpe3d_tpu_torch: no CUDA device is available; the "

@@ -2,7 +2,8 @@
 
 Port of ``mpe3d_tpu/config.py`` (the joint vocabularies :15-34,
 ``RigConfig`` :45, the presets ``PANOPTIC`` :154 and ``ARPLAB`` :180 with
-``get_rig`` :210, ``MatcherConfig`` :225, ``LifterConfig`` :260).  A rig
+``get_rig`` :210, ``MatcherConfig`` :225, ``LifterConfig`` :260,
+``LifterTrainConfig`` :305).  A rig
 preset holds every field of the reference's (``dataclasses.asdict`` of
 both are equal); the model configs are cut to the fields the PyTorch
 serving path reads.  Kept as a copy so the port never imports the JAX
@@ -12,7 +13,7 @@ package.
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 # COCO-18 joint vocabulary (reference: skeleton_matching/graph_generator.py:63-67)
 COCO_JOINT_NAMES: Tuple[str, ...] = (
@@ -226,6 +227,39 @@ class LifterConfig:
     def layer_dims(self):
         dims = (self.in_dim, *self.widths, self.out_dim)
         return list(zip(dims[:-1], dims[1:]))
+
+
+@dataclass(frozen=True)
+class LifterTrainConfig:
+    """Lifter training (reference: pose_estimator/train_pose_estimator.py:
+    4-10), the fields of the JAX package's, so checkpoint metas carry the
+    same keys.  An epoch takes ``n // batch_size`` full batches and drops
+    the tail (``scan_epoch``, the only mode the port has); ``shuffle=False``
+    takes them in dataset order.  ``loss``: a ``lifting/loss.py`` kind.
+    ``save_rel_improve``: save only when the dev loss improved by this
+    fraction since the last save (the best is saved at the end anyway).
+    ``compute_dtype="bf16"``: matmul operands rounded to bf16, fp32 sums
+    and fp32 master weights.  ``ema_decay`` > 0: evaluate, stop and save
+    on the Polyak average of the weights.  ``checkpoint_backend``: "npz"
+    ("orbax" is refused)."""
+
+    epochs: int = 10000
+    lr: float = 1e-4
+    batch_size: int = 2096
+    patience: int = 20
+    eval_every: int = 5
+    grad_clip_norm: float = 10.0
+    optimise_matrices: bool = False
+    max_combinations_number: int = 5
+    seed: int = 58008
+    scan_epoch: bool = True
+    shuffle: bool = True
+    loss: str = "reference"
+    huber_delta: float = 10.0
+    save_rel_improve: float = 0.02
+    checkpoint_backend: str = "npz"
+    compute_dtype: Optional[str] = None
+    ema_decay: float = 0.0
 
 
 def config_from_meta(cls, meta_section: Dict[str, Any], default):

@@ -1,6 +1,7 @@
 """Synthetic multi-camera scenes in the wire format, with numpy alone.
 
 Port of ``mpe3d_tpu/data/synthetic.py``: ``generate_frames`` (:312),
+``generate_single_person_frames`` (:398), ``write_frames`` (:414),
 ``synthetic_ring_rig`` (:419) and what they call, unchanged in arithmetic
 and in the order random numbers are drawn, so the same seed gives the same
 frames as the JAX package.  Random 3D people from a COCO-18 template
@@ -14,6 +15,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import json
 
 import numpy as np
 
@@ -385,6 +388,25 @@ def generate_frames(rig_config: RigConfig, rig: CameraRig, n_frames: int,
                                      gt_list if with_gt else None)
         frames.append(frame)
     return frames
+
+
+def generate_single_person_frames(rig_config: RigConfig, rig: CameraRig,
+                                  n_frames: int, seed: int = 0,
+                                  noise: Optional[SceneNoise] = None,
+                                  spread=1.2,
+                                  min_cam_dist: float = 0.0) -> List[Dict]:
+    """A single-person recording in the training wire format (no GT): one
+    person a frame, spurious detections as ``noise`` says; the format both
+    trainers read."""
+    return generate_frames(rig_config, rig, n_frames, n_people=(1, 1),
+                           seed=seed, noise=noise, with_gt=False,
+                           spread=spread, min_cam_dist=min_cam_dist)
+
+
+def write_frames(frames: List[Dict], path: str) -> None:
+    """Write frames as one wire JSON file."""
+    with open(path, "w") as f:
+        json.dump(frames, f)
 
 
 def synthetic_ring_rig(rig_config: RigConfig, radius: float = 3.5,

@@ -1,7 +1,8 @@
 """Pinhole-camera geometry on torch tensors.
 
-Port of ``mpe3d_tpu/geometry/camera.py``: ``undistort_points`` (:133, 10
-fixed-point iterations), ``project_points`` (:175), ``cam_centers_world``
+Port of ``mpe3d_tpu/geometry/camera.py``: ``full_distort`` (:111, radial
+and tangential), ``undistort_points`` (:133, 10 fixed-point iterations),
+``project_points`` (:175), ``cam_centers_world``
 (:207), ``pixel_rays_world`` (:213), ``save_rig_npz`` / ``load_rig_npz``
 (:243-256).  Point-wise over the last axis,
 broadcasting over leading axes, float32.  Small contractions are written as
@@ -80,6 +81,19 @@ def radial_distort(xy: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
     return xy * (1.0 + r2 * (k1 + r2 * (k2 + r2 * k3)))
 
 
+def full_distort(xy: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
+    """Radial and tangential distortion of normalized coords (the OpenCV
+    model of the Panoptic toolbox, reference panoptic_conversor/
+    panutils.py:4-27)."""
+    k1, k2, p1, p2, k3 = (dist[..., i:i + 1] for i in range(5))
+    x, y = xy[..., 0:1], xy[..., 1:2]
+    r2 = x * x + y * y
+    f = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xt = x * f + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    yt = y * f + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return torch.cat([xt, yt], -1)
+
+
 def normalize_pixels(pix: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     x = (pix[..., 0] - K[..., 0, 2]) / K[..., 0, 0]
     y = (pix[..., 1] - K[..., 1, 2]) / K[..., 1, 1]
@@ -107,15 +121,18 @@ def _hom_transform(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
 
 
 def project_points(pts_w: torch.Tensor, T_wc: torch.Tensor, K: torch.Tensor,
-                   dist: torch.Tensor, min_depth: float = 0.0) -> torch.Tensor:
-    """World points [..., 3] -> pixels [..., 2] (radial distortion).
-    ``min_depth > 0`` keeps the perspective divide finite."""
+                   dist: torch.Tensor, min_depth: float = 0.0,
+                   tangential: bool = False) -> torch.Tensor:
+    """World points [..., 3] -> pixels [..., 2]: radial distortion, or with
+    ``tangential`` the full model (``full_distort``).  ``min_depth > 0``
+    keeps the perspective divide finite."""
     pc = _hom_transform(T_wc, pts_w)
     z = pc[..., 2:3]
     if min_depth > 0.0:
         z = torch.where(torch.abs(z) < min_depth,
                         torch.where(z < 0, -min_depth, min_depth), z)
-    xy = radial_distort(pc[..., :2] / z, dist)
+    xy = pc[..., :2] / z
+    xy = full_distort(xy, dist) if tangential else radial_distort(xy, dist)
     u = xy[..., 0] * K[..., 0, 0] + K[..., 0, 2]
     v = xy[..., 1] * K[..., 1, 1] + K[..., 1, 2]
     return torch.stack([u, v], -1)

@@ -1,8 +1,11 @@
 """Lifter input packing: 14 numbers per (used camera, joint).
 
 Port of ``mpe3d_tpu/lifting/pack.py::pack_lifter_input`` (:60), written for
-a batch of persons (the reference vmaps one person), and of
-``pack_slot_fields09`` (:170), the same fields 0-9 for every detection slot.
+a batch of persons (the reference vmaps one person), of
+``pack_slot_fields09`` (:170), the same fields 0-9 for every detection slot,
+and of the training side: ``pack_error_input`` (:43, the loss's raw-pixel
+features), ``apply_camera_dropout`` and ``apply_prior_dropout``
+(:207-241, the dataset's augmentation masks).
 Layout per (camera, joint), flattened C-order [C, J, 14]:
 
   [0] wire valid flag  [1] (x - W/2)/(W/2)  [2] (y - H/2)/(H/2)  [3] prob
@@ -140,3 +143,43 @@ def pack_slot_fields09(kp: torch.Tensor, valid: torch.Tensor,
     f09 = _fields09(kp, valid, prob, observed.to(kp.dtype)[..., None], rig,
                     image_size, n_mid=1)
     return torch.cat([f09, torch.zeros_like(f09[..., :4])], -1)
+
+
+def pack_error_input(kp: torch.Tensor, valid: torch.Tensor,
+                     prob: torch.Tensor, observed: torch.Tensor
+                     ) -> torch.Tensor:
+    """The loss's raw-pixel features (reference:
+    pose_estimator_dataset_from_json.py:181-184): [valid, x, y, prob] a
+    (camera, joint), zeros where not observed.  kp [..., C, J, 2];
+    valid/prob/observed [..., C, J].  Returns [..., C*J*4]."""
+    m = observed.to(kp.dtype)
+    feats = torch.stack([valid * m, kp[..., 0] * m, kp[..., 1] * m,
+                         prob * m], -1)
+    return feats.reshape(*kp.shape[:-3], -1)
+
+
+def apply_camera_dropout(net_input: torch.Tensor, cam_keep: torch.Tensor,
+                         n_joints: int) -> torch.Tensor:
+    """Zero fields 0-9 of dropped cameras and keep the prior fields 10-13
+    (reference pose_estimator_dataset_from_json.py:219-229).  net_input
+    [..., C*J*14]; cam_keep [..., C] 0/1."""
+    shape = net_input.shape
+    C = cam_keep.shape[-1]
+    x = net_input.reshape(*shape[:-1], C, n_joints, 14)
+    field_is_obs = (torch.arange(14, device=x.device) < 10).to(x.dtype)
+    keep = cam_keep[..., :, None, None]
+    x = x * (keep * field_is_obs + (1.0 - field_is_obs))
+    return x.reshape(shape)
+
+
+def apply_prior_dropout(net_input: torch.Tensor, joint_keep: torch.Tensor,
+                        n_joints: int) -> torch.Tensor:
+    """Zero the prior fields 10-13 of dropped joints in every camera block
+    and keep fields 0-9 (an augmentation with no reference counterpart: it
+    shows the lifter prior-less joints).  joint_keep [..., J] 0/1."""
+    shape = net_input.shape
+    x = net_input.reshape(*shape[:-1], -1, n_joints, 14)
+    field_is_prior = (torch.arange(14, device=x.device) >= 10).to(x.dtype)
+    keep = joint_keep[..., None, :, None]
+    x = x * (1.0 - field_is_prior * (1.0 - keep))
+    return x.reshape(shape)

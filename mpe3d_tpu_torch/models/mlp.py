@@ -14,6 +14,11 @@ On CUDA each run of consecutive bf16 and int8 layers is one launch of the
 ``mlp_run`` kernel: the whole network of a bf16 lifter, and of an int8 one
 (its int8 layers and its bf16 head), as the TPU's ``_fused_mlp_call``.
 
+``TrainableLifter`` is the training form: fp32 ``nn.Parameter`` weights,
+the ``"layers"`` chain of ``apply_lifter`` (:109-127) in plain
+``torch.matmul`` and autograd, optionally with bf16 operands
+(``compute_dtype``, :119-126).
+
 LeakyReLU(negative_slope) between layers, output 18 joints x 3 in
 decameters.  With ``residual_prior`` the net predicts a correction to the
 triangulated prior packed into its input (``extract_prior``, :59).
@@ -28,9 +33,10 @@ counterparts (:161-275) and give the same numbers bit for bit.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mpe3d_tpu_torch.config import LifterConfig
@@ -175,3 +181,62 @@ class Lifter(nn.Module):
             h = h + extract_prior(x, self.cfg)
         return h
 
+
+
+class TrainableLifter(nn.Module):
+    """The lifter for training: fp32 master weights ``w{i}`` [K, N] and
+    ``b{i}`` [N] as parameters (the JAX layout, so trees convert both ways,
+    ``weights.trainable_lifter_from_tree`` / ``weights.lifter_tree``).
+
+    ``compute_dtype="bf16"`` rounds each matmul's operands to bf16 and sums
+    in fp32 (the products of two bf16 values are exact in fp32), as
+    ``apply_lifter(compute_dtype=bfloat16)`` does with
+    ``preferred_element_type=float32``; None keeps fp32 operands."""
+
+    COMPUTE_DTYPES = (None, "fp32", "float32", "bf16", "bfloat16")
+
+    def __init__(self, cfg: LifterConfig, layers: List[Dict[str, Any]],
+                 compute_dtype: Optional[str] = None):
+        super().__init__()
+        if compute_dtype not in self.COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of "
+                             f"{self.COMPUTE_DTYPES}, got {compute_dtype!r}")
+        dims = cfg.layer_dims()
+        if len(layers) != len(dims):
+            raise ValueError(f"{len(layers)} layers, config has {len(dims)}")
+        self.cfg = cfg
+        self.bf16 = compute_dtype in ("bf16", "bfloat16")
+        for i, (layer, (d_in, d_out)) in enumerate(zip(layers, dims)):
+            w = torch.as_tensor(layer["w"], dtype=torch.float32)
+            b = torch.as_tensor(layer["b"], dtype=torch.float32)
+            if tuple(w.shape) != (d_in, d_out) or tuple(b.shape) != (d_out,):
+                raise ValueError(f"lifter layer {i}: w {tuple(w.shape)}, b "
+                                 f"{tuple(b.shape)}, expected ({d_in}, "
+                                 f"{d_out})")
+            self.register_parameter(f"w{i}", nn.Parameter(w.clone()))
+            self.register_parameter(f"b{i}", nn.Parameter(b.clone()))
+        self.n_layers = len(dims)
+
+    def layer_params(self) -> List[nn.Parameter]:
+        """The parameters in the JAX tree's flatten order: each layer's
+        ``b`` then ``w``."""
+        out = []
+        for i in range(self.n_layers):
+            out += [getattr(self, f"b{i}"), getattr(self, f"w{i}")]
+        return out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [..., in_dim] fp32 -> [..., out_dim] decameters."""
+        h = x
+        for i in range(self.n_layers):
+            w, b = getattr(self, f"w{i}"), getattr(self, f"b{i}")
+            if self.bf16:
+                h = torch.matmul(h.to(torch.bfloat16).float(),
+                                 w.to(torch.bfloat16).float()) + b
+            else:
+                h = torch.matmul(h, w) + b
+            if i < self.n_layers - 1:
+                h = F.leaky_relu(h, self.cfg.negative_slope)
+        if self.cfg.residual_prior:
+            h = h + extract_prior(x, self.cfg)
+        return h

@@ -350,6 +350,7 @@ class PoseEstimationPipeline:
         self.use_layer_matcher = bool(use_layer_matcher)
         self.serve_dtype = (None if self.lifter is None
                             else self.lifter.serve_dtype)
+        self.rig = rig              # the whole rig, as given (host arrays)
         self.match_idx = rig_config.matching_camera_indices()
         self.used_idx = rig_config.used_camera_indices()
         self.match_rig = rig.select(self.match_idx).to(self.device)

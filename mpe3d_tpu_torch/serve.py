@@ -399,8 +399,11 @@ class PoseServer:
             while not stop_flush.wait(self.batch_linger_ms / 2e3):
                 flush_pending(min_age_s=self.batch_linger_ms / 1e3)
 
+        flush_thread = None
         if batching:
-            threading.Thread(target=flusher, daemon=True).start()
+            flush_thread = threading.Thread(target=flusher, daemon=True,
+                                            name="mpe3d-batch-flusher")
+            flush_thread.start()
 
         def drain() -> None:
             """Every frame before this point answered."""
@@ -492,6 +495,11 @@ class PoseServer:
         finally:
             drain()
             stop_flush.set()
+            # a flush still running finishes its submit_batch and puts its
+            # ticket before the collector's stop mark; an unjoined flusher
+            # could be inside submit_batch while the interpreter shuts down
+            if flush_thread is not None:
+                flush_thread.join()
             q.put(None)
             thread.join(timeout=30)
 

@@ -27,6 +27,9 @@ from dataclasses import dataclass, field
 from typing import Dict, List
 
 import numpy as np
+# at module load, not at the first assignment, so the import's cost is
+# paid at start-up (serve --warmup) and not by the first tracked frames
+from scipy.optimize import linear_sum_assignment
 
 
 @dataclass
@@ -78,7 +81,6 @@ class PoseTracker:
             # mean per-joint distance, [T, P]
             cost = np.linalg.norm(preds[:, None] - poses[None], axis=-1
                                   ).mean(axis=-1)
-            from scipy.optimize import linear_sum_assignment
             rows, cols = linear_sum_assignment(cost)
             for r, c in zip(rows, cols):
                 if cost[r, c] <= self.max_dist:

@@ -19,7 +19,11 @@ same numbers:
 
 Also numpy-seeded random trees in the JAX layout (the same distribution
 families as ``init_matcher``/``init_lifter``), for runs without trained
-weights.
+weights, and the training form of the lifter: ``trainable_lifter_from_tree``
+builds a ``TrainableLifter`` from a tree (how tests carry the JAX
+package's ``init_lifter`` draw across), ``lifter_tree`` gives its weights
+back as the numpy tree ``lifter_from_tree`` serves and the npz checkpoint
+stores.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ import torch
 from mpe3d_tpu_torch.checkpoint import bf16_from_bits
 from mpe3d_tpu_torch.config import LifterConfig, MatcherConfig
 from mpe3d_tpu_torch.models.gat import Matcher
-from mpe3d_tpu_torch.models.mlp import (Lifter, cast_lifter_weights,
+from mpe3d_tpu_torch.models.mlp import (Lifter, TrainableLifter,
+                                        cast_lifter_weights,
                                         lifter_is_quantized,
                                         quantize_lifter_weights)
 
@@ -92,6 +97,34 @@ def lifter_from_tree(tree: Tree, cfg: LifterConfig, device,
     return Lifter(cfg, layers).to(device)
 
 
+def trainable_lifter_from_tree(tree: Tree, cfg: LifterConfig, device,
+                               compute_dtype: Optional[str] = None
+                               ) -> TrainableLifter:
+    """The trainable lifter (fp32 master weights) of a plain fp32 tree
+    ``{"layers": [{"b", "w"}, ...]}``; quantised or bf16-stored trees have
+    no fp32 master and raise."""
+    if lifter_is_quantized(tree):
+        raise ValueError("an int8 lifter tree has no fp32 master weights "
+                         "to train")
+    layers = []
+    for layer in tree["layers"]:
+        w = _weight(layer["w"])
+        if w.dtype != torch.float32:
+            raise ValueError(f"a lifter tree of {w.dtype} weights has no "
+                             f"fp32 master weights to train")
+        layers.append({"w": w, "b": _f32(layer["b"])})
+    return TrainableLifter(cfg, layers, compute_dtype).to(device)
+
+
+def lifter_tree(lifter: TrainableLifter) -> Tree:
+    """A trainable lifter's weights as the numpy fp32 tree
+    ``{"layers": [{"b", "w"}, ...]}``."""
+    return {"layers": [
+        {"b": getattr(lifter, f"b{i}").detach().cpu().numpy().copy(),
+         "w": getattr(lifter, f"w{i}").detach().cpu().numpy().copy()}
+        for i in range(lifter.n_layers)]}
+
+
 def random_matcher_tree(cfg: MatcherConfig, seed: int) -> Tree:
     """Xavier-normal (gain 1.414) weights, uniform biases, as numpy; the
     keys ``init_matcher`` gives ``cfg`` (no biases when ``cfg.bias`` is
@@ -127,7 +160,11 @@ def random_matcher_tree(cfg: MatcherConfig, seed: int) -> Tree:
 
 def random_lifter_tree(cfg: LifterConfig, seed: int) -> Tree:
     """torch.nn.Linear-style U(-1/sqrt(fan_in), 1/sqrt(fan_in)) weights and
-    biases, as numpy fp32."""
+    biases, as numpy fp32: the family of ``init_lifter``, drawn with numpy
+    (the port does not reproduce ``jax.random``, so the same seed gives
+    other numbers than the JAX package's).  ``init_lifter`` zeroes the head
+    of a ``residual_prior`` lifter; the trainer does that for a fresh run
+    (``train/lifter.py``)."""
     rng = np.random.default_rng(seed)
     layers = []
     for d_in, d_out in cfg.layer_dims():

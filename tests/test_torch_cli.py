@@ -20,6 +20,7 @@ import subprocess
 import sys
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -253,3 +254,229 @@ def test_serve_batch_window_stdio_matches_jax(wire_lines):
                     lines)
     assert_records_match(got, ref)
     assert got[len(wire_lines)]["batch_window"] == 3
+
+
+# ---------------------------------------------------------------------------
+# evaluation and lifter training (the JAX CLI's numbers, in-process)
+# ---------------------------------------------------------------------------
+
+EVAL_REL = 1e-4       # MPJPE, pixels and losses of fp32 nets; counts equal
+NARROW = dict(hidden=(8, 8), heads=(2, 2))
+# the narrow random matcher's seed under which the CLI's threshold (0.5)
+# decodes persons on the test files
+NARROW_MATCHER_SEED = 4
+
+
+def _report(capsys, fn, argv):
+    capsys.readouterr()
+    fn(argv)
+    out = capsys.readouterr().out
+    return json.loads(out[out.index("{"):])
+
+
+def _assert_numbers(got, ref, path=""):
+    if isinstance(ref, dict):
+        assert set(got) == set(ref), path
+        for k in ref:
+            if not k.startswith("t_"):        # wall-clock timings
+                _assert_numbers(got[k], ref[k], f"{path}.{k}")
+    elif isinstance(ref, list):
+        assert len(got) == len(ref), path
+        for i, (g, r) in enumerate(zip(got, ref)):
+            _assert_numbers(g, r, f"{path}[{i}]")
+    elif isinstance(ref, float):
+        assert g_close(got, ref), (path, got, ref)
+    else:
+        assert got == ref, (path, got, ref)
+
+
+def g_close(a, b):
+    return (np.isnan(a) and np.isnan(b)) or abs(a - b) <= EVAL_REL * max(
+        1.0, abs(b))
+
+
+@pytest.fixture(scope="module")
+def eval_dir(tmp_path_factory):
+    """Wire files from ``generate-synthetic`` and a models directory with a
+    narrow numpy-seeded matcher and lifter (fp32), saved by the port's
+    ``save_checkpoint``; both command lines read their architecture from
+    the metas."""
+    from mpe3d_tpu_torch import weights
+    from mpe3d_tpu_torch.checkpoint import save_checkpoint
+    from mpe3d_tpu_torch.config import LifterConfig as LCfg
+    from mpe3d_tpu_torch.config import MatcherConfig as MCfg
+
+    d = tmp_path_factory.mktemp("eval")
+    for name, extra in (("train", ["--single-person", "--frames", "40",
+                                   "--seed", "1"]),
+                        ("dev", ["--single-person", "--frames", "16",
+                                 "--seed", "2"]),
+                        ("test", ["--frames", "12", "--seed", "3",
+                                  "--max-people", "3"])):
+        cli.main(["generate-synthetic", "--output", str(d / f"{name}.json"),
+                  *extra])
+    models = d / "models"
+    mcfg = MCfg(in_dim=PANOPTIC.matcher_feature_dim, **NARROW)
+    lcfg = LCfg(widths=(64, 64))
+    save_checkpoint(str(models / "skeleton_matching"),
+                    weights.random_matcher_tree(mcfg, NARROW_MATCHER_SEED),
+                    meta={"matcher_config": dataclasses.asdict(mcfg)})
+    save_checkpoint(str(models / "pose_estimator"),
+                    weights.random_lifter_tree(lcfg, 1),
+                    meta={"lifter_config": lcfg, "prior": "mean",
+                          "epoch": 0})
+    return d
+
+
+def test_generate_synthetic_and_merge_jsons_match_jax_cli(tmp_path):
+    for extra in (["--single-person"], ["--max-people", "3", "--no-gt"]):
+        args = ["--frames", "5", "--seed", "4", *extra]
+        cli.main(["generate-synthetic", "--output", str(tmp_path / "p.json"),
+                  *args])
+        jcli.main(["generate-synthetic", "--output", str(tmp_path / "j.json"),
+                   *args])
+        assert (tmp_path / "p.json").read_text() == \
+            (tmp_path / "j.json").read_text()
+    parts = [str(tmp_path / "p.json"), str(tmp_path / "j.json")]
+    cli.main(["merge-jsons", *parts, str(tmp_path / "pm.json")])
+    jcli.main(["merge-jsons", *parts, str(tmp_path / "jm.json")])
+    assert (tmp_path / "pm.json").read_text() == \
+        (tmp_path / "jm.json").read_text()
+
+
+@pytest.mark.parametrize("command", [
+    ["metrics-from-model", "--fused", "--datastep", "2"],
+    ["metrics-from-model", "--stream", "3", "--dedup-gt", "--datastep", "2"],
+    ["metrics-from-triangulation", "--device-decode", "--datastep", "3"],
+    ["sm-metrics", "--unassigned", "singleton", "--datastep", "2"],
+    ["sm-metrics-without-gt", "--limit", "8"],
+    ["reprojection-error", "--showgt", "--datastep", "3"],
+])
+def test_eval_commands_match_jax_cli(eval_dir, capsys, command):
+    """Each evaluation command with ``--cpu`` against the JAX CLI on the
+    same files and checkpoints, fp32 lifter on both sides."""
+    files = ([str(eval_dir / "train.json"), str(eval_dir / "dev.json")]
+             if command[0] == "sm-metrics-without-gt"
+             else [str(eval_dir / "test.json")])
+    argv = [*command, "--cpu", "--modelsdir", str(eval_dir / "models"),
+            "--serve-dtype", "fp32", "--testfiles", *files]
+    got = _report(capsys, cli.main, argv)
+    ref = _report(capsys, jcli.main, argv)
+    _assert_numbers(got, ref)
+    assert got.get("n_frames", got.get("n_scenes")) > 0
+    assert got.get("n_poses", 1) > 0
+
+
+def _epoch_lines(text):
+    return [[float(line.split("|")[i].split()[-1]) for i in (1, 2)]
+            for line in text.splitlines() if line.startswith("epoch")]
+
+
+def test_train_lifter_matches_jax_cli(eval_dir, capsys, tmp_path):
+    """``train-lifter --resume`` from the same narrow checkpoint in both
+    command lines, one batch an epoch (so the shuffles agree): the epoch
+    lines within 1e-3 relative; the port's checkpoint loads in JAX and
+    serves ``metrics-from-model``; ``--optimise-matrices`` writes
+    ``refined_rig.npz``; the refusals and the resume checks."""
+    from mpe3d_tpu.geometry.camera import load_rig_npz as j_load_rig
+
+    runs = {}
+    for name, main in (("p", cli.main), ("j", jcli.main)):
+        d = tmp_path / name
+        d.mkdir()
+        for f in ("pose_estimator.npz", "pose_estimator.json"):
+            (d / f).write_bytes((eval_dir / "models" / f).read_bytes())
+        capsys.readouterr()
+        main(["train-lifter", "--cpu", "--modelsdir", str(d), "--resume",
+              "--trainset", str(eval_dir / "train.json"),
+              "--devset", str(eval_dir / "dev.json"), "--epochs", "6",
+              "--batch-size", "200", "--loss", "per_term"])
+        runs[name] = capsys.readouterr().out
+    assert "dataset length: 200 (dev 80)" in runs["p"]
+    np.testing.assert_allclose(_epoch_lines(runs["p"]),
+                               _epoch_lines(runs["j"]), rtol=1e-3)
+    assert len(_epoch_lines(runs["p"])) == 2
+    # the port's trained checkpoint through the JAX loader and CLI
+    (tmp_path / "p" / "skeleton_matching.npz").write_bytes(
+        (eval_dir / "models" / "skeleton_matching.npz").read_bytes())
+    jcli.main(["metrics-from-model", "--cpu", "--modelsdir",
+               str(tmp_path / "p"), "--testfiles",
+               str(eval_dir / "test.json"), "--fused"])
+    # --optimise-matrices, fresh, full width
+    d = tmp_path / "om"
+    cli.main(["train-lifter", "--cpu", "--modelsdir", str(d),
+              "--trainset", str(eval_dir / "dev.json"),
+              "--devset", str(eval_dir / "dev.json"), "--epochs", "1",
+              "--batch-size", "40", "--optimise-matrices"])
+    assert (d / "pose_estimator.npz").exists()
+    assert j_load_rig(str(d / "refined_rig.npz")).T_wc.shape == (
+        PANOPTIC.n_cameras, 4, 4)
+    base = ["train-lifter", "--cpu", "--trainset",
+            str(eval_dir / "dev.json"), "--devset", str(eval_dir / "dev.json")]
+    for extra, message in (
+            (["--modelsdir", str(tmp_path / "none"), "--resume"],
+             "no checkpoint"),
+            (["--modelsdir", str(tmp_path / "p"), "--resume", "--prior",
+              "irls"], "prior=mean"),
+            (["--modelsdir", str(d), "--ckpt-backend", "orbax"], "item 8"),
+            (["--modelsdir", DEMO, "--resume"], "serving-only")):
+        with pytest.raises(SystemExit) as e:
+            cli.main([*base, *extra])
+        assert message in str(e.value.code)
+
+
+@pytest.mark.parametrize("command", ["train-matcher", "show-results",
+                                     "convert-panoptic", "convert-torch",
+                                     "export-torch", "export-servable"])
+def test_unported_commands_are_refused(command):
+    with pytest.raises(SystemExit) as e:
+        cli.main([command, "--anything"])
+    assert "not in the PyTorch port" in str(e.value.code)
+    assert "ROADMAP.md section 1, item" in str(e.value.code)
+
+
+def test_serve_batch_window_joins_its_flusher(wire_lines, monkeypatch):
+    """``handle_stream`` with a batch window returns with its flusher
+    thread joined (an unjoined daemon flusher could be inside
+    ``submit_batch`` at interpreter exit).  The flusher is made slow to
+    leave (its stop event's wait lingers once set), so a flusher that is
+    not joined is still alive when the call returns."""
+    import threading
+    import time
+
+    from mpe3d_tpu_torch import serve as serve_mod
+
+    class SlowEvent(threading.Event):
+        def wait(self, timeout=None):
+            was_set = super().wait(timeout)
+            if was_set:
+                time.sleep(0.2)
+            return was_set
+
+    _, _, pipe = cli.build_pipeline(cli.make_parser().parse_args(
+        ["serve", "--cpu", "--modelsdir", DEMO]))
+    server = serve_mod.PoseServer(pipe, PANOPTIC, batch_window=3,
+                                  batch_linger_ms=1.0)
+    monkeypatch.setattr(serve_mod.threading, "Event", SlowEvent)
+    out = []
+    for _ in range(2):
+        server.handle_stream(wire_lines[:2] + ['{"cmd": "ping"}'],
+                             out.append)
+        assert not [t for t in threading.enumerate()
+                    if t.name == "mpe3d-batch-flusher"]
+    assert sum('"pong"' in line for line in out) == 2
+
+
+def test_serve_track_warmup_imports_the_solver_before_frames():
+    """``serve --track --warmup`` imports scipy.optimize before the first
+    frame is read."""
+    code = ("import sys\n"
+            "from mpe3d_tpu_torch import cli, serve\n"
+            "serve.PoseServer.serve_stdio = lambda self: print("
+            "'scipy.optimize' in sys.modules)\n"
+            f"cli.main(['serve', '--cpu', '--modelsdir', {DEMO!r}, "
+            "'--track', '--warmup'])\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT, timeout=600)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["True"]

@@ -34,7 +34,15 @@ for n in names:
 for n in ("mpe3d_tpu_torch.ops.gat_tiled", "mpe3d_tpu_torch.ops.gat_kernel",
           "mpe3d_tpu_torch.ops.frame_kernel", "mpe3d_tpu_torch.pipeline",
           "mpe3d_tpu_torch.ops.quant_matmul",
-          "mpe3d_tpu_torch.ops.fused_proj"):
+          "mpe3d_tpu_torch.ops.fused_proj",
+          "mpe3d_tpu_torch.eval.clustering",
+          "mpe3d_tpu_torch.eval.pose_metrics",
+          "mpe3d_tpu_torch.eval.reprojection",
+          "mpe3d_tpu_torch.eval.timing", "mpe3d_tpu_torch.eval.runners",
+          "mpe3d_tpu_torch.lifting.loss",
+          "mpe3d_tpu_torch.train.matcher_data",
+          "mpe3d_tpu_torch.train.lifter_data",
+          "mpe3d_tpu_torch.train.lifter"):
     assert n in names, n
 spec = importlib.util.spec_from_file_location("chip_smoke",
                                               sys.argv[1] + "/chip_smoke.py")
@@ -50,7 +58,7 @@ print("imported", len(names))
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("imported"), r.stdout
-    assert int(r.stdout.split()[1]) >= 20
+    assert int(r.stdout.split()[1]) >= 30
     assert '"ok"' not in r.stdout
 
 

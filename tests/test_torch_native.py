@@ -167,5 +167,20 @@ def test_format_result_matches_jax():
 
 
 def test_parse_frames_batch_refuses_ground_truth(wire_text):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_frames_batch(wire_text[0], PANOPTIC, with_gt=True)
+    """``with_gt=True`` was refused until the evaluation slice; it now
+    gives the JAX package's ground truth, native and python parse alike
+    (exact: the same float32 cm -> m division)."""
+    from mpe3d_tpu.config import PANOPTIC as J_PANOPTIC
+    from mpe3d_tpu.data.frames import parse_frames_batch as j_batch
+
+    ref = j_batch(wire_text[0], J_PANOPTIC, with_gt=True)[1]
+    for use_native in (True, False):
+        got = parse_frames_batch(wire_text[0], PANOPTIC, with_gt=True,
+                                 use_native=use_native)[1]
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            assert (g is None) == (r is None)
+            if r is not None:
+                assert g.camera == r.camera
+                for a, b in zip(g[:3], r[:3]):
+                    np.testing.assert_array_equal(a, b)
