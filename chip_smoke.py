@@ -166,6 +166,29 @@ failure raises, and the script exits non-zero):
    subprocesses on the card in a temporary models directory.  Reads no
    demo directory the earlier phases do not.
 
+10. matcher training and the model files: ``train_matcher`` at full width
+   (in_dim 902, hidden (40, 40, 40, 30), heads (10, 10, 8, 5)) on about
+   150 train / 45 dev S=4 composite scenes of three single-person
+   recordings, batch 15, 3 epochs, numpy's order (``scan_epoch=False``),
+   on the card and on the CPU from one numpy init, per-epoch train and dev
+   losses within ``TRAIN_RTOL`` (MSE, and BCE with ``prune_dist`` 0.2);
+   warm, its epoch times and training scenes a second, and 10 steps alone
+   with their device time; the shipped matcher fine-tuned on the card
+   (the scan path) and served by ``infer_fused`` at S=4 (stack form) and
+   at the default buckets on the S=10 frames (tiled form) with the
+   shipped and a random lifter, persons equal to the CPU's;
+   ``--device-synth`` training on the card and its scenes' marginals
+   against the host and CPU synthesisers; ``export-torch`` /
+   ``convert-torch`` in this process (``pan_irls_bf16``'s residual-prior
+   lifter refused; its matcher with the phase 9 lifter converted both
+   ways), the reference-format directory and the converted npz served
+   against the CPU and equal to the npz pair on the card, a residual
+   matcher's ``.tch`` through the layer form (``gat_fused_proj``);
+   ``export-servable --dtype int8`` and ``bf16`` of the phase 9 lifter
+   served in their kind (``mlp_run``) against the CPU; ``infer
+   --profile-trace`` on the card, its trace naming the kernels the frames
+   launched and its records those of the run without it.
+
 The last lines are the kernel table as one JSON object and the contract
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the repository beside it, the script fails before printing any
@@ -3019,12 +3042,476 @@ def eval_on_card(rig_config, rig, ltree, lcfg, matchers, mcfg, smi, d):
 
 def run_eval_and_training(rig_config, rig, matchers, mcfg, smi):
     """Phase 9: ``train_full_width`` then ``eval_on_card`` in a temporary
-    directory."""
+    directory.  Returns the fused evaluation's launches and the trained
+    lifter (tree, LifterConfig)."""
     import tempfile
     ltree, lcfg = train_full_width(rig_config, rig, smi)
     with tempfile.TemporaryDirectory() as d:
-        return eval_on_card(rig_config, rig, ltree, lcfg, matchers, mcfg,
-                            smi, d)
+        return (eval_on_card(rig_config, rig, ltree, lcfg, matchers, mcfg,
+                             smi, d), ltree, lcfg)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: matcher training and the model files
+# ---------------------------------------------------------------------------
+
+MATCHER_SEED = 5           # the numpy init of the full-width matcher
+N_M_TRAIN, N_M_DEV, M_BATCH, M_EPOCHS = 150, 45, 15, 3
+# the shipped matcher fine-tuned on the ring rig's scenes decodes 2-3
+# persons a S=4 frame there (0-1 before); from the numpy init it decodes
+# none after as many epochs
+M_TUNE_EPOCHS = 10
+M_PRUNE_DIST = 0.2
+N_STEPS_TIMED = 10         # warm training steps timed alone
+N_SYNTH, SYNTH_SLOTS = 1024, 6
+RESIDUAL_SEED = 6
+
+
+def matcher_scene_sets(rig_config, rig):
+    """Three single-person recordings and the (train, dev) composite scenes
+    built from them on the S=4 topology of the matching cameras."""
+    from mpe3d_tpu_torch.data.synthetic import generate_single_person_frames
+    from mpe3d_tpu_torch.matching.features import build_topology
+    from mpe3d_tpu_torch.train.matcher_data import build_matcher_scenes
+
+    files = [generate_single_person_frames(rig_config, rig, 40, seed=s)
+             for s in (31, 32, 33)]
+    topo = build_topology(rig_config.n_matching_cameras, 4)
+    train = build_matcher_scenes(files, rig_config, topo, limit=N_M_TRAIN,
+                                 seed=0)
+    dev = build_matcher_scenes(files[::-1], rig_config, topo,
+                               limit=N_M_DEV, seed=1)
+    return files, topo, train, dev
+
+
+def train_matcher_full_width(rig_config, rig, demo_tree, demo_cfg, smi):
+    """Phase 10 (a): ``train_matcher`` at the reference's width (in_dim
+    902, hidden (40, 40, 40, 30), heads (10, 10, 8, 5)) on S=4 composite
+    scenes, batch 15, ``scan_epoch=False`` (both devices take numpy's
+    order), dropout off, 3 epochs each evaluated, on the card and on the
+    CPU from one numpy init: per-epoch train and dev losses within
+    ``TRAIN_RTOL``, with MSE and with BCE under ``prune_dist``.  Then the
+    MSE run warm for its epoch times, and ``N_STEPS_TIMED`` training steps
+    alone (loss, autograd, AdamW) for scenes a second and the device's busy
+    share.  And the shipped matcher (``demo_tree``) fine-tuned on the card
+    for ``M_TUNE_EPOCHS`` epochs.  Returns (the fine-tuned tree, the
+    MatcherConfig, the recordings, topology and dev scenes, the init)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from mpe3d_tpu_torch.config import MatcherConfig, MatcherTrainConfig
+    from mpe3d_tpu_torch.train.lifter import Adam
+    from mpe3d_tpu_torch.train.matcher import (MatcherObjective,
+                                               scene_tensors, train_matcher)
+    from mpe3d_tpu_torch.weights import (random_matcher_tree,
+                                         trainable_matcher_from_tree)
+
+    files, topo, train, dev = matcher_scene_sets(rig_config, rig)
+    if len(train) < 100 or len(dev) < 30:
+        raise AssertionError(f"matcher scenes: {len(train)} train, "
+                             f"{len(dev)} dev")
+    cfg = MatcherConfig(in_dim=rig_config.matcher_feature_dim)
+    init = random_matcher_tree(cfg, MATCHER_SEED)
+    card = None
+    for label, loss in (("MSE", {}),
+                        (f"BCE, prune_dist {M_PRUNE_DIST}",
+                         dict(use_bce=True, prune_dist=M_PRUNE_DIST))):
+        tcfg = MatcherTrainConfig(epochs=M_EPOCHS, batch_size=M_BATCH,
+                                  eval_every=1, scan_epoch=False, **loss)
+        runs = {}
+        for device in (GPU, "cpu"):
+            t = time.perf_counter()
+            runs[device] = (train_matcher(train, dev, rig_config, rig, topo,
+                                          cfg, tcfg, params=init,
+                                          log=lambda s: None, device=device),
+                            time.perf_counter() - t)
+        hist = {d: [(h["train_loss"], h["val_loss"]) for h in r.history]
+                for d, (r, _) in runs.items()}
+        worst = max(abs(a / b - 1.0) for g, c in zip(hist[GPU], hist["cpu"])
+                    for a, b in zip(g, c))
+        if len(hist[GPU]) != M_EPOCHS or worst > TRAIN_RTOL:
+            raise AssertionError(f"train_matcher ({label}): card "
+                                 f"{hist[GPU]} against CPU {hist['cpu']} "
+                                 f"(max rel {worst:.3g}, tol {TRAIN_RTOL})")
+        card = card or (runs[GPU][0], tcfg)
+        print(f"  train_matcher at full width ({label}), {len(train)} train "
+              f"/ {len(dev)} dev S=4 scenes, batch {M_BATCH}, {M_EPOCHS} "
+              f"epochs: losses (train, dev) card {hist[GPU]}, CPU "
+              f"{hist['cpu']}, max rel difference {worst:.3g}; whole call "
+              f"card {runs[GPU][1]:.2f} s, CPU {runs['cpu'][1]:.2f} s",
+              flush=True)
+    _, tcfg = card
+    warm = train_matcher(train, dev, rig_config, rig, topo, cfg,
+                         dataclasses.replace(tcfg, epochs=M_EPOCHS + 1),
+                         params=init, log=lambda s: None, device=GPU)
+    ends = [h["elapsed_s"] for h in warm.history]
+    epoch_s = [ends[0]] + [b - a for a, b in zip(ends, ends[1:])]
+    # training steps alone: the scenes resident, no evaluation
+    obj = MatcherObjective(rig.select(rig_config.matching_camera_indices()),
+                           rig_config, topo, cfg, GPU)
+    model = trainable_matcher_from_tree(init, cfg, GPU)
+    opt = Adam(model.tree_params(), tcfg.lr, None,
+               weight_decay=tcfg.weight_decay)
+    batches = [scene_tensors(train, GPU, np.arange(i * M_BATCH,
+                                                   (i + 1) * M_BATCH))
+               for i in range(len(train) // M_BATCH)]
+    state = {"i": 0}
+
+    def step():
+        b = batches[state["i"] % len(batches)]
+        state["i"] += 1
+        loss = obj.loss(model, b)
+        opt.step(list(torch.autograd.grad(loss, model.tree_params())))
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(N_STEPS_TIMED):
+        step()
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t) / N_STEPS_TIMED
+    try:
+        dev_ms, launches = device_profile(step, N_STEPS_TIMED)
+        share = (f"{dev_ms:.4f} ms of device time and {launches:g} CUDA "
+                 f"launches a step, busy share {dev_ms / step_ms:.3f}")
+    except Exception as exc:    # a measurement, not a check
+        share = f"device time not measured ({type(exc).__name__}: {exc})"
+    # the shipped matcher fine-tuned on the ring rig's scenes (the scan
+    # path): the matcher phase 10 serves, which decodes persons there
+    tuned = train_matcher(train, dev, rig_config, rig, topo, demo_cfg,
+                          MatcherTrainConfig(epochs=M_TUNE_EPOCHS,
+                                             eval_every=2,
+                                             patience=M_TUNE_EPOCHS),
+                          params=demo_tree, log=lambda s: None, device=GPU)
+    print(f"  train_matcher, pan_irls_bf16's matcher fine-tuned on the card "
+          f"({M_TUNE_EPOCHS} epochs, scan path, lr 1e-4): dev loss "
+          f"{[round(h['val_loss'], 5) for h in tuned.history]}, "
+          f"{tuned.history[-1]['elapsed_s']:.2f} s", flush=True)
+    print(f"  train_matcher warm, {M_EPOCHS + 1} epochs: "
+          f"{[round(x, 4) for x in epoch_s]} s a epoch (dev evaluation "
+          f"included), {[round(len(train) / x, 1) for x in epoch_s]} train "
+          f"scenes a second; {N_STEPS_TIMED} steps alone (batch {M_BATCH}, "
+          f"union graph of {M_BATCH * topo.n_heads} heads and "
+          f"{M_BATCH * topo.n_pairs} pairs): {step_ms:.3f} ms a step, "
+          f"{1e3 * M_BATCH / step_ms:.1f} train scenes a second; {share} "
+          f"({smi})", flush=True)
+    return tuned.params, cfg, files, topo, dev, init
+
+
+def synth_marginals(labels, weight, present):
+    """(positive-label share of live pairs, share of duplicated pairs,
+    populated slots a scene, live-scene share) of a set of scenes, the
+    marginals of tests/test_torch_matcher_synth.py."""
+    import numpy as np
+    live = weight.sum(axis=1) > 0
+    labels, weight, present = labels[live], weight[live], present[live]
+    pos = labels.sum(axis=1) / np.maximum((weight > 0).sum(axis=1), 1)
+    dup = (weight == 2.0).sum() / max((weight > 0).sum(), 1)
+    return (float(pos.mean()), float(dup),
+            float(present.sum(axis=(1, 2)).mean()), float(live.mean()))
+
+
+def check_device_synth(rig_config, rig, files, topo, dev, cfg, init, smi):
+    """Phase 10 (b): ``train_matcher(synth_bank=...)`` on the card, two
+    epochs of ``N_M_TRAIN`` scenes synthesised on the device (the second
+    warm), finite losses, and one batch's synthesis timed alone;
+    ``N_SYNTH`` scenes synthesised on the card at S=6
+    held to the host synthesiser's marginals in the CPU test's bands, and
+    their null-scene share to the CPU synthesiser's."""
+    import numpy as np
+    import torch
+    from mpe3d_tpu_torch.config import MatcherTrainConfig
+    from mpe3d_tpu_torch.matching.features import build_topology
+    from mpe3d_tpu_torch.train.matcher import train_matcher
+    from mpe3d_tpu_torch.train.matcher_data import build_matcher_scenes
+    from mpe3d_tpu_torch.train.matcher_synth import (build_scene_bank,
+                                                     synth_scenes)
+
+    bank = build_scene_bank(files, rig_config)
+    res = train_matcher(None, dev, rig_config, rig, topo, cfg,
+                        MatcherTrainConfig(epochs=2, batch_size=M_BATCH,
+                                           eval_every=1, limit=N_M_TRAIN),
+                        params=init, synth_bank=bank, log=lambda s: None,
+                        device=GPU)
+    losses = [(h["train_loss"], h["val_loss"]) for h in res.history]
+    if len(losses) != 2 or not np.isfinite(losses).all():
+        raise AssertionError(f"train_matcher(synth_bank): losses {losses}")
+    ends = [h["elapsed_s"] for h in res.history]
+    topo6 = build_topology(rig_config.n_matching_cameras, SYNTH_SLOTS)
+
+    def synth(device):
+        gen = torch.Generator(device=device).manual_seed(7)
+        out = synth_scenes(bank.tensors(device, topo6), gen, N_SYNTH)
+        return [t.cpu().numpy() for t in out]
+
+    card, cpu = synth(GPU), synth("cpu")
+    # one batch's synthesis alone, the bank resident (CUDA events)
+    bank_t = bank.tensors(GPU, topo)
+    gen_t = torch.Generator(device=GPU).manual_seed(11)
+    synth_ms = median_ms(lambda: synth_scenes(bank_t, gen_t, M_BATCH))
+    host = build_matcher_scenes(files, rig_config, topo6, limit=400, seed=3)
+    got = synth_marginals(card[5], card[6], card[4])
+    want = synth_marginals(host.labels, host.pair_weight, host.present)
+    ref = synth_marginals(cpu[5], cpu[6], cpu[4])
+    if not (abs(got[0] - want[0]) < 0.25 * want[0]
+            and abs(got[1] - want[1]) < 0.15
+            and abs(got[2] - want[2]) < 0.25 * want[2]
+            and abs(got[3] - ref[3]) < 0.1
+            and np.all((card[5] == 0) | (card[6] > 0))):
+        raise AssertionError(f"device synthesis marginals {got}, host "
+                             f"{want}, CPU synthesis {ref}")
+    print(f"  train_matcher --device-synth: {bank.kp.shape[0]} bank frames, "
+          f"{bank.aug_frame.shape[0]} augmented entries, {N_M_TRAIN} scenes "
+          f"an epoch synthesised on the card: losses {losses}, epoch seconds "
+          f"{[round(ends[0], 4), round(ends[1] - ends[0], 4)]} (the second "
+          f"warm), synthesis of a batch of {M_BATCH} scenes "
+          f"{synth_ms:.4f} ms (median of {N_TIMED}); {N_SYNTH} card scenes "
+          f"at S={SYNTH_SLOTS}: (positive share, duplicated share, slots a "
+          f"scene, live share) "
+          f"{tuple(round(v, 4) for v in got)}, host synthesiser "
+          f"{tuple(round(v, 4) for v in want)}, CPU synthesiser "
+          f"{tuple(round(v, 4) for v in ref)} ({smi})", flush=True)
+
+
+def serve_trained_matcher(rig_config, rig, mtree, mcfg, lifters, frames,
+                          frames10):
+    """Phase 10 (c): the card-tuned matcher served by ``infer_fused`` at
+    S=4 (stack form) and at the default buckets on the S=10 frames (tiled
+    form, "mean" prior) with each lifter, against the CPU.  Returns the
+    launches of all runs."""
+    from mpe3d_tpu_torch import weights
+    from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
+
+    total = dict.fromkeys(launch_counters(), 0)
+    for lname, (lt, lc, prior) in lifters.items():
+        for blabel, slots, persons, fr, pr in (
+                ("S=4", (4,), (8,), frames, prior),
+                ("S=10 buckets (2, 4, 10)/(4, 8, 16)", (2, 4, 10),
+                 (4, 8, 16), frames10, CROWDED_PRIOR)):
+            def mk(device, fk):
+                return PoseEstimationPipeline(
+                    rig_config, rig,
+                    weights.matcher_from_tree(mtree, mcfg, device),
+                    weights.lifter_from_tree(lt, lc, device),
+                    slot_buckets=slots, person_buckets=persons,
+                    lifter_prior=pr, use_frame_kernel=fk, device=device)
+            launches, _, _, _ = run_main_path(
+                mk(GPU, None), mk("cpu", True), fr,
+                f"card-tuned matcher, {lname} lifter, {blabel}")
+            for k, v in launches.items():
+                total[k] += v
+    if not (total["gat_stack"] and total["gat_k1"] and total["gat_k2"]
+            and total["frame_decode_pack"] and total["mlp_run"]):
+        raise AssertionError(f"the trained matcher's runs: launches {total}")
+    return total
+
+
+def check_conversions(rig_config, rig, frames, rtree, ltree9, lcfg9, d):
+    """Phase 10 (d): ``export-torch`` and ``convert-torch`` in this process
+    of the pair of ``pan_irls_bf16``'s matcher and the phase 9 lifter (the
+    shipped lifter predicts a correction to its prior, which the reference
+    format cannot hold: ``export-torch`` of ``pan_irls_bf16`` itself writes
+    the matcher and refuses the lifter); the reference-format directory
+    (served as it is, ``cli.load_models``) and the converted npz each
+    served on the card against the CPU, trained and random matcher, persons
+    and poses equal to the npz pair's on the card; a residual matcher
+    written as a ``.tch`` by the port's exporter served through the layer
+    form."""
+    import shutil
+
+    import numpy as np
+    from mpe3d_tpu_torch import cli, weights
+    from mpe3d_tpu_torch.checkpoint import save_checkpoint
+    from mpe3d_tpu_torch.config import MatcherConfig
+    from mpe3d_tpu_torch.convert.torch_export import export_reference_matcher
+    from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
+
+    pair = os.path.join(d, "pair")
+    os.makedirs(pair)
+    shutil.copy(os.path.join(DEMO, "skeleton_matching.npz"), pair)
+    save_checkpoint(os.path.join(pair, "pose_estimator"), ltree9,
+                    meta={"lifter_config": lcfg9, "prior": "mean"})
+    t = time.perf_counter()
+    demo_out = os.path.join(d, "demo_torch")
+    cli.main(["export-torch", "--modelsdir", DEMO, "--out", demo_out])
+    if sorted(os.listdir(demo_out)) != ["skeleton_matching.prms",
+                                        "skeleton_matching.tch"]:
+        raise AssertionError(f"export-torch of pan_irls_bf16 wrote "
+                             f"{os.listdir(demo_out)}")
+    tdir, cdir = os.path.join(d, "torch"), os.path.join(d, "converted")
+    cli.main(["export-torch", "--modelsdir", pair, "--out", tdir])
+    cli.main(["convert-torch", "--lifter",
+              os.path.join(tdir, "pose_estimator.pytorch"), "--matcher",
+              os.path.join(tdir, "skeleton_matching.tch"), "--prms",
+              os.path.join(tdir, "skeleton_matching.prms"),
+              "--modelsdir", cdir])
+    t_files = time.perf_counter() - t
+    base = cli.load_models(pair, rig_config)
+
+    def pipe(trees, mtree, device, fk):
+        _, mc, lt, lc = trees[:4]
+        return PoseEstimationPipeline(
+            rig_config, rig, weights.matcher_from_tree(mtree, mc, device),
+            weights.lifter_from_tree(lt, lc, device), slot_buckets=(4,),
+            person_buckets=(8,), lifter_prior="mean", use_frame_kernel=fk,
+            device=device)
+
+    lines = []
+    for source in (tdir, cdir):
+        trees = cli.load_models(source, rig_config)
+        for mlabel, mtree in (("trained", trees[0]), ("random", rtree)):
+            label = (f"{'reference files' if source == tdir else 'converted'}"
+                     f" (pan_irls_bf16's matcher, phase 9 lifter), {mlabel} "
+                     f"matcher")
+            _, _, _, outs = run_main_path(
+                pipe(trees, mtree, GPU, None),
+                pipe(trees, mtree, "cpu", True), frames[:N_SHORT], label)
+            npz = pipe(base, base[0] if mlabel == "trained" else rtree, GPU,
+                       None)
+            d_pose = 0.0
+            for f, o in zip(frames[:N_SHORT], outs):
+                r = npz.infer_fused(f)
+                if not np.array_equal(o.persons, r.persons):
+                    raise AssertionError(f"{label}: persons differ from the "
+                                         f"npz pair's")
+                if len(o.poses):
+                    d_pose = max(d_pose, float(np.abs(o.poses
+                                                      - r.poses).max()))
+            if d_pose > POSE_TOL_M:
+                raise AssertionError(f"{label}: poses {d_pose} m from the "
+                                     f"npz pair's")
+            lines.append(f"{label}: persons equal to the npz pair's on the "
+                         f"card, max |d pose| {d_pose:.3g} m")
+    # a residual matcher through the port's exporter, served from its .tch
+    rdir = os.path.join(d, "residual")
+    os.makedirs(rdir)
+    rcfg = MatcherConfig(in_dim=rig_config.matcher_feature_dim,
+                         residual=True)
+    export_reference_matcher(weights.random_matcher_tree(rcfg,
+                                                         RESIDUAL_SEED),
+                             rcfg, os.path.join(rdir, "skeleton_matching.tch"),
+                             os.path.join(rdir, "skeleton_matching.prms"))
+    shutil.copy(os.path.join(tdir, "pose_estimator.pytorch"), rdir)
+    trees = cli.load_models(rdir, rig_config)
+    if not trees[1].residual:
+        raise AssertionError("the residual .tch read as a plain matcher")
+    launches, _, paths, _ = run_main_path(
+        pipe(trees, trees[0], GPU, None), pipe(trees, trees[0], "cpu", None),
+        frames[:N_SHORT], "residual matcher from a port-written .tch")
+    if (any(form != "layer" for form, _ in paths.values())
+            or launches["gat_fused_proj"] != 5 * N_SHORT):
+        raise AssertionError(f"residual .tch: paths {paths}, launches "
+                             f"{launches}")
+    for ln in lines:
+        print(f"  {ln}")
+    print(f"  export-torch (pan_irls_bf16: the matcher, its residual-prior "
+          f"lifter refused; the pair) and convert-torch, in this process: "
+          f"{t_files:.1f} s", flush=True)
+    return launches
+
+
+def check_servable(rig_config, rig, frames, rtree, mcfg, ltree, lcfg, d):
+    """Phase 10 (e): ``export-servable --dtype int8`` and ``--dtype bf16``
+    of the phase 9 lifter (random matcher beside it), each served by
+    ``from_checkpoint`` on the card against the CPU: the lifter in its
+    stored kind, one ``mlp_run`` launch a frame, persons equal and poses
+    within ``POSE_TOL_M``."""
+    from mpe3d_tpu_torch import cli
+    from mpe3d_tpu_torch.checkpoint import save_checkpoint
+    from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
+
+    models = os.path.join(d, "phase9")
+    save_checkpoint(os.path.join(models, "pose_estimator"), ltree,
+                    meta={"lifter_config": lcfg, "prior": "mean"})
+    write_matcher_npz(os.path.join(models, "skeleton_matching"), rtree,
+                      mcfg)
+    total = dict.fromkeys(launch_counters(), 0)
+    for dtype in ("int8", "bf16"):
+        out = os.path.join(d, f"servable_{dtype}")
+        cli.main(["export-servable", "--modelsdir", models, "--dtype", dtype,
+                  "--out", out])
+
+        def mk(device, fk):
+            return PoseEstimationPipeline.from_checkpoint(
+                out, rig, rig_config, device=device, slot_buckets=(4,),
+                person_buckets=(8,), use_frame_kernel=fk)
+        gpu = mk(GPU, None)
+        if gpu.serve_dtype != dtype:
+            raise AssertionError(f"the {dtype} export serves "
+                                 f"{gpu.serve_dtype}")
+        launches, _, _, _ = run_main_path(gpu, mk("cpu", True),
+                                          frames[:N_SHORT],
+                                          f"export-servable --dtype {dtype}")
+        if launches["mlp_run"] != N_SHORT:
+            raise AssertionError(f"{dtype} export: launches {launches}")
+        for k, v in launches.items():
+            total[k] += v
+    return models, total
+
+
+def check_profile_trace(models, wire4, d, smi):
+    """Phase 10 (f): ``infer --profile-trace`` on the card in this process:
+    the trace names the CUDA kernels the frames launched (the stack GAT's
+    ``f64_gemm_kernel`` and ``stack_out``, ``frame_decode_pack_kernel``,
+    ``mlp_run_kernel``), and the records equal those without the trace."""
+    import contextlib
+    import io
+
+    from mpe3d_tpu_torch import cli
+    from mpe3d_tpu_torch.data.synthetic import write_frames
+
+    path = os.path.join(d, "frames.json")
+    write_frames(wire4, path)
+    tdir = os.path.join(d, "trace")
+    recs = {}
+    for name, extra in (("plain", []), ("traced", ["--profile-trace",
+                                                    tdir])):
+        out = os.path.join(d, f"{name}.json")
+        with contextlib.redirect_stderr(io.StringIO()):
+            cli.main(["infer", "--modelsdir", models, "--testfiles", path,
+                      "--out", out, *extra])
+        with open(out) as f:
+            recs[name] = json.load(f)
+    compare_records(recs["traced"], recs["plain"], "infer --profile-trace")
+    (trace,) = os.listdir(tdir)
+    with open(os.path.join(tdir, trace)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e.get("name", "") for e in events
+               if e.get("cat") == "kernel"}
+    want = ("f64_gemm_kernel", "stack_out", "frame_decode_pack_kernel",
+            "mlp_run_kernel")
+    missing = [k for k in want if not any(k in n for n in kernels)]
+    if missing:
+        raise AssertionError(f"infer --profile-trace: no {missing} among the "
+                             f"traced kernels {sorted(kernels)[:20]}")
+    print(f"  infer --profile-trace on the card: {trace} "
+          f"({os.path.getsize(os.path.join(tdir, trace))} bytes, "
+          f"{len(events)} events, {len(kernels)} kernel names) names "
+          f"{', '.join(want)}; {len(recs['plain'])} records equal to the "
+          f"run without the trace ({smi})", flush=True)
+
+
+def run_matcher_training_and_files(rig_config, rig, matchers, mcfg, lifters,
+                                   frames, frames10, wire4, ltree9, lcfg9,
+                                   prior, smi):
+    """Phase 10: (a)-(f) above in a temporary directory.  Returns the
+    launches of the card-trained matcher's runs."""
+    import tempfile
+    tuned, cfg, files, topo, dev, init = train_matcher_full_width(
+        rig_config, rig, matchers["trained"], mcfg, smi)
+    check_device_synth(rig_config, rig, files, topo, dev, cfg, init, smi)
+    launches = serve_trained_matcher(rig_config, rig, tuned, mcfg,
+                                     lifters, frames, frames10)
+    with tempfile.TemporaryDirectory() as d:
+        check_conversions(rig_config, rig, frames, matchers["random"],
+                          ltree9, lcfg9, d)
+        models, _ = check_servable(rig_config, rig, frames,
+                                   matchers["random"], mcfg, ltree9, lcfg9,
+                                   d)
+        check_profile_trace(models, wire4, d, smi)
+    return launches
 
 
 def main() -> int:
@@ -3395,8 +3882,8 @@ def main() -> int:
           + f" ({smi})")
 
     t0 = time.perf_counter()
-    eval_launches = run_eval_and_training(rig_config, rig, matchers, mcfg,
-                                          smi)
+    eval_launches, ltree9, lcfg9 = run_eval_and_training(
+        rig_config, rig, matchers, mcfg, smi)
     phase("evaluation and training", t0,
           f"train_lifter at full width on the card tracks the CPU within "
           f"{TRAIN_RTOL} a epoch; run_pose_metrics (fused, stream "
@@ -3404,6 +3891,22 @@ def main() -> int:
           f"(launches {eval_launches}) with the CPU's counts; sm-metrics, "
           f"reprojection-error, train-lifter and metrics-from-model run on "
           f"the card ({smi})")
+
+    t0 = time.perf_counter()
+    lifters = {"pan_irls_bf16": (ltree, lcfg, prior),
+               "random": (weights.random_lifter_tree(lcfg, 1), lcfg,
+                          "mean")}
+    m_launches = run_matcher_training_and_files(
+        rig_config, rig, matchers, mcfg, lifters, frames, frames10, wire4,
+        ltree9, lcfg9, prior, smi)
+    phase("matcher training and model files", t0,
+          f"train_matcher at full width on the card tracks the CPU within "
+          f"{TRAIN_RTOL} a epoch (MSE; BCE with prune_dist); --device-synth "
+          f"trains on scenes synthesised on the card; the trained matcher "
+          f"serves through the kernels (launches {m_launches}) with the "
+          f"CPU's persons; export-torch / convert-torch, the reference's "
+          f"files, export-servable int8 / bf16 and infer --profile-trace "
+          f"serve on the card ({smi})")
 
     # a device time the profiler did not record is not measured: null
     for k in report:

@@ -18,10 +18,11 @@ exports (``"stored": "int8"``) hold the tree of
 
 Writing (``save_checkpoint``, ``mpe3d_tpu/train/checkpoint.py:79-137``):
 ``p.leaf_*`` as above, optimizer leaves ``o.leaf_*`` in the order optax
-flattens the state of ``chain(clip_by_global_norm, adam)`` (its clip state
-has no leaves: Adam's ``count``, then ``mu``, then ``nu``, each a tree of
-the trained variables, ``{"model": lifter tree, "rig": CameraRig}`` when
-the rig is trained), and ``__meta_json__``; the npz is committed with one
+flattens the state of the lifter's ``chain(clip_by_global_norm, adam)``
+and the matcher's ``adamw`` (their clip, decay and scale states have no
+leaves: Adam's ``count``, then ``mu``, then ``nu``, each a tree of the
+trained variables, ``{"model": lifter tree, "rig": CameraRig}`` when the
+rig is trained), and ``__meta_json__``; the npz is committed with one
 ``os.replace``, then the ``.json`` sidecar, so each package reads the
 other's checkpoints, parameters and optimizer state both.  ``read_meta``
 heals a sidecar older than its npz from the embedded copy.  Orbax
@@ -101,8 +102,7 @@ def load_matcher_checkpoint(stem: str, default_cfg: MatcherConfig
     numpy arrays (keys per layer as ``matcher_layer_keys``), and the
     architecture stored in the meta."""
     leaves, meta = read_checkpoint(stem)
-    cfg = config_from_meta(MatcherConfig, meta.get("matcher_config"),
-                           default_cfg)
+    cfg = matcher_config_from_meta(meta, default_cfg)
     layer_keys = matcher_layer_keys(cfg)
     if len(leaves) != sum(map(len, layer_keys)):
         raise ValueError(f"{stem}: {len(leaves)} leaves, the matcher "
@@ -240,6 +240,16 @@ def lifter_config_from_meta(meta: Dict[str, Any],
     """The LifterConfig a checkpoint was trained with: the meta's fields
     (widths, residual_prior, ...) over ``default``."""
     return config_from_meta(LifterConfig, meta.get("lifter_config"),
+                            default)
+
+
+def matcher_config_from_meta(meta: Dict[str, Any],
+                             default: MatcherConfig) -> MatcherConfig:
+    """The MatcherConfig a checkpoint was trained with
+    (``mpe3d_tpu/train/checkpoint.py:716-736``): the architecture the meta
+    stores (hidden, heads, residual, bias, slopes, dropout rates) over
+    ``default``; the JAX package's serving switches are dropped."""
+    return config_from_meta(MatcherConfig, meta.get("matcher_config"),
                             default)
 
 

@@ -1,18 +1,19 @@
-"""Command line of the PyTorch port: serving, evaluation and lifter
-training.
+"""Command line of the PyTorch port: serving, evaluation, training and the
+model files.
 
 Port of ``mpe3d_tpu/cli.py`` (``load_rig`` :35, ``load_models`` :54,
-``build_pipeline`` :133, ``cmd_train_lifter`` :303, the evaluation
-commands :392-452, ``cmd_infer`` :454, ``cmd_serve`` :520,
-``cmd_merge_jsons`` and ``cmd_generate_synthetic`` :671-691, the parser
-:884-1274)::
+``build_pipeline`` :133, ``cmd_train_matcher`` :213, ``cmd_train_lifter``
+:303, the evaluation commands :392-452, ``cmd_infer`` :454, ``cmd_serve``
+:520, ``cmd_merge_jsons`` and ``cmd_generate_synthetic`` :671-691,
+``cmd_convert_torch`` / ``cmd_export_torch`` :714-785,
+``cmd_export_servable`` :787, the parser :990-1274)::
 
     python -m mpe3d_tpu_torch serve --modelsdir models_demo/pan_irls_bf16 \\
         [--rig PANOPTIC|ARPLAB] [--tcp PORT] [--depth 3] [--track] \\
         [--quality-gate PX] [--warmup] [--batch-window N] \\
         [--batch-linger-ms MS]
     python -m mpe3d_tpu_torch infer --modelsdir DIR --testfiles f.json \\
-        [--stream 3 | --batch] [--out poses.json]
+        [--stream 3 | --batch] [--out poses.json] [--profile-trace DIR]
     python -m mpe3d_tpu_torch metrics-from-model --modelsdir DIR \
         --testfiles f.json [--fused | --stream N | --device-decode] \
         [--dedup-gt] [--dataset-tm TM]    (also metrics-from-triangulation)
@@ -24,10 +25,24 @@ commands :392-452, ``cmd_infer`` :454, ``cmd_serve`` :520,
     python -m mpe3d_tpu_torch merge-jsons a.json b.json out.json
     python -m mpe3d_tpu_torch train-lifter --modelsdir DIR \
         --trainset t.json --devset d.json [--resume] [--optimise-matrices]
+    python -m mpe3d_tpu_torch train-matcher --modelsdir DIR \
+        --trainset a.json b.json --devset d.json [--testset t.json] \
+        [--slots 4] [--resume] [--device-synth]
+    python -m mpe3d_tpu_torch convert-torch --lifter pose_estimator.pytorch \
+        --matcher skeleton_matching.tch --prms skeleton_matching.prms \
+        --modelsdir DIR
+    python -m mpe3d_tpu_torch export-torch --modelsdir DIR --out TORCH_DIR
+    python -m mpe3d_tpu_torch export-servable --modelsdir DIR --out DIR2 \
+        [--dtype int8|bf16]
 
 Each evaluation command prints the JAX command's report (a JSON object);
 ``train-lifter`` writes ``pose_estimator.npz`` (and ``refined_rig.npz``
-with ``--optimise-matrices``) into ``--modelsdir``.
+with ``--optimise-matrices``) into ``--modelsdir``, ``train-matcher``
+``skeleton_matching.npz``.  A models directory may hold the reference's
+torch files (``skeleton_matching.tch`` + ``.prms``,
+``pose_estimator.pytorch``) instead of npz checkpoints; they are served
+as they are.  ``infer --profile-trace DIR`` writes a ``torch.profiler``
+Chrome trace of the inference (``utils/logging.py``).
 
 ``--backend triangulation`` (with ``--tri-variant median|irls``) and the
 geometric decode options (``--geo-rerank``, ``--geo-rescue``,
@@ -44,8 +59,10 @@ bring them, never ignored.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import shutil
 import sys
 
 import numpy as np
@@ -95,32 +112,34 @@ def load_rig(args):
 
 def load_models(models_dir: str, rig_config):
     """(matcher tree, MatcherConfig, lifter tree, LifterConfig, prior) of a
-    models directory's npz checkpoints (``checkpoint.py``); a model without
-    a checkpoint gets numpy-seeded random weights, with a warning.  The
-    reference's torch files (``.tch``, ``.pytorch``) and orbax checkpoints
-    are refused."""
+    models directory: its npz checkpoints (``checkpoint.py``), else the
+    reference's torch files (``skeleton_matching.tch`` + ``.prms``,
+    ``pose_estimator.pytorch``; ``convert/torch_import.py``); a model
+    without either gets numpy-seeded random weights, with a warning.
+    Orbax checkpoints are refused."""
     from mpe3d_tpu_torch import weights
     from mpe3d_tpu_torch.checkpoint import (load_lifter_checkpoint,
                                             load_matcher_checkpoint)
+    from mpe3d_tpu_torch.convert.torch_import import (load_reference_lifter,
+                                                      load_reference_matcher)
 
     mcfg = MatcherConfig(in_dim=rig_config.matcher_feature_dim)
     lcfg = LifterConfig(in_dim=rig_config.lifter_input_dim,
                         out_dim=rig_config.n_joints * 3)
-    stems = {name: os.path.join(models_dir, name)
+    j = os.path.join
+    stems = {name: j(models_dir, name)
              for name in ("skeleton_matching", "pose_estimator")}
     for name, stem in stems.items():
         if os.path.isdir(stem + ".orbax"):
             _refuse(f"the orbax checkpoint {stem}.orbax",
                     "checkpoints beyond npz, ROADMAP.md section 1, item 8")
-    for torch_file in ("skeleton_matching.tch", "pose_estimator.pytorch"):
-        if (os.path.exists(os.path.join(models_dir, torch_file))
-                and not os.path.exists(
-                    stems[torch_file.split(".")[0]] + ".npz")):
-            _refuse(f"the reference torch checkpoint {torch_file}",
-                    "conversion, ROADMAP.md section 1, item 9")
     if os.path.exists(stems["skeleton_matching"] + ".npz"):
         mtree, mcfg = load_matcher_checkpoint(stems["skeleton_matching"],
                                               mcfg)
+    elif os.path.exists(j(models_dir, "skeleton_matching.tch")):
+        mtree, mcfg = load_reference_matcher(
+            j(models_dir, "skeleton_matching.tch"),
+            j(models_dir, "skeleton_matching.prms"))
     else:
         print("[mpe3d_torch] no matcher checkpoint found: random weights",
               file=sys.stderr)
@@ -129,6 +148,9 @@ def load_models(models_dir: str, rig_config):
     if os.path.exists(stems["pose_estimator"] + ".npz"):
         ltree, lcfg, prior = load_lifter_checkpoint(
             stems["pose_estimator"], lcfg)
+    elif os.path.exists(j(models_dir, "pose_estimator.pytorch")):
+        ltree, lcfg = load_reference_lifter(
+            j(models_dir, "pose_estimator.pytorch"))
     else:
         print("[mpe3d_torch] no lifter checkpoint found: random weights",
               file=sys.stderr)
@@ -188,7 +210,9 @@ def cmd_infer(args) -> None:
     """Wire-format JSON files -> one JSON list of {frame, n_persons,
     persons, quality_px, poses_m} (and track_ids with --track), through
     ``infer_stream`` with ``--stream`` frames in flight, or ``infer_batch``
-    with ``--batch``; with one matching camera, the staged path's bypass."""
+    with ``--batch``; with one matching camera, the staged path's bypass.
+    ``--profile-trace DIR``: a ``torch.profiler`` trace of the inference
+    (``utils/logging.py::profiler_trace``), the output unchanged."""
     from mpe3d_tpu_torch.data.frames import parse_frames_file
     from mpe3d_tpu_torch.serve import gate_and_track
 
@@ -196,12 +220,20 @@ def cmd_infer(args) -> None:
     fas = []
     for p in args.testfiles:
         fas.extend(parse_frames_file(p, rig_config, args.max_skeletons))
-    if len(pipe.match_idx) <= 1:
-        outs = [pipe(fa) for fa in fas]
-    elif args.batch:
-        outs = pipe.infer_batch(fas)
-    else:
-        outs = pipe.infer_stream(fas, depth=max(args.stream, 1))
+    trace = contextlib.nullcontext()
+    if args.profile_trace:
+        from mpe3d_tpu_torch.utils.logging import profiler_trace
+        trace = profiler_trace(args.profile_trace)
+    with trace as prof:
+        if len(pipe.match_idx) <= 1:
+            outs = [pipe(fa) for fa in fas]
+        elif args.batch:
+            outs = pipe.infer_batch(fas)
+        else:
+            outs = list(pipe.infer_stream(fas, depth=max(args.stream, 1)))
+    if prof is not None:
+        print(f"[mpe3d_torch] profile trace: {prof.trace_path}",
+              file=sys.stderr)
     tracker = _make_tracker(args)
     result = []
     for i, o in enumerate(outs):
@@ -459,14 +491,247 @@ def cmd_train_lifter(args) -> None:
               f"did not refine the calibration)", file=sys.stderr)
 
 
+def cmd_train_matcher(args) -> None:
+    """Matcher training into ``--modelsdir`` (``train/matcher.py``) on
+    composites of the single-person ``--trainset`` files, early-stopped on
+    ``--devset``'s; ``--device-synth`` synthesises the training scenes on
+    the device each epoch (``train/matcher_synth.py``); ``--resume``
+    continues from the checkpoint (its architecture overrides the
+    default); ``--testset`` prints the trained matcher's MSE on its
+    scenes, the mean over batches weighted by their sizes."""
+    import torch
+
+    from mpe3d_tpu_torch.checkpoint import (checkpoint_exists,
+                                            load_matcher_checkpoint,
+                                            read_meta,
+                                            read_optimizer_leaves)
+    from mpe3d_tpu_torch.config import MatcherTrainConfig
+    from mpe3d_tpu_torch.data.frames import load_frames
+    from mpe3d_tpu_torch.matching.features import build_topology
+    from mpe3d_tpu_torch.train.matcher import (MatcherObjective,
+                                               scene_tensors, train_matcher)
+    from mpe3d_tpu_torch.train.matcher_data import build_matcher_scenes
+    from mpe3d_tpu_torch.weights import trainable_matcher_from_tree
+
+    if args.ckpt_backend == "orbax":
+        _refuse("--ckpt-backend orbax", "orbax checkpoints, ROADMAP.md "
+                "section 1, item 8")
+    device = "cpu" if args.cpu else "cuda"
+    out = os.path.join(args.modelsdir, "skeleton_matching")
+    if args.resume:
+        # checked before the scenes are built: a bad resume fails at once
+        if not checkpoint_exists(out):
+            sys.exit(f"--resume: no checkpoint at {out} (.npz or .orbax/) "
+                     f"-- drop --resume to train fresh")
+        if not os.path.exists(out + ".npz"):
+            _refuse(f"resuming the orbax checkpoint {out}.orbax",
+                    "orbax checkpoints, ROADMAP.md section 1, item 8")
+    rig_config, rig = load_rig(args)
+    topo = build_topology(rig_config.n_matching_cameras, args.slots)
+    tcfg = MatcherTrainConfig(epochs=args.epochs, limit=args.limit,
+                              batch_size=args.batch_size, seed=args.seed,
+                              checkpoint_backend=args.ckpt_backend)
+    cfg = MatcherConfig(in_dim=rig_config.matcher_feature_dim)
+    train = bank = None
+    if args.device_synth:
+        from mpe3d_tpu_torch.train.matcher_synth import build_scene_bank
+        bank = build_scene_bank([load_frames(p) for p in args.trainset],
+                                rig_config)
+        print(f"device-synth bank: {bank.kp.shape[0]} frames, "
+              f"{bank.aug_frame.shape[0]} augmented entries; {tcfg.limit} "
+              f"scenes/epoch synthesized on device")
+    else:
+        train = build_matcher_scenes([load_frames(p) for p in args.trainset],
+                                     rig_config, topo, limit=tcfg.limit,
+                                     seed=tcfg.seed)
+    dev = build_matcher_scenes([load_frames(p) for p in args.devset],
+                               rig_config, topo, limit=tcfg.limit,
+                               seed=tcfg.seed + 1)
+    print(f"train scenes: "
+          f"{'on-device synth' if bank is not None else len(train)}, "
+          f"dev scenes: {len(dev)}")
+    params = opt_state = None
+    if args.resume:
+        params, cfg = load_matcher_checkpoint(out, cfg)
+        opt_state = read_optimizer_leaves(out)
+        meta = read_meta(out)
+        print(f"resuming from {out} (epoch {meta.get('epoch')}, "
+              f"val {meta.get('val_loss')}, "
+              f"opt_state={'yes' if opt_state is not None else 'no'})")
+    res = train_matcher(train, dev, rig_config, rig, topo, cfg, tcfg,
+                        checkpoint_path=out, params=params,
+                        opt_state=opt_state, synth_bank=bank, device=device)
+    print(f"best dev loss {res.best_val_loss:.6f} after {res.epochs_run} "
+          f"epochs \u2192 {out} [{tcfg.checkpoint_backend}]")
+    if args.testset:
+        test = build_matcher_scenes([load_frames(p) for p in args.testset],
+                                    rig_config, topo, limit=tcfg.limit,
+                                    seed=tcfg.seed + 2)
+        obj = MatcherObjective(
+            rig.select(rig_config.matching_camera_indices()), rig_config,
+            topo, cfg, device)
+        model = trainable_matcher_from_tree(res.params, cfg, device)
+        losses, sizes = [], []
+        with torch.no_grad():
+            for i in range(0, len(test), tcfg.batch_size):
+                idx = np.arange(i, min(i + tcfg.batch_size, len(test)))
+                losses.append(obj.loss(model, scene_tensors(test, device,
+                                                            idx)))
+                sizes.append(len(idx))
+        mse = (float(np.average(torch.stack(losses).cpu().numpy(),
+                                weights=sizes)) if sizes else float("nan"))
+        print(f"MSE for the test set {mse:.6f}")
+
+
+def cmd_convert_torch(args) -> None:
+    """The reference's torch files -> npz checkpoints in ``--modelsdir``
+    (``convert/torch_import.py``)."""
+    from mpe3d_tpu_torch.checkpoint import save_checkpoint
+    from mpe3d_tpu_torch.convert.torch_import import (load_reference_lifter,
+                                                      load_reference_matcher)
+
+    if args.lifter:
+        params, cfg = load_reference_lifter(args.lifter)
+        out = os.path.join(args.modelsdir, "pose_estimator")
+        save_checkpoint(out, params, meta={"lifter_config": cfg,
+                                           "source": args.lifter})
+        print(f"wrote {out}.npz")
+    if args.matcher:
+        params, cfg = load_reference_matcher(args.matcher, args.prms)
+        out = os.path.join(args.modelsdir, "skeleton_matching")
+        save_checkpoint(out, params, meta={"matcher_config": cfg,
+                                           "source": args.matcher})
+        print(f"wrote {out}.npz")
+
+
+def _npz_or_refuse(stem: str) -> bool:
+    """Whether ``<stem>.npz`` exists; an orbax checkpoint there instead is
+    refused."""
+    from mpe3d_tpu_torch.checkpoint import checkpoint_exists
+    if checkpoint_exists(stem) and not os.path.exists(stem + ".npz"):
+        _refuse(f"the orbax checkpoint {stem}.orbax", "orbax checkpoints, "
+                "ROADMAP.md section 1, item 8")
+    return os.path.exists(stem + ".npz")
+
+
+def cmd_export_torch(args) -> int:
+    """The inverse of convert-torch: the npz checkpoints of ``--modelsdir``
+    as the reference's torch files in ``--out``
+    (``convert/torch_export.py``), which the reference's torch/DGL stack
+    loads.  A bf16 serving export's lifter goes out as the fp32 values of
+    its bf16 weights (exact); an int8 one is not exported."""
+    from mpe3d_tpu_torch.checkpoint import (load_lifter_checkpoint,
+                                            load_matcher_checkpoint,
+                                            read_meta)
+    from mpe3d_tpu_torch.convert.torch_export import (export_reference_lifter,
+                                                      export_reference_matcher)
+
+    rig_config = get_rig(args.rig)
+    os.makedirs(args.out, exist_ok=True)
+    j = os.path.join
+    wrote = []
+    mstem = j(args.modelsdir, "skeleton_matching")
+    if _npz_or_refuse(mstem):
+        mtree, mcfg = load_matcher_checkpoint(
+            mstem, MatcherConfig(in_dim=rig_config.matcher_feature_dim))
+        export_reference_matcher(mtree, mcfg,
+                                 j(args.out, "skeleton_matching.tch"),
+                                 j(args.out, "skeleton_matching.prms"))
+        wrote += ["skeleton_matching.tch", "skeleton_matching.prms"]
+    lstem = j(args.modelsdir, "pose_estimator")
+    if _npz_or_refuse(lstem):
+        stored = read_meta(lstem).get("stored")
+        ltree, lcfg, _ = load_lifter_checkpoint(
+            lstem, LifterConfig(in_dim=rig_config.lifter_input_dim,
+                                out_dim=rig_config.n_joints * 3))
+        try:
+            if stored == "int8":
+                raise ValueError("an int8 serving export has no fp32 "
+                                 "weights")
+            if stored == "bf16":        # bf16 values are exact in fp32
+                ltree = {"layers": [{"w": layer["w"].float().numpy(),
+                                     "b": layer["b"]}
+                                    for layer in ltree["layers"]]}
+            export_reference_lifter(ltree, j(args.out,
+                                             "pose_estimator.pytorch"),
+                                    cfg=lcfg)
+            wrote.append("pose_estimator.pytorch")
+        except ValueError as e:
+            print(f"[mpe3d_torch] lifter not exported: {e}", file=sys.stderr)
+    if not wrote:
+        print(f"[mpe3d_torch] no npz checkpoints in {args.modelsdir}",
+              file=sys.stderr)
+        return 1
+    print(f"wrote {', '.join(wrote)} to {args.out}")
+    return 0
+
+
+def cmd_export_servable(args) -> int:
+    """A serving-only models directory in ``--out``: the matcher
+    (``skeleton_matching.npz/.json``) and a refined calibration copied as
+    they are, the lifter stored ``--dtype int8`` (the weight-only
+    quantisation of ``models/mlp.py::quantize_lifter_weights``) or ``bf16``
+    (the weights rounded to nearest even, stored as their uint16 bit
+    patterns), meta ``"stored"`` set.  Serving reads it; an export is not
+    exported again, and ``train-lifter --resume`` refuses it."""
+    import torch
+
+    from mpe3d_tpu_torch.checkpoint import (load_lifter_checkpoint,
+                                            read_meta, save_checkpoint)
+    from mpe3d_tpu_torch.models.mlp import (lifter_is_quantized,
+                                            quantize_lifter_weights)
+
+    rig_config = get_rig(args.rig)
+    j = os.path.join
+    _npz_or_refuse(j(args.modelsdir, "skeleton_matching"))
+    lpath = j(args.modelsdir, "pose_estimator")
+    if not _npz_or_refuse(lpath):
+        print(f"[mpe3d_torch] no lifter checkpoint in {args.modelsdir}",
+              file=sys.stderr)
+        return 1
+    lmeta = read_meta(lpath)
+    if lmeta.get("stored"):
+        sys.exit(f"{lpath} is already a serving export "
+                 f"(stored={lmeta['stored']})")
+    os.makedirs(args.out, exist_ok=True)
+    wrote = []
+    for name in ("skeleton_matching.npz", "skeleton_matching.json",
+                 "refined_rig.npz"):
+        src = j(args.modelsdir, name)
+        if os.path.exists(src):
+            shutil.copy2(src, j(args.out, name))
+            wrote.append(name)
+    ltree, _, _ = load_lifter_checkpoint(
+        lpath, LifterConfig(in_dim=rig_config.lifter_input_dim,
+                            out_dim=rig_config.n_joints * 3))
+    tree = {"layers": [{k: torch.from_numpy(np.asarray(v, np.float32))
+                        for k, v in layer.items()}
+                       for layer in ltree["layers"]]}
+    if args.dtype == "int8":
+        tree = quantize_lifter_weights(tree)
+        assert lifter_is_quantized(tree)
+        layers = [{k: v.numpy() for k, v in layer.items()}
+                  for layer in tree["layers"]]
+    else:
+        # npz holds no bfloat16: the bit patterns go in as uint16
+        layers = [{"w": layer["w"].to(torch.bfloat16).view(torch.int16)
+                   .numpy().view(np.uint16), "b": layer["b"].numpy()}
+                  for layer in tree["layers"]]
+    meta = {k: v for k, v in lmeta.items() if k != "epoch"}
+    meta["stored"] = args.dtype
+    save_checkpoint(j(args.out, "pose_estimator"), {"layers": layers},
+                    meta=meta)
+    wrote += ["pose_estimator.npz", "pose_estimator.json"]
+    total = sum(os.path.getsize(j(args.out, n)) for n in wrote)
+    print(f"wrote {', '.join(wrote)} to {args.out} ({total / 1e6:.1f} MB, "
+          f"lifter stored {args.dtype})")
+    return 0
+
+
 # commands of the JAX command line that later slices port
 REFUSED_COMMANDS = {
-    "train-matcher": "matcher training, ROADMAP.md section 1, item 8",
     "show-results": "the viewers, ROADMAP.md section 1, item 9",
     "convert-panoptic": "conversion, ROADMAP.md section 1, item 9",
-    "convert-torch": "conversion, ROADMAP.md section 1, item 9",
-    "export-torch": "conversion, ROADMAP.md section 1, item 9",
-    "export-servable": "conversion, ROADMAP.md section 1, item 9",
 }
 
 
@@ -549,7 +814,7 @@ def make_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m mpe3d_tpu_torch",
         description="Multi-person 3D pose estimation, PyTorch/CUDA port: "
-        "serve, infer, evaluate and train the lifter")
+        "serve, infer, evaluate, train and convert models")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("infer", help="wire JSON files -> 3D poses JSON")
@@ -562,6 +827,9 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch", action="store_true",
                    help="one batched submit (infer_batch) instead of "
                    "streaming")
+    p.add_argument("--profile-trace", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the inference "
+                   "(Chrome trace JSON) into DIR")
     _add_track_flags(p)
     p.set_defaults(fn=cmd_infer)
 
@@ -690,6 +958,64 @@ def make_parser() -> argparse.ArgumentParser:
                    "fp32 sums and fp32 master weights")
     p.set_defaults(fn=cmd_train_lifter)
 
+    p = sub.add_parser("train-matcher", help="matcher training into "
+                       "--modelsdir")
+    _add_common(p, backend=False)
+    p.add_argument("--trainset", nargs="+", required=True)
+    p.add_argument("--devset", nargs="+", required=True)
+    p.add_argument("--testset", nargs="*", default=[])
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--batch-size", type=int, default=15)
+    p.add_argument("--limit", type=int, default=120000)
+    p.add_argument("--slots", type=int, default=4,
+                   help="skeleton slots per camera in training scenes")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--resume", action="store_true",
+                   help="resume the weights and the optimizer state from "
+                   "the --modelsdir checkpoint (the reference can only "
+                   "save)")
+    p.add_argument("--ckpt-backend", default="npz",
+                   choices=["npz", "orbax"],
+                   help="checkpoint format: npz (orbax is refused)")
+    p.add_argument("--device-synth", action="store_true",
+                   help="synthesise the training composites on the device "
+                   "each epoch (train/matcher_synth.py) instead of "
+                   "building --limit scenes on the host; the dev set stays "
+                   "host-built")
+    p.set_defaults(fn=cmd_train_matcher)
+
+    p = sub.add_parser("convert-torch", help="the reference's torch files "
+                       "-> npz checkpoints")
+    p.add_argument("--lifter", default=None,
+                   help="path to pose_estimator.pytorch")
+    p.add_argument("--matcher", default=None,
+                   help="path to skeleton_matching.tch")
+    p.add_argument("--prms", default=None,
+                   help="path to skeleton_matching.prms")
+    p.add_argument("--modelsdir", default="./models")
+    p.set_defaults(fn=cmd_convert_torch, needs_device=False)
+
+    p = sub.add_parser("export-torch", help="npz checkpoints -> the "
+                       "reference's torch files")
+    p.add_argument("--modelsdir", default="./models",
+                   help="directory with the npz checkpoints")
+    p.add_argument("--out", required=True,
+                   help="directory for the reference-format torch files")
+    p.add_argument("--rig", default="PANOPTIC")
+    p.set_defaults(fn=cmd_export_torch, needs_device=False)
+
+    p = sub.add_parser("export-servable", help="a serving-only models "
+                       "directory (int8 or bf16 lifter)")
+    p.add_argument("--modelsdir", default="./models",
+                   help="directory with the npz checkpoints")
+    p.add_argument("--out", required=True,
+                   help="output directory of the servable export")
+    p.add_argument("--dtype", choices=("int8", "bf16"), default="int8",
+                   help="stored lifter weights: int8 (weight-only, "
+                   "per-channel and per-row scales) or bf16")
+    p.add_argument("--rig", default="PANOPTIC")
+    p.set_defaults(fn=cmd_export_servable, needs_device=False)
+
     for name in REFUSED_COMMANDS:
         sub.add_parser(name, help="not ported: refused")
     return ap
@@ -706,5 +1032,4 @@ def main(argv=None) -> int:
             sys.exit("mpe3d_tpu_torch: no CUDA device is available; the "
                      "port serves on the card, or on the CPU through the "
                      "kernels' plain versions with --cpu")
-    args.fn(args)
-    return 0
+    return args.fn(args) or 0

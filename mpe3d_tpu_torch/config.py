@@ -3,10 +3,10 @@
 Port of ``mpe3d_tpu/config.py`` (the joint vocabularies :15-34,
 ``RigConfig`` :45, the presets ``PANOPTIC`` :154 and ``ARPLAB`` :180 with
 ``get_rig`` :210, ``MatcherConfig`` :225, ``LifterConfig`` :260,
-``LifterTrainConfig`` :305).  A rig
+``MatcherTrainConfig`` :277, ``LifterTrainConfig`` :305).  A rig
 preset holds every field of the reference's (``dataclasses.asdict`` of
 both are equal); the model configs are cut to the fields the PyTorch
-serving path reads.  Kept as a copy so the port never imports the JAX
+port reads (the reference's TPU serving switches are left out).  Kept as a copy so the port never imports the JAX
 package.
 """
 
@@ -194,6 +194,10 @@ class MatcherConfig:
     heads: Tuple[int, ...] = (10, 10, 8, 5)
     n_classes: int = 1
     alpha: float = 0.15             # attention LeakyReLU slope
+    # training-time dropout (models/gat.py::TrainableMatcher); serving
+    # ignores both, checkpoint metas and the .prms import carry them
+    feat_drop: float = 0.0
+    attn_drop: float = 0.0
     residual: bool = False
     bias: bool = True
     hidden_slope: float = 0.01      # inter-layer LeakyReLU
@@ -227,6 +231,31 @@ class LifterConfig:
     def layer_dims(self):
         dims = (self.in_dim, *self.widths, self.out_dim)
         return list(zip(dims[:-1], dims[1:]))
+
+
+@dataclass(frozen=True)
+class MatcherTrainConfig:
+    """Matcher training (reference: train_skeleton_matching.py:31-58), the
+    fields of the JAX package's, so checkpoint metas carry the same keys.
+    ``scan_epoch``: an epoch takes ``n // batch_size`` full batches of a
+    permutation drawn from a seeded ``torch.Generator`` and drops the tail;
+    off, batches of ``np.random.default_rng(seed)``'s permutation, the tail
+    kept.  ``prune_dist`` (metres, 0 = off): pairs whose mean ray distance
+    exceeds it leave the loss and the head softmax.  ``checkpoint_backend``:
+    "npz" ("orbax" is refused)."""
+
+    epochs: int = 100
+    lr: float = 1e-4
+    batch_size: int = 15
+    weight_decay: float = 1e-20
+    patience: int = 5
+    eval_every: int = 5
+    limit: int = 120000
+    use_bce: bool = False
+    seed: int = 0
+    scan_epoch: bool = True
+    checkpoint_backend: str = "npz"
+    prune_dist: float = 0.0
 
 
 @dataclass(frozen=True)

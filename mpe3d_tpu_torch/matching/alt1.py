@@ -39,7 +39,7 @@ import torch
 from mpe3d_tpu_torch.config import JOINT_NAMES_BY_FORMAT
 from mpe3d_tpu_torch.matching.features import PairTopology
 from mpe3d_tpu_torch.ops.fused_proj import proj_plain
-from mpe3d_tpu_torch.ops.gat_kernel import layer_views, shortcut
+from mpe3d_tpu_torch.ops.gat_kernel import dropout, shortcut
 
 # reference graph_generator.py:100-106 (verbatim, with left_ear -> 're')
 _BODY_PARTS_ABBREVIATION = {
@@ -198,7 +198,8 @@ def build_alt1_topology(topo: PairTopology, n_joints: int,
 
 
 class Alt1Graph(NamedTuple):
-    """An ``Alt1Topology``'s edge arrays as int64 tensors on one device."""
+    """An ``Alt1Topology``'s edge arrays as int64 tensors on one device,
+    for one graph or the union of ``n_graphs`` copies (``alt1_union``)."""
 
     topo: Alt1Topology
     src: torch.Tensor
@@ -207,6 +208,7 @@ class Alt1Graph(NamedTuple):
     sup2: torch.Tensor
     pair_idx: torch.Tensor
     to_head: torch.Tensor      # bool
+    n_graphs: int = 1
 
 
 def alt1_graph(topo1: Alt1Topology, device) -> Alt1Graph:
@@ -271,27 +273,62 @@ def alt1_node_features(kp: torch.Tensor, valid: torch.Tensor,
     return feats, live
 
 
+def alt1_union(graph: Alt1Graph, n: int) -> Alt1Graph:
+    """The edge list of ``n`` disjoint copies of the graph (the training
+    batch of ``train/matcher.py``): copy b's nodes offset by b*N (its
+    head, joint and edge nodes in one block), its pair indices by b*E; the
+    features and liveness then come copy by copy, [n*N] and [n*E]."""
+    if n == 1:
+        return graph
+    N, E = graph.topo.n_nodes, graph.topo.n_pairs
+    off = torch.arange(n, device=graph.src.device)[:, None]
+
+    def shift(t, step, keep_negative=False):
+        out = t[None] + off * step
+        if keep_negative:
+            out = torch.where(t[None] >= 0, out, t[None])
+        return out.reshape(-1)
+
+    return Alt1Graph(graph.topo, shift(graph.src, N), shift(graph.dst, N),
+                     shift(graph.sup1, N, True), shift(graph.sup2, N, True),
+                     shift(graph.pair_idx, E, True),
+                     graph.to_head.repeat(n), n)
+
+
 def apply_matcher_alt1(matcher, feats: torch.Tensor, node_live: torch.Tensor,
-                       pair_mask: torch.Tensor,
-                       graph: Alt1Graph) -> torch.Tensor:
+                       pair_mask: torch.Tensor, graph: Alt1Graph,
+                       pair_softmax_weight: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
     """The GAT stack over the alt-1 edge list: sigmoid scores [E].
 
-    ``matcher``: a ``models/gat.py::Matcher`` (its packed layers, bias flag
-    and residual shortcuts; cfg.in_dim = alt1_feature_dim).  feats
-    [n_nodes, F]: the head and joint rows (``alt1_node_features``), then
-    the edge-node rows (``features.edge_node_features``).  Per layer as
-    the reference (gat2.py:50-88): fc1 -> LeakyReLU -> fc2, per-edge logits
+    ``matcher``: a ``models/gat.py::Matcher`` or ``TrainableMatcher`` (its
+    layers, bias flag and residual shortcuts; cfg.in_dim =
+    alt1_feature_dim).  feats [n_nodes, F]: the head and joint rows
+    (``alt1_node_features``), then the edge-node rows
+    (``features.edge_node_features``).  Per layer as the reference
+    (gat2.py:50-88): fc1 -> LeakyReLU -> fc2, per-edge logits
     LeakyReLU(a_l z_src + a_r z_dst), a softmax over each destination's
     live in-edges, the weighted sum; the residual shortcut on every layer
-    but the first."""
+    but the first.  ``pair_softmax_weight`` [E]: the pair multiplicities on
+    the edge-node -> head links (default ``pair_mask``).  With
+    ``generator`` (train mode) ``feat_drop`` drops each layer's input rows
+    and ``attn_drop`` the normalised coefficients, summed without
+    renormalising, as ``models/gat.py::TrainableMatcher``.  Over a union of
+    n graphs (``alt1_union``) every argument holds the n copies, each
+    graph's nodes in one block, and the scores come as [n*E]."""
     cfg = matcher.cfg
     topo1 = graph.topo
-    N = topo1.n_nodes
+    n = graph.n_graphs
+    N = topo1.n_nodes * n
     src, dst = graph.src, graph.dst
     dt = feats.dtype
+    pair_w = (pair_mask if pair_softmax_weight is None
+              else pair_softmax_weight).reshape(-1)
     # per-edge weight: both endpoints live, suppressors dead; an edge
     # node's link edges to its heads carry the pair weight
-    lv = torch.cat([node_live.to(dt), (pair_mask > 0).to(dt)])   # [N]
+    lv = torch.cat([node_live.to(dt).view(n, -1),
+                    (pair_mask > 0).to(dt).view(n, -1)], 1).view(-1)
     one = torch.ones((), dtype=dt, device=feats.device)
     w = (lv[src] * lv[dst]
          * torch.where(graph.sup1 >= 0,
@@ -299,21 +336,24 @@ def apply_matcher_alt1(matcher, feats: torch.Tensor, node_live: torch.Tensor,
          * torch.where(graph.sup2 >= 0,
                        1.0 - lv[torch.clamp(graph.sup2, min=0)], one))
     w = torch.where(graph.to_head,
-                    pair_mask[torch.clamp(graph.pair_idx, min=0)], w)
+                    pair_w[torch.clamp(graph.pair_idx, min=0)], w)
     dead = (w <= 0)[:, None]
+    feat_drop = cfg.feat_drop if generator is not None else 0.0
+    attn_drop = cfg.attn_drop if generator is not None else 0.0
     shortcuts = matcher.shortcuts()
     x = feats
     dims = matcher.dims
     for l, ((d_in, d, nh), (w1, b1, w2, b2, al, ar)) in enumerate(
-            zip(dims, layer_views(matcher.flat, dims))):
-        if not cfg.bias:
-            b1 = b2 = None
+            zip(dims, matcher.layer_params())):
+        if feat_drop > 0.0:
+            x = dropout(x, feat_drop, generator)
         z = proj_plain(x, w1, b1, w2, b2, cfg.alpha).view(N, nh, d)
         a1 = (z * al).sum(-1)                                     # [N, nh]
         a2 = (z * ar).sum(-1)
         v = a1[src] + a2[dst]
         logits = torch.where(v >= 0, v, cfg.alpha * v)            # [Et, nh]
-        masked = torch.where(dead, float("-inf"), logits)
+        # the max shift is a constant of each softmax: no gradient in it
+        masked = torch.where(dead, float("-inf"), logits.detach())
         m = torch.full((N, nh), float("-inf"), dtype=dt,
                        device=feats.device).scatter_reduce(
             0, dst[:, None].expand(-1, nh), masked, "amax")
@@ -321,12 +361,20 @@ def apply_matcher_alt1(matcher, feats: torch.Tensor, node_live: torch.Tensor,
         ex = torch.where(dead, 0.0, torch.exp(logits - m[dst])) * w[:, None]
         denom = torch.zeros((N, nh), dtype=dt,
                             device=feats.device).index_add_(0, dst, ex)
-        num = torch.zeros((N, nh * d), dtype=dt,
-                          device=feats.device).index_add_(
-            0, dst, (ex[..., None] * z[src]).reshape(-1, nh * d))
-        den = denom[..., None]
-        out = torch.where(den > 0, num.view(N, nh, d)
-                          / torch.clamp(den, min=1e-30), 0.0)
+        if attn_drop > 0.0:
+            coef = dropout(ex / torch.clamp(denom[dst], min=1e-30),
+                           attn_drop, generator)
+            out = torch.zeros((N, nh * d), dtype=dt,
+                              device=feats.device).index_add_(
+                0, dst, (coef[..., None] * z[src]).reshape(-1, nh * d)
+            ).view(N, nh, d)
+        else:
+            num = torch.zeros((N, nh * d), dtype=dt,
+                              device=feats.device).index_add_(
+                0, dst, (ex[..., None] * z[src]).reshape(-1, nh * d))
+            den = denom[..., None]
+            out = torch.where(den > 0, num.view(N, nh, d)
+                              / torch.clamp(den, min=1e-30), 0.0)
         if shortcuts is not None and shortcuts[l] is not None:
             out = out + shortcut(x, shortcuts[l], nh, d)
         if l < len(dims) - 1:
@@ -334,4 +382,5 @@ def apply_matcher_alt1(matcher, feats: torch.Tensor, node_live: torch.Tensor,
             x = torch.where(o >= 0, o, cfg.hidden_slope * o)
         else:
             x = out.reshape(N)
-    return torch.sigmoid(x[topo1.edge_node_offset:])
+    return torch.sigmoid(x.view(n, -1)[:, topo1.edge_node_offset:]
+                         .reshape(-1))

@@ -146,27 +146,30 @@ def pair_ray_distances(kp: torch.Tensor, shared: torch.Tensor,
     """Triangulation-consistency distance per candidate pair, in metres
     (``mpe3d_tpu/matching/features.py:163``): the mean closest-approach
     distance between the raw-pixel world rays of the joints both skeletons
-    share.  kp [C, S, J, 2] raw pixels; shared [C, S, J] per-joint usability
+    share.  kp [..., C, S, J, 2] raw pixels (leading dims: a batch of
+    frames); shared [..., C, S, J] per-joint usability
     (valid & observed); ``rig`` restricted to the matching cameras; the
     topology's index arrays may be numpy or tensors on kp's device.
-    Returns d [E]; pairs with no shared joint get the sentinel 1e3.
+    Returns d [..., E]; pairs with no shared joint get the sentinel 1e3.
 
     The reference selects endpoints with 0/1 incidence matmuls (exact, one
     nonzero a row) in a [3, J, E] layout for the TPU's lanes; here they are
     gathered by index in [E, J, 3]."""
-    C, S, J, _ = kp.shape
+    C, S, J, _ = kp.shape[-4:]
+    lead = tuple(kp.shape[:-4])
     dev = kp.device
     e1, e2 = _index(topo.e1, dev), _index(topo.e2, dev)
     cam1, cam2 = _index(topo.cam1, dev), _index(topo.cam2, dev)
     rays = pixel_rays_world(kp, rig.K_inv[:, None, None],
-                            rig.T_cw[:, None, None]).reshape(C * S, J, 3)
-    sh = shared.reshape(C * S, J).to(kp.dtype)
-    v1, v2 = rays[e1], rays[e2]                                  # [E, J, 3]
-    both = sh[e1] * sh[e2]                                       # [E, J]
+                            rig.T_cw[:, None, None]).reshape(*lead, C * S,
+                                                             J, 3)
+    sh = shared.reshape(*lead, C * S, J).to(kp.dtype)
+    v1, v2 = rays[..., e1, :, :], rays[..., e2, :, :]         # [..., E, J, 3]
+    both = sh[..., e1, :] * sh[..., e2, :]                       # [..., E, J]
     centers = cam_centers_world(rig.T_cw)                        # [C, 3]
     dp = (centers[cam2] - centers[cam1])[:, None, :]             # [E, 1, 3]
     n = torch.cross(v1, v2, dim=-1)
-    nn = torch.sqrt(torch.sum(n * n, -1))                        # [E, J]
+    nn = torch.sqrt(torch.sum(n * n, -1))                        # [..., E, J]
     d_skew = torch.abs(torch.sum(dp * n, -1)) / torch.clamp(nn, min=1e-9)
     # (near-)parallel rays: perpendicular distance of the baseline to v1
     v1n = v1 / torch.clamp(torch.sqrt(torch.sum(v1 * v1, -1)),

@@ -109,32 +109,70 @@ def shortcut(x: torch.Tensor, sc, nh: int, d: int) -> torch.Tensor:
     return (r if br is None else r + br).view(-1, nh, d)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout, torch semantics (``nn.Dropout``; the reference's
+    ``mpe3d_tpu/models/gat.py::_dropout`` :125): each element kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), the draws from
+    ``generator``."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 def gat_stack_plain(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
                     flat: torch.Tensor, dims: Dims, alpha: float,
                     slope: float, edge_const: bool = False,
                     proj=proj_plain, bias: bool = True,
                     shortcuts=None) -> torch.Tensor:
-    """Plain PyTorch version: x [H+E, in_dim], pw [E] -> logits [E].  Each
-    layer projects its rows with ``proj(x, w1, b1, w2, b2, alpha)``: the
-    plain fc1 -> LeakyReLU -> fc2, or the fused projection kernel
-    (``ops/fused_proj.py``) in the per-layer form (``models/gat.py``),
-    given None biases where ``bias`` is off (the packed ones are zeros).
-    ``shortcuts`` (a residual matcher, the layer form): per layer None or
-    the residual shortcut (``shortcut``) added to its head and edge
-    outputs.  Under ``edge_const`` layer 0 projects rows 0..H and gives
-    every edge row H's projection."""
+    """Plain PyTorch version: x [H+E, in_dim], pw [E] -> logits [E], the
+    packed weights ``flat`` through ``gat_layers``.  ``bias`` off: the
+    packed biases (zeros) are left out of the projection."""
+    layers = layer_views(flat, dims)
+    if not bias:
+        layers = [(w1, None, w2, None, al, ar)
+                  for w1, _, w2, _, al, ar in layers]
+    return gat_layers(x, pw, topo, layers, dims, alpha, slope, edge_const,
+                      proj, shortcuts)
+
+
+def gat_layers(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
+               layers, dims: Dims, alpha: float, slope: float,
+               edge_const: bool = False, proj=proj_plain, shortcuts=None,
+               generator: Optional[torch.Generator] = None,
+               feat_drop: float = 0.0,
+               attn_drop: float = 0.0) -> torch.Tensor:
+    """The GAT stack's math in plain PyTorch, differentiable: x [H+E,
+    in_dim], pw [E] -> logits [E]; ``layers``: per layer (w1, b1, w2, b2,
+    attn_l, attn_r), a bias None where the matcher has none.  Each layer
+    projects its rows with ``proj(x, w1, b1, w2, b2, alpha)``: the plain
+    fc1 -> LeakyReLU -> fc2, or the fused projection kernel
+    (``ops/fused_proj.py``) in the per-layer form (``models/gat.py``).
+    ``shortcuts`` (a residual matcher): per layer None or the residual
+    shortcut (``shortcut``) added to its head and edge outputs.  Under
+    ``edge_const`` layer 0 projects rows 0..H and gives every edge row H's
+    projection.
+
+    Training (``models/gat.py::TrainableMatcher``): the head softmax's max
+    shift is a constant of the softmax, so it is detached and no gradient
+    flows in it.  Dropout draws from ``generator`` (the reference's
+    ``_gat_layer``, ``mpe3d_tpu/models/gat.py`` :162-165, :218-259):
+    ``feat_drop`` on each layer's input rows (the shortcut reads the dropped
+    rows), ``attn_drop`` on the normalised attention coefficients, summed
+    without renormalising; not with ``edge_const``, since dropped edge rows
+    differ."""
     H, E = topo.n_heads, topo.n_pairs
     e1, e2 = topo.e1.long(), topo.e2.long()
     inc = topo.inc.long()
     pw_inc = pw[inc]                                          # [H, D]
     live = (pw_inc > 0)[..., None]                            # [H, D, 1]
     neg = torch.tensor(float("-inf"), dtype=x.dtype, device=x.device)
-    layers = layer_views(flat, dims)
     for l, ((d_in, d, nh), (w1, b1, w2, b2, al, ar)) in enumerate(
             zip(dims, layers)):
-        if not bias:
-            b1 = b2 = None
         sc = None if shortcuts is None else shortcuts[l]
+        if feat_drop > 0.0:
+            x = dropout(x, feat_drop, generator)
         if edge_const and l == 0:
             z = proj(x[:H + 1], w1, b1, w2, b2, alpha)
             z = torch.cat([z[:H], z[H:].expand(E, -1)])       # [N, F]
@@ -151,6 +189,8 @@ def gat_stack_plain(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
                               _leaky(a1h[e1] + a2e, alpha),
                               _leaky(a1h[e2] + a2e, alpha)], -1)
         att = torch.softmax(logits, -1)                       # [E, nh, 3]
+        if attn_drop > 0.0:
+            att = dropout(att, attn_drop, generator)
         out_e = (att[..., 0:1] * ze + att[..., 1:2] * zh[e1]
                  + att[..., 2:3] * zh[e2])                    # [E, nh, d]
         if sc is not None:
@@ -162,12 +202,17 @@ def gat_stack_plain(x: torch.Tensor, pw: torch.Tensor, topo: GatTopology,
         # head destinations: self + live incident edges, exact max shift
         ls = _leaky(a1h + a2h, alpha)                         # [H, nh]
         li = torch.where(live, _leaky(a1e[inc] + a2h[:, None], alpha), neg)
-        m = torch.maximum(ls, li.amax(1))
+        m = torch.maximum(ls, li.amax(1)).detach()
         es = torch.exp(ls - m)
         xw = torch.exp(li - m[:, None]) * pw_inc[..., None]   # [H, D, nh]
         denom = es + xw.sum(1)
-        num = es[..., None] * zh + (xw[..., None] * ze[inc]).sum(1)
-        out_h = num / denom[..., None]                        # [H, nh, d]
+        if attn_drop > 0.0:
+            cs = dropout(es / denom, attn_drop, generator)
+            cw = dropout(xw / denom[:, None], attn_drop, generator)
+            out_h = cs[..., None] * zh + (cw[..., None] * ze[inc]).sum(1)
+        else:
+            num = es[..., None] * zh + (xw[..., None] * ze[inc]).sum(1)
+            out_h = num / denom[..., None]                    # [H, nh, d]
         if sc is not None:
             out_h = out_h + r[:H]
         x = _leaky(torch.cat([out_h.reshape(H, -1), out_e.reshape(E, -1)]),

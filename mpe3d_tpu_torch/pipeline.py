@@ -129,7 +129,8 @@ from mpe3d_tpu_torch.matching.features import (PairTopology, build_topology,
                                                pair_mask_from_present,
                                                pair_ray_distances,
                                                prune_pair_candidates)
-from mpe3d_tpu_torch.models.gat import Matcher, gat_topology
+from mpe3d_tpu_torch.models.gat import (Matcher, gat_topology,
+                                        union_topology)
 from mpe3d_tpu_torch.models.mlp import Lifter, lifter_is_quantized
 from mpe3d_tpu_torch.ops.frame_kernel import (cam_consts, cam_to_world,
                                               frame_decode_pack,
@@ -688,18 +689,9 @@ class PoseEstimationPipeline:
             return b.gtopo, b.efeats
         key = (S, n)
         if key not in self._unions:
-            H, E = b.topo.n_heads, b.topo.n_pairs
-            off = torch.arange(n, dtype=torch.int32, device=self.device)
-
-            def shift(t, step):
-                lead = off.view(-1, *([1] * t.dim())) * step
-                return (t[None] + lead).reshape(-1, *t.shape[1:]).contiguous()
-
-            inc = None if b.gtopo.inc is None else shift(b.gtopo.inc, E)
             self._unions[key] = (
-                GatTopology(shift(b.gtopo.e1, H), shift(b.gtopo.e2, H),
-                            n * H, inc),
-                edge_node_features(n * E, b.efeats.shape[1],
+                union_topology(b.gtopo, n, b.topo.n_pairs),
+                edge_node_features(n * b.topo.n_pairs, b.efeats.shape[1],
                                    device=self.device))
         return self._unions[key]
 

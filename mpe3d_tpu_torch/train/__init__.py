@@ -1,1 +1,2 @@
-"""Training: the lifter's dataset and trainer, matcher scenes, checkpoints."""
+"""Training: the lifter's and the matcher's datasets and trainers, and the
+matcher's scenes synthesised on the device."""

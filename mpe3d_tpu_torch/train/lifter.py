@@ -11,12 +11,13 @@ without improvement.
   ``TrainableLifter`` (fp32 master weights; bf16 operands with
   ``compute_dtype="bf16"``), as the JAX trainer runs ``apply_lifter``'s
   ``jnp.dot`` chain outside any Pallas kernel.  TF32 is off.
-* The optimizer is optax's ``chain(clip_by_global_norm, adam)`` written
-  out: the gradients are scaled by ``max_norm / g_norm`` (as
-  ``(g / g_norm) * max_norm``) only when ``g_norm >= max_norm``, then
-  Adam's moments, bias corrections and ``mu_hat / (sqrt(nu_hat) + eps)``.
-  Its state is (count, mu, nu) in the order optax flattens it, so
-  checkpoints carry it between the packages (``checkpoint.py``).
+* The optimizer (``Adam``, shared with the matcher trainer) is optax's
+  ``chain(clip_by_global_norm, adam)`` written out: the gradients are
+  scaled by ``max_norm / g_norm`` (as ``(g / g_norm) * max_norm``) only
+  when ``g_norm >= max_norm``, then Adam's moments, bias corrections and
+  ``mu_hat / (sqrt(nu_hat) + eps)``.  Its state is (count, mu, nu) in the
+  order optax flattens it, so checkpoints carry it between the packages
+  (``checkpoint.py``).
 * An epoch takes ``n // batch_size`` full batches of a permutation drawn
   on the device from a seeded ``torch.Generator`` (``arange`` with
   ``shuffle=False``) and drops the tail; the dataset is uploaded once.
@@ -84,13 +85,21 @@ def init_lifter_tree(cfg: LifterConfig, seed: int) -> Dict:
     return tree
 
 
-class _Adam:
-    """optax ``chain(clip_by_global_norm(max_norm), adam(lr))`` on a list
-    of tensors; ``state()`` is its (count, mu, nu)."""
+class Adam:
+    """optax's Adam on a list of tensors: ``adam(lr)`` after
+    ``clip_by_global_norm(max_norm)`` (the lifter trainer's chain; no clip
+    with ``max_norm`` None), or ``adamw(lr, weight_decay)`` (the matcher
+    trainer's: the decay ``weight_decay * p`` is added to Adam's step
+    before the learning rate scales it, decoupled from the gradient).
+    ``leaves``: a previous state, as its leaves or a (count, mu, nu) tree;
+    ``state()`` is its (count, mu, nu), the leaves optax's state of either
+    chain has, in that order."""
 
     def __init__(self, params: List[torch.Tensor], lr: float,
-                 max_norm: float, leaves=None):
+                 max_norm: Optional[float] = None, leaves=None,
+                 weight_decay: float = 0.0):
         self.params, self.lr, self.max_norm = params, lr, max_norm
+        self.weight_decay = weight_decay
         n = len(params)
         if leaves is None:
             self.count = 0
@@ -103,8 +112,8 @@ class _Adam:
                              f"expected {1 + 2 * n} (count, mu, nu of "
                              f"{n} trained variables)")
         self.count = int(leaves[0])
-        as_t = [torch.as_tensor(np.asarray(a, np.float32),
-                                device=params[0].device) for a in leaves[1:]]
+        as_t = [torch.tensor(np.asarray(a, np.float32),
+                             device=params[0].device) for a in leaves[1:]]
         for a, p in zip(as_t, params + params):
             if a.shape != p.shape:
                 raise ValueError(f"optimizer leaf {tuple(a.shape)} does not "
@@ -113,17 +122,21 @@ class _Adam:
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> None:
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        keep = g_norm < self.max_norm
-        grads = [torch.where(keep, g, (g / g_norm) * self.max_norm)
-                 for g in grads]
+        if self.max_norm is not None:
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            keep = g_norm < self.max_norm
+            grads = [torch.where(keep, g, (g / g_norm) * self.max_norm)
+                     for g in grads]
         self.count += 1
         c1 = 1.0 - ADAM_B1 ** self.count
         c2 = 1.0 - ADAM_B2 ** self.count
         for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
             m.mul_(ADAM_B1).add_((1.0 - ADAM_B1) * g)
             v.mul_(ADAM_B2).add_((1.0 - ADAM_B2) * (g * g))
-            p.add_(-self.lr * ((m / c1) / (torch.sqrt(v / c2) + ADAM_EPS)))
+            u = (m / c1) / (torch.sqrt(v / c2) + ADAM_EPS)
+            if self.weight_decay:
+                u = u + self.weight_decay * p
+            p.add_(-self.lr * u)
 
     def state(self):
         return (np.asarray(self.count, np.int32),
@@ -176,7 +189,7 @@ def train_lifter(net_train: np.ndarray, err_train: np.ndarray,
         rig_t = CameraRig(*(t.clone().requires_grad_(True) for t in rig_t))
         variables = variables + list(rig_t)
     n_model = len(names)
-    opt = _Adam(variables, tcfg.lr, tcfg.grad_clip_norm, opt_state)
+    opt = Adam(variables, tcfg.lr, tcfg.grad_clip_norm, opt_state)
 
     def loss_of(tensors, net, err):
         out = functional_call(model, dict(zip(names, tensors[:n_model])),

@@ -19,11 +19,12 @@ same numbers:
 
 Also numpy-seeded random trees in the JAX layout (the same distribution
 families as ``init_matcher``/``init_lifter``), for runs without trained
-weights, and the training form of the lifter: ``trainable_lifter_from_tree``
-builds a ``TrainableLifter`` from a tree (how tests carry the JAX
-package's ``init_lifter`` draw across), ``lifter_tree`` gives its weights
-back as the numpy tree ``lifter_from_tree`` serves and the npz checkpoint
-stores.
+weights, and the training forms: ``trainable_lifter_from_tree`` and
+``trainable_matcher_from_tree`` build a ``TrainableLifter`` /
+``TrainableMatcher`` from a tree (how tests carry the JAX package's
+``init_lifter`` / ``init_matcher`` draws across), ``lifter_tree`` and
+``matcher_tree`` give their weights back as the numpy trees the serving
+modules take and the npz checkpoint stores.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import torch
 
 from mpe3d_tpu_torch.checkpoint import bf16_from_bits
 from mpe3d_tpu_torch.config import LifterConfig, MatcherConfig
-from mpe3d_tpu_torch.models.gat import Matcher
+from mpe3d_tpu_torch.models.gat import Matcher, TrainableMatcher
 from mpe3d_tpu_torch.models.mlp import (Lifter, TrainableLifter,
                                         cast_lifter_weights,
                                         lifter_is_quantized,
@@ -71,6 +72,21 @@ def matcher_from_tree(tree: Tree, cfg: MatcherConfig, device) -> Matcher:
     layers = [{k: _f32(v) for k, v in layer.items()}
               for layer in tree["layers"]]
     return Matcher(cfg, layers).to(device)
+
+
+def trainable_matcher_from_tree(tree: Tree, cfg: MatcherConfig,
+                                device) -> TrainableMatcher:
+    layers = [{k: _f32(v) for k, v in layer.items()}
+              for layer in tree["layers"]]
+    return TrainableMatcher(cfg, layers).to(device)
+
+
+def matcher_tree(matcher: TrainableMatcher) -> Tree:
+    """A trainable matcher's weights as the numpy fp32 tree of the JAX
+    layout."""
+    return {"layers": [
+        {k: getattr(matcher, f"{k}{li}").detach().cpu().numpy().copy()
+         for k in keys} for li, keys in enumerate(matcher.keys)]}
 
 
 def lifter_from_tree(tree: Tree, cfg: LifterConfig, device,

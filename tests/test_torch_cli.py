@@ -10,7 +10,13 @@ the triangulation backend (median, IRLS) and with geo rerank / rescue, and
 ``serve --batch-window 3``, and ``serve`` / ``infer`` with ``--rig
 ARPLAB`` on ``models_demo/arp_irls`` (int8 lifter, IRLS prior).  Every
 option the port does not have is refused with its ROADMAP.md item, and without a card and without ``--cpu``
-the command fails instead of serving on the CPU.
+the command fails instead of serving on the CPU.  The evaluation and
+training commands print the JAX CLI's numbers; ``train-matcher`` tracks
+the JAX CLI's epoch lines; ``convert-torch`` / ``export-torch`` and
+``export-servable`` write the files the JAX CLI writes (int8 leaves and
+bf16 bits equal), each command line serves the other's export and the
+reference's torch files alike, and ``infer --profile-trace`` writes a
+trace without changing the output.
 """
 
 import dataclasses
@@ -175,15 +181,6 @@ def test_infer_rig_arplab_matches_jax_cmd_infer(arp_lines, arp_random,
                              json.loads((tmp_path / "j.json").read_text()))
         n_persons += sum(g["n_persons"] for g in got)
     assert n_persons >= 3 * 2
-
-
-@pytest.mark.parametrize("torch_file", ["skeleton_matching.tch",
-                                        "pose_estimator.pytorch"])
-def test_reference_torch_checkpoints_are_refused(tmp_path, torch_file):
-    (tmp_path / torch_file).write_bytes(b"")
-    with pytest.raises(SystemExit) as e:
-        cli.main(["serve", "--cpu", "--modelsdir", str(tmp_path)])
-    assert "conversion, ROADMAP.md section 1, item 9" in str(e.value.code)
 
 
 def test_missing_calibration_file_fails(tmp_path):
@@ -425,9 +422,7 @@ def test_train_lifter_matches_jax_cli(eval_dir, capsys, tmp_path):
         assert message in str(e.value.code)
 
 
-@pytest.mark.parametrize("command", ["train-matcher", "show-results",
-                                     "convert-panoptic", "convert-torch",
-                                     "export-torch", "export-servable"])
+@pytest.mark.parametrize("command", ["show-results", "convert-panoptic"])
 def test_unported_commands_are_refused(command):
     with pytest.raises(SystemExit) as e:
         cli.main([command, "--anything"])
@@ -480,3 +475,204 @@ def test_serve_track_warmup_imports_the_solver_before_frames():
                        text=True, cwd=ROOT, timeout=600)
     assert r.returncode == 0, r.stderr
     assert r.stdout.split() == ["True"]
+
+
+# ---------------------------------------------------------------------------
+# matcher training and the model files (the JAX CLI's, in-process)
+# ---------------------------------------------------------------------------
+
+
+def _copy_models(src, dst, names=("skeleton_matching", "pose_estimator")):
+    dst.mkdir(parents=True, exist_ok=True)
+    for n in names:
+        for ext in (".npz", ".json"):
+            if (src / (n + ext)).exists():
+                (dst / (n + ext)).write_bytes((src / (n + ext)).read_bytes())
+    return dst
+
+
+def test_train_matcher_matches_jax_cli(eval_dir, capsys, tmp_path):
+    """``train-matcher --resume`` from the same narrow checkpoint in both
+    command lines, at most one batch of 8 scenes an epoch (so the
+    shuffles agree; the JAX CLI's 8 virtual devices make its batch 8): the
+    epoch lines and the test-set MSE within 1e-3 relative; the port's
+    checkpoint is read by the JAX CLI's ``load_models``; ``--device-synth``
+    trains; the refusals."""
+    files = [str(eval_dir / "train.json"), str(eval_dir / "dev.json")]
+    runs = {}
+    for name, main in (("p", cli.main), ("j", jcli.main)):
+        d = _copy_models(eval_dir / "models", tmp_path / name,
+                         ("skeleton_matching",))
+        capsys.readouterr()
+        main(["train-matcher", "--cpu", "--modelsdir", str(d), "--resume",
+              "--trainset", *files, "--devset", *files[::-1],
+              "--testset", str(eval_dir / "test.json"), "--epochs", "6",
+              "--batch-size", "8", "--limit", "8"])
+        runs[name] = capsys.readouterr().out
+    got, ref = _epoch_lines(runs["p"]), _epoch_lines(runs["j"])
+    assert len(got) == 2
+    np.testing.assert_allclose(got, ref, rtol=1e-3)
+
+    def mse(text):
+        return float(text.split("MSE for the test set")[1].split()[0])
+    assert mse(runs["p"]) == pytest.approx(mse(runs["j"]), rel=1e-3)
+    assert "resuming from" in runs["p"] and "opt_state=no" in runs["p"]
+    # the port's trained matcher read by the JAX command line
+    mparams, mcfg = jcli.load_models(str(tmp_path / "p"), J_PANOPTIC)[:2]
+    assert (mcfg.hidden, mcfg.heads) == (NARROW["hidden"], NARROW["heads"])
+    assert len(mparams["layers"]) == 3
+    # on-device synthesis, fresh
+    d = tmp_path / "synth"
+    capsys.readouterr()
+    cli.main(["train-matcher", "--cpu", "--modelsdir", str(d),
+              "--trainset", *files, "--devset", files[1], "--epochs", "1",
+              "--limit", "30", "--device-synth"])
+    out = capsys.readouterr().out
+    assert "device-synth bank" in out and (d / "skeleton_matching.npz").exists()
+    base = ["train-matcher", "--cpu", "--trainset", *files, "--devset",
+            files[1]]
+    for extra, message in (
+            (["--modelsdir", str(tmp_path / "none"), "--resume"],
+             "no checkpoint"),
+            (["--modelsdir", str(d), "--ckpt-backend", "orbax"], "item 8")):
+        with pytest.raises(SystemExit) as e:
+            cli.main([*base, *extra])
+        assert message in str(e.value.code)
+
+
+def test_convert_and_export_torch_match_jax_cli(eval_dir, tmp_path):
+    """``export-torch`` of the port and of the JAX CLI write the same
+    state dicts and configs; ``convert-torch`` of either's files gives
+    the npz checkpoints the models directory started with."""
+    from mpe3d_tpu.convert import torch_import as jimport
+    from mpe3d_tpu_torch import checkpoint as ckpt
+
+    models = str(eval_dir / "models")
+    for name, main in (("p", cli.main), ("j", jcli.main)):
+        main(["export-torch", "--modelsdir", models,
+              "--out", str(tmp_path / name)])
+    for f in ("skeleton_matching.tch", "pose_estimator.pytorch"):
+        a = torch.load(tmp_path / "p" / f, weights_only=False)
+        b = torch.load(tmp_path / "j" / f, weights_only=False)
+        a, b = a.get("model_state_dict", a), b.get("model_state_dict", b)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert torch.equal(a[k], b[k]), (f, k)
+    _, jm_cfg = jimport.load_reference_matcher(
+        str(tmp_path / "p" / "skeleton_matching.tch"),
+        str(tmp_path / "p" / "skeleton_matching.prms"))
+    assert (jm_cfg.hidden, jm_cfg.heads) == (NARROW["hidden"],
+                                             NARROW["heads"])
+    for name, main in (("p", cli.main), ("j", jcli.main)):
+        src = tmp_path / ("j" if name == "p" else "p")   # the other's files
+        main(["convert-torch", "--lifter", str(src / "pose_estimator.pytorch"),
+              "--matcher", str(src / "skeleton_matching.tch"),
+              "--prms", str(src / "skeleton_matching.prms"),
+              "--modelsdir", str(tmp_path / f"{name}_npz")])
+        for stem in ("skeleton_matching", "pose_estimator"):
+            got, _ = ckpt.read_checkpoint(str(tmp_path / f"{name}_npz"
+                                              / stem))
+            want, _ = ckpt.read_checkpoint(models + "/" + stem)
+            assert len(got) == len(want)
+            for x, y in zip(got, want):
+                np.testing.assert_array_equal(x, y)
+    assert cli.main(["export-torch", "--modelsdir", str(tmp_path / "empty"),
+                     "--out", str(tmp_path / "none")]) == 1
+
+
+def test_reference_torch_files_serve_like_jax(eval_dir, tmp_path):
+    """A models directory holding only the reference's torch files
+    (``.tch`` + ``.prms``, ``.pytorch``): ``infer`` in both command lines
+    gives the same records, and those of the npz checkpoints."""
+    d = tmp_path / "torch_models"
+    jcli.main(["export-torch", "--modelsdir", str(eval_dir / "models"),
+               "--out", str(d)])
+    assert sorted(p.name for p in d.iterdir()) == [
+        "pose_estimator.pytorch", "skeleton_matching.prms",
+        "skeleton_matching.tch"]
+    common = ["--testfiles", str(eval_dir / "test.json"), "--serve-dtype",
+              "fp32"]
+    out = {}
+    for name, main, models in (("p", cli.main, d), ("j", jcli.main, d),
+                               ("npz", cli.main, eval_dir / "models")):
+        argv = ["infer", *common, "--modelsdir", str(models),
+                "--out", str(tmp_path / f"{name}.json")]
+        main(argv + (["--cpu"] if main is cli.main else []))
+        out[name] = json.loads((tmp_path / f"{name}.json").read_text())
+    assert_records_match(out["p"], out["j"])
+    assert_records_match(out["p"], out["npz"])
+    assert sum(r["n_persons"] for r in out["p"]) > 0
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+def test_export_servable_matches_jax_cli(eval_dir, tmp_path, dtype):
+    """``export-servable --dtype int8|bf16``: the port's npz leaves equal
+    the JAX CLI's bit for bit (int8 weights and fp32 scales, bf16 bit
+    patterns), the meta says ``stored``; each command line serves the
+    other's export with the same records; an export is not exported
+    again, and ``train-lifter --resume`` refuses it."""
+    from mpe3d_tpu_torch import checkpoint as ckpt
+
+    models = str(eval_dir / "models")
+    for name, main in (("p", cli.main), ("j", jcli.main)):
+        main(["export-servable", "--modelsdir", models, "--dtype", dtype,
+              "--out", str(tmp_path / name)])
+    got, gmeta = ckpt.read_checkpoint(str(tmp_path / "p" / "pose_estimator"))
+    want, wmeta = ckpt.read_checkpoint(str(tmp_path / "j" / "pose_estimator"))
+    assert gmeta == wmeta and gmeta["stored"] == dtype
+    assert [x.dtype for x in got] == [y.dtype for y in want]
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x, y)
+    assert any(x.dtype == (np.int8 if dtype == "int8" else np.uint16)
+               for x in got)
+    assert ((tmp_path / "p" / "skeleton_matching.npz").read_bytes()
+            == (eval_dir / "models" / "skeleton_matching.npz").read_bytes())
+    common = ["--testfiles", str(eval_dir / "test.json")]
+    cli.main(["infer", "--cpu", *common, "--modelsdir", str(tmp_path / "j"),
+              "--out", str(tmp_path / "p.json")])
+    jcli.main(["infer", *common, "--modelsdir", str(tmp_path / "p"),
+               "--out", str(tmp_path / "j.json")])
+    recs = json.loads((tmp_path / "p.json").read_text())
+    assert_records_match(recs, json.loads((tmp_path / "j.json").read_text()))
+    assert sum(r["n_persons"] for r in recs) > 0
+    # export-torch of the export: the bf16 values exactly, int8 not at all
+    cli.main(["export-torch", "--modelsdir", str(tmp_path / "p"),
+              "--out", str(tmp_path / "torch")])
+    lifter_file = tmp_path / "torch" / "pose_estimator.pytorch"
+    assert (tmp_path / "torch" / "skeleton_matching.tch").exists()
+    assert lifter_file.exists() == (dtype == "bf16")
+    if dtype == "bf16":
+        from mpe3d_tpu.convert.torch_import import load_reference_lifter
+        back, _ = load_reference_lifter(str(lifter_file))
+        stored = ckpt.load_lifter_checkpoint(
+            str(tmp_path / "p" / "pose_estimator"),
+            cli.LifterConfig(in_dim=PANOPTIC.lifter_input_dim,
+                             out_dim=PANOPTIC.n_joints * 3))[0]
+        for a, b in zip(back["layers"], stored["layers"]):
+            np.testing.assert_array_equal(a["w"], b["w"].float().numpy())
+    with pytest.raises(SystemExit) as e:
+        cli.main(["export-servable", "--modelsdir", str(tmp_path / "p"),
+                  "--out", str(tmp_path / "again")])
+    assert "already a serving export" in str(e.value.code)
+    with pytest.raises(SystemExit) as e:
+        cli.main(["train-lifter", "--cpu", "--modelsdir",
+                  str(tmp_path / "p"), "--resume", "--trainset",
+                  str(eval_dir / "dev.json"), "--devset",
+                  str(eval_dir / "dev.json")])
+    assert "serving-only" in str(e.value.code)
+
+
+def test_infer_profile_trace(eval_dir, tmp_path):
+    """``infer --profile-trace DIR`` writes a Chrome trace of the
+    inference, and the records are those without it."""
+    common = ["infer", "--cpu", "--modelsdir", str(eval_dir / "models"),
+              "--testfiles", str(eval_dir / "test.json")]
+    cli.main([*common, "--out", str(tmp_path / "plain.json")])
+    cli.main([*common, "--out", str(tmp_path / "traced.json"),
+              "--profile-trace", str(tmp_path / "trace")])
+    plain = json.loads((tmp_path / "plain.json").read_text())
+    traced = json.loads((tmp_path / "traced.json").read_text())
+    assert_records_match(traced, plain)
+    (trace,) = list((tmp_path / "trace").iterdir())
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)

@@ -42,7 +42,13 @@ for n in ("mpe3d_tpu_torch.ops.gat_tiled", "mpe3d_tpu_torch.ops.gat_kernel",
           "mpe3d_tpu_torch.lifting.loss",
           "mpe3d_tpu_torch.train.matcher_data",
           "mpe3d_tpu_torch.train.lifter_data",
-          "mpe3d_tpu_torch.train.lifter"):
+          "mpe3d_tpu_torch.train.lifter",
+          "mpe3d_tpu_torch.train.matcher",
+          "mpe3d_tpu_torch.train.matcher_synth",
+          "mpe3d_tpu_torch.convert.gat2_replica",
+          "mpe3d_tpu_torch.convert.torch_import",
+          "mpe3d_tpu_torch.convert.torch_export",
+          "mpe3d_tpu_torch.utils.logging"):
     assert n in names, n
 spec = importlib.util.spec_from_file_location("chip_smoke",
                                               sys.argv[1] + "/chip_smoke.py")
