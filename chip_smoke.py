@@ -61,7 +61,9 @@ failure raises, and the script exits non-zero):
    ``arp_irls``'s 8 int8 layers as one run and one layer at a time; the
    decode at Cu=6 (IRLS and median priors: 15 camera pairs) and J=25,
    every prior and gate; the projection on a residual matcher's five
-   layer inputs.  Every kernel row also carries its device time
+   layer inputs and on the layer inputs at ARPLAB S=4, BODY_25 and alt-2
+   (timed in turns with the addmm chain).  Every kernel row also carries
+   its device time
    (torch.profiler), and the GAT kernels print their CUDA launches a call.
 4. main path: ``PoseEstimationPipeline.infer_fused`` on 16 synthetic frames
    on the card, once with the trained matcher and once with a numpy-seeded
@@ -146,8 +148,9 @@ failure raises, and the script exits non-zero):
    weights at full width) on the frame path, and the alt-2 graph, the
    alt-1 graph and a residual matcher (random, full width, the Panoptic
    lifter) on the eager path the reference's gate gives them, each on 6
-   frames against the CPU.  The rows of phase 3 at these shapes take
-   their launches from these runs.
+   frames against the CPU; ARPLAB, BODY_25 and alt-2 also through the
+   layer form (eager path, ``use_layer_matcher``).  The rows of phase 3
+   at these shapes take their launches from these runs.
 
 9. evaluation and label-free lifter training: ``train_lifter`` at full
    width (Panoptic ring rig, in_dim 1260, 29.09 M weights) for two epochs
@@ -188,6 +191,26 @@ failure raises, and the script exits non-zero):
    served in their kind (``mlp_run``) against the CPU; ``infer
    --profile-trace`` on the card, its trace naming the kernels the frames
    launched and its records those of the run without it.
+
+11. the Panoptic conversor and the viewers: (a) seeded HD uint8 images
+   through the card's ``resize_linear`` (cv2's INTER_LINEAR in integers)
+   bit-equal to the CPU's; (b) ``Detector2D`` at full width
+   (PoseResNet-50 on 960x512, numpy-seeded He weights, the head scaled per
+   channel so that ``DETECT_HOT`` cells pass 0.15) against its plain run on
+   the CPU: heatmaps within ``HEAT_RTOL``, peaks equal but where a cell
+   lies within that of the threshold or of its window's maximum (counted),
+   then its call ms, device ms, CUDA launches and bound; (c) Gaussian-blob
+   heatmaps [18, 128, 240] through the peaks, counts and peaks equal to
+   the CPU's, coordinates within ``REFINE_TOL``; (d) ``convert_sequence`` on a synthetic 5-camera HD sequence (the
+   module's image reader replaced by seeded arrays, so OpenCV need not be
+   installed), the first frame against the CPU's, the output parsed as
+   wire frames, a frame's 5 cameras timed; (e) ``show-results --out
+   .html`` on the card against ``--cpu`` (persons, track ids and GT equal,
+   poses within ``POSE_TOL_M``), the stack GAT and lifter kernels
+   launched, frames a second; (f) ``show-results --live 0`` as a
+   subprocess, its SSE events read over HTTP against the CPU's
+   ``infer_fused``, then SIGINT and exit code 0.  Each time is printed
+   with the card's name and power limit.
 
 The last lines are the kernel table as one JSON object and the contract
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -2429,6 +2452,16 @@ def gat_stack_entry(label, x, pw, gtopo, m, path):
     return row
 
 
+def proj_entry(label, x, pw, gtopo, m, path):
+    """A report row of the fused projection on the five layer inputs the
+    layer form gives these GAT inputs (``check_proj_kernel``: against its
+    plain version and fp64, timed in turns with the addmm chain)."""
+    row = []
+    check_proj_kernel({label: (x, pw, gtopo, m)}, row)
+    row[0].update(case=label, path=path)
+    return row[0]
+
+
 def run_entry(label, lifter, nets, replaces, library_of, path):
     """A report row of the whole lifter net as one run launch on the
     serving path's rows: against its plain version (MLP_NET_TOL), two
@@ -2584,6 +2617,8 @@ def check_variant_kernels(V, report):
                              f"{gtopo.inc.shape}")
     rows.append(gat_stack_entry("ARPLAB S=4, random matcher", x, pw, gtopo,
                                 a4.matcher, "arplab"))
+    rows.append(proj_entry("ARPLAB S=4, random matcher", x, pw, gtopo,
+                           a4.matcher, "arplab_layer"))
     t4 = arp.pipeline("trained", GPU, True)
     check_stack_trained("ARPLAB S=4", *t4.gat_stage_inputs(f4[0])[:3],
                         t4.matcher)
@@ -2591,10 +2626,14 @@ def check_variant_kernels(V, report):
     x, pw, gtopo, _ = bp.gat_stage_inputs(b25.frames[0][0])
     rows.append(gat_stack_entry("BODY_25 S=4, in_dim 1252", x, pw, gtopo,
                                 bp.matcher, "body25"))
+    rows.append(proj_entry("BODY_25 S=4, in_dim 1252", x, pw, gtopo,
+                           bp.matcher, "body25_layer"))
     alt2 = V["alt2"].pipeline("random", GPU)
     x, pw, gtopo, _ = alt2.stage_inputs(V["alt2"].frames[0][0])
     rows.append(gat_stack_entry("alt-2 S=4, in_dim 362", x, pw, gtopo,
                                 alt2.matcher, "alt2"))
+    rows.append(proj_entry("alt-2 S=4, in_dim 362", x, pw, gtopo,
+                           alt2.matcher, "alt2_layer"))
     # the tiled GAT kernels at ARPLAB S=10
     errs = []
     for m in ("trained", "random"):
@@ -2639,10 +2678,8 @@ def check_variant_kernels(V, report):
     # the projection on a residual matcher (the layer form's inputs)
     res = V["residual"].pipeline("random", GPU)
     x, pw, gtopo, _ = res.stage_inputs(V["residual"].frames[0][0])
-    before = len(rows)
-    check_proj_kernel({"S=4, residual matcher": (x, pw, gtopo,
-                                                 res.matcher)}, rows)
-    rows[before].update(case="S=4, residual matcher", path="residual")
+    rows.append(proj_entry("S=4, residual matcher", x, pw, gtopo,
+                           res.matcher, "residual"))
     report.extend(rows)
     return turns
 
@@ -2744,6 +2781,18 @@ def run_variants(V):
         if paths != {4: want} or frame_kernel_supported(gpu) != want[1]:
             raise AssertionError(f"{v.name}: paths {paths}")
         launches[key], ms[f"{v.name}, random"] = n, t
+    # the layer form (eager path) at the shapes of the projection's rows
+    for key in ("arplab", "body25", "alt2"):
+        v = V[key]
+        kw = dict(use_frame_kernel=False, use_layer_matcher=True)
+        n, t, paths, _ = run_main_path(
+            v.pipeline("random", GPU, **kw), v.pipeline("random", "cpu",
+                                                        **kw),
+            v.frames[0][:N_VARIANT], f"{v.name}, random matcher, layer form")
+        if paths != {4: ("layer", False)}:
+            raise AssertionError(f"{v.name} layer form: paths {paths}")
+        launches[key + "_layer"] = n
+        ms[f"{v.name}, random, layer form"] = t
     return launches, ms
 
 
@@ -3514,6 +3563,508 @@ def run_matcher_training_and_files(rig_config, rig, matchers, mcfg, lifters,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the Panoptic conversor and the viewers
+# ---------------------------------------------------------------------------
+
+N_RESIZE_IMAGES = 3        # seeded HD images through the card's resize
+DETECT_SEED = 0            # the He-normal backbone (he_normal_state)
+DETECT_HOT = 40            # heatmap cells a channel above the threshold
+N_DETECT_TIMED = 20        # detector calls a timing
+N_SEQ_FRAMES = 2           # frames of the synthetic 5-camera sequence
+N_SHOW_FRAMES = 8          # frames of show-results
+# heatmaps, card (cuDNN, fp32 without TF32) against the CPU's plain run on
+# the same image: fp32 sums in other orders through 53 convolutions, about
+# 1e-6 of the heatmaps' scale (the CPU tests see 1.7e-6 against JAX);
+# bounded at 1e-4 x (1 + max |heatmap|).  A peak may differ only where its
+# cell lies within that of the threshold or of its window's maximum, and
+# the refined coordinates of equal peaks within 1e-4 (normalised).  On the
+# same heatmaps the card's peaks equal the CPU's and the refined
+# coordinates, weighted sums of 25 fp32 terms in another order, lie within
+# 1e-6 (normalised, a few ulps of 1).
+HEAT_RTOL = 1e-4
+PEAK_XY_TOL = 1e-4
+REFINE_TOL = 1e-6
+
+
+def hot_head(state, cmap, hot=DETECT_HOT):
+    """``state`` with its head scaled per channel so that the ``hot``
+    largest cells of ``cmap`` (its heatmaps [J, h, w] on some image) pass
+    0.15: the midpoint between a channel's hot-th and next value maps to
+    0.15, its least value to 0.  Returns (state, per-channel scale)."""
+    import numpy as np
+    top = -np.sort(-cmap.reshape(len(cmap), -1), axis=1)
+    cut = (top[:, hot - 1].astype(np.float64) + top[:, hot]) / 2
+    low = top[:, -1].astype(np.float64)
+    s = 0.15 / (cut - low)
+    out = dict(state)
+    w = np.asarray(state["final_layer.weight"])
+    out["final_layer.weight"] = (w * s[:, None, None, None]).astype(
+        np.float32)
+    out["final_layer.bias"] = ((np.asarray(state["final_layer.bias"]) - low)
+                               * s).astype(np.float32)
+    return out, s
+
+
+def compare_peaks(det, got, ref, tol):
+    """Peaks of the card's heatmaps ``got`` (on the card) against the
+    CPU's of its heatmaps ``ref``: counts and (row, col) equal but where a
+    cell lies within ``tol`` of the threshold or of its window's maximum
+    (counted), refined coordinates of equal channels within PEAK_XY_TOL.
+    Returns (differing peaks, max |d xy|)."""
+    import torch
+    import torch.nn.functional as F
+    from mpe3d_tpu_torch.convert.peaks import find_peaks, refine_peaks
+    cg, pg = det.peaks(got)[0].cpu(), find_peaks(
+        got, det.threshold, det.window, det.max_peaks)[1]
+    ng = refine_peaks(pg, got, det.window).cpu()
+    pg = pg.cpu()
+    cr, pr = find_peaks(ref, det.threshold, det.window, det.max_peaks)
+    nr = refine_peaks(pr, ref, det.window)
+    pooled = F.max_pool2d(ref[None], det.window, 1, det.window // 2)[0]
+    n_diff, d_xy = 0, 0.0
+    for j in range(ref.shape[0]):
+        a = {tuple(p) for p in pg[j, :int(cg[j])].tolist()}
+        b = {tuple(p) for p in pr[j, :int(cr[j])].tolist()}
+        for r, c in a ^ b:
+            v = float(ref[j, r, c])
+            if not (abs(v - det.threshold) <= tol
+                    or float(pooled[j, r, c]) - v <= tol):
+                raise AssertionError(f"detector peaks, channel {j}: ({r}, "
+                                     f"{c}) at {v:.6g} differs from the "
+                                     f"CPU's, away from the threshold and "
+                                     f"its window's maximum")
+            n_diff += 1
+        if torch.equal(pg[j], pr[j]):
+            d_xy = max(d_xy, float((ng[j] - nr[j]).abs().max()))
+    if not d_xy <= PEAK_XY_TOL:
+        raise AssertionError(f"detector refined peaks: {d_xy:.3g} from the "
+                             f"CPU's (tol {PEAK_XY_TOL})")
+    return n_diff, d_xy
+
+
+def check_resize_and_peaks(smi):
+    """Phase 11 (a), (c): seeded HD uint8 images (1920x1080, and 3840x2160
+    and 1280x720) through the card's ``resize_linear`` bit-equal to the
+    CPU's; Gaussian-blob heatmaps [18, 128, 240] through ``find_peaks`` /
+    ``refine_peaks`` on the card: counts and peaks equal to the CPU's,
+    coordinates within ``REFINE_TOL``."""
+    import numpy as np
+    import torch
+    from mpe3d_tpu_torch.config import DETECTOR_INPUT
+    from mpe3d_tpu_torch.convert.panoptic import resize_linear
+    from mpe3d_tpu_torch.convert.peaks import find_peaks, refine_peaks
+    rng = np.random.default_rng(11)
+    shapes = [(1080, 1920)] * N_RESIZE_IMAGES + [(2160, 3840), (720, 1280)]
+    for h, w in shapes:
+        img = torch.from_numpy(rng.integers(0, 256, (h, w, 3),
+                                            dtype=np.uint8))
+        got = resize_linear(img.to(GPU), DETECTOR_INPUT).cpu()
+        if not torch.equal(got, resize_linear(img, DETECTOR_INPUT)):
+            raise AssertionError(f"resize_linear {w}x{h}: the card's "
+                                 f"differs from the CPU's")
+    hd = torch.from_numpy(rng.integers(0, 256, (1080, 1920, 3),
+                                       dtype=np.uint8)).to(GPU)
+    resize_ms = median_ms(lambda: resize_linear(hd, DETECTOR_INPUT))
+    yy, xx = np.mgrid[0:128, 0:240].astype(np.float32)
+    cm = np.zeros((18, 128, 240), np.float32)
+    for j in range(18):
+        for _ in range(int(rng.integers(2, 9))):
+            r, c = rng.uniform(0, 128), rng.uniform(0, 240)
+            s = rng.uniform(1.0, 3.0)
+            cm[j] = np.maximum(cm[j], rng.uniform(0.1, 1.0) * np.exp(
+                -((yy - r) ** 2 + (xx - c) ** 2) / (2 * s * s)))
+    cm = torch.from_numpy(cm)
+    outs = []
+    for dev in (GPU, "cpu"):
+        c, p = find_peaks(cm.to(dev))
+        outs.append((c.cpu(), p.cpu(), refine_peaks(p, cm.to(dev)).cpu()))
+    (cg, pg, ng), (cr, pr, nr) = outs
+    d_xy = float((ng - nr).abs().max())
+    if not (torch.equal(cg, cr) and torch.equal(pg, pr)
+            and d_xy <= REFINE_TOL):
+        raise AssertionError(f"peaks of the Gaussian heatmaps: the card's "
+                             f"differ from the CPU's (max |d xy| "
+                             f"{d_xy:.3g}, tol {REFINE_TOL:g})")
+    cmg = cm.to(GPU)
+    peaks_ms = median_ms(lambda: refine_peaks(find_peaks(cmg)[1], cmg))
+    print(f"  resize_linear (cv2's INTER_LINEAR in integers): "
+          f"{len(shapes)} seeded images (1920x1080 x {N_RESIZE_IMAGES}, "
+          f"3840x2160, 1280x720) -> 960x512 on the card bit-equal to the "
+          f"CPU's; 1920x1080 {resize_ms:.4f} ms.  find_peaks + refine_peaks "
+          f"on Gaussian-blob heatmaps [18, 128, 240] ({int(cr.sum())} peaks):"
+          f" counts and peaks equal to the CPU's, coordinates within "
+          f"{d_xy:.3g} (tol {REFINE_TOL:g}); {peaks_ms:.4f} ms ({smi})",
+          flush=True)
+
+
+def check_detector(smi):
+    """Phase 11 (b): ``Detector2D`` at full width (PoseResNet-50, 960x512,
+    numpy-seeded He weights, the head scaled by ``hot_head`` on this
+    image) on the card against its plain run on the CPU, timed."""
+    import numpy as np
+    import torch
+    from mpe3d_tpu_torch.convert.panoptic import Detector2D
+    from mpe3d_tpu_torch.convert.pose_resnet import (he_normal_state,
+                                                     pose_resnet_flops)
+    rng = np.random.default_rng(12)
+    image = rng.integers(0, 256, (512, 960, 3), dtype=np.uint8)
+    state = he_normal_state(DETECT_SEED)
+    raw = Detector2D(state, device=GPU).heatmaps(image).cpu().numpy()
+    state, scale = hot_head(state, raw)
+    cpu, gpu = Detector2D(state, device="cpu"), Detector2D(state, device=GPU)
+    t = time.perf_counter()
+    ref = cpu.heatmaps(image)
+    t_cpu = time.perf_counter() - t
+    got = gpu.heatmaps(image)
+    err = float((got.cpu() - ref).abs().max())
+    tol = HEAT_RTOL * (1.0 + float(ref.abs().max()))
+    if not (bool(torch.isfinite(got).all()) and err <= tol):
+        raise AssertionError(f"detector heatmaps on the card: max |d| "
+                             f"{err:.3g} from the CPU's (tol {tol:.3g})")
+    n_diff, d_xy = compare_peaks(gpu, got, ref, tol)
+    want, have = cpu(image, (1920, 1080)), gpu(image, (1920, 1080))
+    counts = [len(have.get(j, [])) for j in sorted(want)]
+    if sorted(have) != sorted(want) or not all(counts):
+        raise AssertionError(f"detector joints on the card {sorted(have)}, "
+                             f"the CPU's {sorted(want)}")
+    call = lambda: gpu(image, (1920, 1080))  # noqa: E731
+    ms = median_ms(call, N_DETECT_TIMED)
+    dev, n_k = device_profile(call, 10)
+    net_dev, _ = device_profile(lambda: gpu.heatmaps(image), 10)
+    flops = pose_resnet_flops(gpu.net, (512, 960))
+    n_w = sum(t.numel() for t in gpu.net.state_dict().values()
+              if t.is_floating_point())
+    bytes_ = 4 * n_w + image.size + 4 * 18 * (1 + 2 * gpu.max_peaks)
+    b_ms, b_by = bound(bytes_, flops)
+    print(f"  Detector2D, PoseResNet-50 at 960x512 (seed {DETECT_SEED} "
+          f"He-normal, {n_w / 1e6:.2f} M weights, head scaled by "
+          f"{float(scale.min()):.3g}-{float(scale.max()):.3g} so that "
+          f"{DETECT_HOT} cells a channel pass 0.15): heatmaps max |d| "
+          f"{err:.3g} from the CPU's plain run (tol {tol:.3g}); peaks "
+          f"{sum(counts)} in {len(counts)} joints, {n_diff} differ (within "
+          f"the tolerance of the threshold or of a window's maximum), "
+          f"refined max |d xy| {d_xy:.3g}; the CPU's call {t_cpu:.2f} s",
+          flush=True)
+    print(f"  Detector2D call (upload, resize, net, peaks, one download): "
+          f"{ms:.4f} ms; device {dev:.4f} ms ({n_k:g} CUDA launches a "
+          f"call), the net alone {net_dev:.4f} ms device; bound {b_ms:.4f} "
+          f"ms ({b_by}: {flops / 1e9:.2f} GFLOP at {FP32_FLOPS / 1e12:g} "
+          f"TFLOP/s fp32, {bytes_ / 1e6:.1f} MB) ({smi})", flush=True)
+
+
+def synthetic_sequence(d, rng):
+    """A CMU Panoptic sequence directory: five HD cameras (panel 0, the
+    conversor's nodes) on a 3 m ring facing its centre, ``N_SEQ_FRAMES``
+    frames of three people (COCO-19 joints, cm), an empty image file a
+    camera and frame.  Returns (sequence dir, image path -> 1080x1920x3
+    uint8, projected GT joints in all): a grey of ImageNet's mean (the net's zero input) with seeded
+    noise and a white disc at each projected GT joint, so that a random
+    backbone's heatmaps have their extremes near the joints."""
+    import numpy as np
+    from mpe3d_tpu_torch.config import PANOPTIC_HD_NODES
+    from mpe3d_tpu_torch.convert.panoptic import (load_calibration,
+                                                  project_gt_people)
+    seq = os.path.join(d, "171204_pose_synth")
+    os.makedirs(os.path.join(seq, "hdPose3d_stage1_coco19"))
+    cams = []
+    for i, node in enumerate(PANOPTIC_HD_NODES):
+        yaw = 2 * np.pi * i / len(PANOPTIC_HD_NODES)
+        c, s = np.cos(yaw), np.sin(yaw)
+        R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        t = -R @ np.array([300.0 * s, -20.0, -300.0 * c])
+        cams.append({"panel": 0, "node": node, "name": f"00_{node:02d}",
+                     "resolution": [1920, 1080],
+                     "K": [[1400.0, 0.0, 960.0], [0.0, 1400.0, 540.0],
+                           [0.0, 0.0, 1.0]],
+                     "R": R.tolist(), "t": [[float(v)] for v in t],
+                     "distCoef": [-0.2, 0.05, 1e-4, -1e-4, 0.0]})
+        os.makedirs(os.path.join(seq, "hdImgs", f"00_{node:02d}"))
+    with open(os.path.join(seq, "calibration_171204_pose_synth.json"),
+              "w") as f:
+        json.dump({"cameras": cams}, f)
+    calib = load_calibration(seq)
+    yy, xx = np.mgrid[0:1080, 0:1920]
+    images, n_projected = {}, 0
+    for k in range(N_SEQ_FRAMES):
+        fid = f"{100 + k:08d}"
+        bodies = []
+        for pid in range(3):
+            off = rng.uniform(-60, 60, 3) * (1, 0, 1)
+            joints = []
+            for _ in range(19):
+                joints += [*(rng.uniform((-25, -90, -25), (25, 30, 25))
+                             + off).tolist(), 1.0]
+            bodies.append({"id": pid, "joints19": joints})
+        with open(os.path.join(seq, "hdPose3d_stage1_coco19",
+                               f"body3DScene_{fid}.json"), "w") as f:
+            json.dump({"bodies": bodies}, f)
+        for node in PANOPTIC_HD_NODES:
+            path = os.path.join(seq, "hdImgs", f"00_{node:02d}",
+                                f"00_{node:02d}_{fid}.jpg")
+            open(path, "wb").close()
+            img = (np.array([124, 116, 104]) + rng.integers(
+                -3, 4, (1080, 1920, 3))).astype(np.uint8)
+            projected, _ = project_gt_people(bodies, calib[(0, node)])
+            for joint in (v for kps in projected.values()
+                          for v in kps.values()):
+                n_projected += 1
+                x, y = joint[1], joint[2]
+                ys = slice(max(0, int(y) - 8), int(y) + 9)
+                xs = slice(max(0, int(x) - 8), int(x) + 9)
+                disc = (xx[ys, xs] - x) ** 2 + (yy[ys, xs] - y) ** 2 <= 49
+                img[ys, xs][disc] = 255
+            images[path] = img
+    return seq, images, n_projected
+
+
+def check_conversion(d, smi):
+    """Phase 11 (d): ``convert_sequence`` on a synthetic 5-camera HD
+    sequence with a card detector (the phase's backbone, its head scaled by
+    ``hot_head`` on the sequence's first image), the module's image reader
+    replaced by the seeded arrays; the first frame against the CPU's plain
+    run, the output parsed as wire frames; a frame's five cameras
+    timed."""
+    import importlib.util
+    import numpy as np
+    from mpe3d_tpu_torch.config import PANOPTIC
+    from mpe3d_tpu_torch.convert import panoptic
+    from mpe3d_tpu_torch.convert.pose_resnet import he_normal_state
+    from mpe3d_tpu_torch.data.frames import parse_frame, parse_frame_gt
+    from mpe3d_tpu_torch.geometry.calib_io import load_transform_manager
+    seq, images, n_projected = synthetic_sequence(d,
+                                                  np.random.default_rng(13))
+    state = he_normal_state(DETECT_SEED)
+    first = images[min(images)]
+    state, _ = hot_head(state, panoptic.Detector2D(state, device=GPU)
+                        .heatmaps(first).cpu().numpy())
+    det = panoptic.Detector2D(state, device=GPU)
+    reader = panoptic.read_image_rgb
+    panoptic.read_image_rgb = images.__getitem__
+    try:
+        t = time.perf_counter()
+        path = panoptic.convert_sequence(seq, det, out_dir=d)
+        t_seq = time.perf_counter() - t
+        cdir = os.path.join(d, "cpu")
+        os.makedirs(cdir)
+        ref_path = panoptic.convert_sequence(
+            seq, panoptic.Detector2D(state, device="cpu"), out_dir=cdir,
+            max_frames=1)
+        frame_imgs = [images[p] for p in sorted(images)
+                      if p.endswith("_00000100.jpg")]
+        frame_ms = []
+        for _ in range(5):
+            t = time.perf_counter()
+            for img in frame_imgs:
+                det(img, (1920, 1080))
+            frame_ms.append(1e3 * (time.perf_counter() - t))
+    finally:
+        panoptic.read_image_rgb = reader
+    with open(path) as f:
+        frames = json.load(f)
+    with open(ref_path) as f:
+        ref = json.load(f)
+
+    def masked(frame):
+        return {cam: [e[0], *e[2:]] for cam, e in frame.items()}
+
+    names = {f"tracker{c}" for c in "abcde"}
+    if len(frames) != N_SEQ_FRAMES or any(set(f) != names for f in frames):
+        raise AssertionError(f"convert_sequence: {len(frames)} frames, "
+                             f"cameras {[sorted(f) for f in frames]}")
+    d_px = 0.0
+    got0, ref0 = masked(frames[0]), masked(ref[0])
+    for cam in sorted(ref0):
+        g, r = got0[cam], ref0[cam]
+        gp, rp = json.loads(g[0]), json.loads(r[0])
+        if g[1:] != r[1:] or [sorted(p) for p in gp] != [sorted(p)
+                                                         for p in rp]:
+            raise AssertionError(f"convert_sequence {cam}: the card's "
+                                 f"people or GT differ from the CPU's")
+        for pg, pr in zip(gp, rp):
+            for j in pg:
+                d_px = max(d_px, float(np.abs(np.subtract(pg[j][1:3],
+                                                          pr[j][1:3])).max()))
+    if not d_px <= PEAK_XY_TOL * 1920:
+        raise AssertionError(f"convert_sequence: detections {d_px:.3g} px "
+                             f"from the CPU's")
+    n_joints = sum(len(p) for f in frames for e in f.values()
+                   for p in json.loads(e[0]))
+    if not n_joints:
+        raise AssertionError("convert_sequence: no detection was associated "
+                             "with a projected GT joint")
+    fas = [parse_frame(f, PANOPTIC) for f in frames]
+    gts = [parse_frame_gt(f, PANOPTIC) for f in frames]
+    T = load_transform_manager(os.path.join(
+        d, "tm_171204_pose_synth.pickle")).get_transform("root", "trackerc")
+    present = {m: importlib.util.find_spec(m) is not None
+               for m in ("cv2", "matplotlib", "tensorstore")}
+    print(f"  convert_sequence: 5 HD cameras x {N_SEQ_FRAMES} frames of 3 "
+          f"people (installed: {present}; the module's read_image_rgb "
+          f"replaced by seeded 1080x1920 arrays, a white disc at each GT "
+          f"joint) in {t_seq:.2f} s; {n_joints} of {n_projected} projected "
+          f"GT joints associated with a detection within 25 px; the first "
+          f"frame equal "
+          f"to the CPU's plain run (people and GT; detections within "
+          f"{d_px:.3g} px); parsed as wire frames "
+          f"({sum(int(fa.present.sum()) for fa in fas)} skeletons, GT in "
+          f"{sum(g is not None for g in gts)} frames); the tm_ pickle read "
+          f"back (trackerc t {np.round(T[:3, 3], 3).tolist()} m)",
+          flush=True)
+    print(f"  a frame's 5 HD cameras through Detector2D on the card: median "
+          f"{statistics.median(frame_ms):.3f} ms ({smi})", flush=True)
+
+
+def html_payload(path):
+    import re
+    with open(path) as f:
+        text = f.read()
+    return json.loads(re.search(r"const D=(\{.*?\});\n", text,
+                                re.S).group(1))
+
+
+def read_sse(url, n, timeout=60.0):
+    """The data of the first ``n`` SSE events of ``url`` + "events"."""
+    import urllib.request
+    out = []
+    with urllib.request.urlopen(url + "events", timeout=timeout) as r:
+        while len(out) < n:
+            line = r.readline()
+            if not line:
+                raise AssertionError(f"{url}events closed after "
+                                     f"{len(out)} events")
+            if line.startswith(b"data: "):
+                out.append(json.loads(line[6:]))
+    return out
+
+
+def check_show_results(rtree, mcfg, rig_config, rig, d, smi):
+    """Phase 11 (e), (f): ``show-results --out .html`` on the card (the
+    staged ``pipe(frame)``: the stack GAT and lifter run kernels) against
+    ``--cpu``, then ``--live 0`` as a subprocess on the card
+    (``infer_fused``), its SSE events read over HTTP against the CPU's
+    ``infer_fused`` and tracker, closed by SIGINT."""
+    import queue
+    import re
+    import signal
+    import threading
+    import numpy as np
+    from mpe3d_tpu_torch import cli
+    from mpe3d_tpu_torch.data.frames import load_eval_frames
+    from mpe3d_tpu_torch.data.synthetic import generate_frames, write_frames
+    from mpe3d_tpu_torch.serve import gate_and_track
+    from mpe3d_tpu_torch.viz.viewer import remap_axes
+    models = os.path.join(d, "models")
+    os.makedirs(models)
+    for name in ("pose_estimator.npz", "pose_estimator.json"):
+        if os.path.exists(os.path.join(DEMO, name)):
+            os.symlink(os.path.join(DEMO, name), os.path.join(models, name))
+    write_matcher_npz(os.path.join(models, "skeleton_matching"), rtree, mcfg)
+    test = os.path.join(d, "show.json")
+    write_frames(generate_frames(rig_config, rig, N_SHOW_FRAMES,
+                                 n_people=(2, 3), seed=21), test)
+    argv = ["show-results", "--modelsdir", models, "--testfiles", test,
+            "--showgt", "--show-quality", "--track"]
+    cpu_html = os.path.join(d, "cpu.html")
+    cli.main([*argv, "--cpu", "--out", cpu_html])
+    times = []
+    for k in range(2):
+        reset_launches()
+        t = time.perf_counter()
+        cli.main([*argv, "--out", os.path.join(d, f"card{k}.html")])
+        times.append(time.perf_counter() - t)
+        launches = read_launches()
+    got, ref = html_payload(os.path.join(d, "card1.html")), \
+        html_payload(cpu_html)
+    n_p, dp = 0, 0.0
+    for i, (g, r) in enumerate(zip(got["frames"], ref["frames"])):
+        if len(g["p"]) != len(r["p"]) or g.get("id") != r.get("id") \
+                or g.get("g") != r.get("g"):
+            raise AssertionError(f"show-results frame {i}: the card's "
+                                 f"persons, ids or GT differ from --cpu's")
+        if r["p"]:
+            n_p += len(r["p"])
+            dp = max(dp, float(np.abs(np.subtract(g["p"], r["p"])).max()))
+    if len(got["frames"]) != N_SHOW_FRAMES or not n_p or dp > POSE_TOL_M \
+            or not (launches["gat_stack"] and launches["mlp_run"]):
+        raise AssertionError(f"show-results: {len(got['frames'])} frames, "
+                             f"{n_p} poses, max |d pose| {dp:.3g} m, "
+                             f"launches {launches}")
+    print(f"  show-results --out .html on the card (random matcher, "
+          f"pan_irls_bf16's lifter, --showgt --show-quality --track): "
+          f"{N_SHOW_FRAMES} frames, {n_p} poses, persons, ids and GT equal "
+          f"to --cpu's, max |d pose| {dp:.3g} m (display axes); launches "
+          f"{launches}; the command {times[0]:.2f} s, then {times[1]:.2f} s "
+          f"({N_SHOW_FRAMES / times[1]:.1f} frames a second with the "
+          f"pipeline's build and the file's write) ({smi})", flush=True)
+
+    # the live stream's reference: the CPU's infer_fused and tracker
+    args = cli.make_parser().parse_args([*argv, "--cpu"])
+    _, _, cpu = cli.build_pipeline(args, args.backend)
+    tracker = cli._make_tracker(args)
+    fused = []
+    for fa in load_eval_frames([test], rig_config)[0]:
+        out = cpu.infer_fused(fa)
+        p, _, _, ids, _ = gate_and_track(out.poses, out.quality,
+                                         tracker=tracker)
+        fused.append((remap_axes(p, rig_config) if len(p) else p, ids))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mpe3d_tpu_torch", *argv, "--live", "0",
+         "--live-fps", "50"], cwd=ROOT, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    lines = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(ln)
+                                              for ln in proc.stderr],
+                              daemon=True)
+    reader.start()
+    try:
+        t = time.perf_counter()
+        url = None
+        while url is None:
+            m = re.search(r"live viewer at (http://\S+/)",
+                          lines.get(timeout=SERVE_TIMEOUT_S))
+            url = m and m.group(1)
+        events = read_sse(url, N_SHOW_FRAMES)
+        t_live = time.perf_counter() - t
+        dl = 0.0
+        for i, (e, (p, ids)) in enumerate(zip(events, fused)):
+            if len(e["p"]) != len(p) or e.get("id", []) != ids.tolist():
+                raise AssertionError(f"show-results --live event {i}: "
+                                     f"{len(e['p'])} poses, ids "
+                                     f"{e.get('id')}; the CPU's "
+                                     f"{len(p)}, {ids.tolist()}")
+            if len(p):
+                dl = max(dl, float(np.abs(np.subtract(e["p"], p)).max()))
+        if dl > POSE_TOL_M:
+            raise AssertionError(f"show-results --live: max |d pose| "
+                                 f"{dl:.3g} m from the CPU's")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            raise AssertionError(f"show-results --live exited {rc} after "
+                                 f"SIGINT")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        reader.join(timeout=30)
+    print(f"  show-results --live 0 (subprocess on the card, infer_fused): "
+          f"{N_SHOW_FRAMES} SSE events over HTTP from {url} in {t_live:.2f} "
+          f"s of the process's life, persons and track ids equal to the "
+          f"CPU's infer_fused, max |d pose| {dl:.3g} m; SIGINT, exit code 0 "
+          f"({smi})", flush=True)
+
+
+def run_conversion_and_viewers(rtree, mcfg, rig_config, rig, smi):
+    """Phase 11: (a)-(f) in a temporary directory."""
+    import tempfile
+    check_resize_and_peaks(smi)
+    check_detector(smi)
+    with tempfile.TemporaryDirectory() as d:
+        check_conversion(d, smi)
+        check_show_results(rtree, mcfg, rig_config, rig, d, smi)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3907,6 +4458,14 @@ def main() -> int:
           f"CPU's persons; export-torch / convert-torch, the reference's "
           f"files, export-servable int8 / bf16 and infer --profile-trace "
           f"serve on the card ({smi})")
+
+    t0 = time.perf_counter()
+    run_conversion_and_viewers(rtree, mcfg, rig_config, rig, smi)
+    phase("conversor and viewers", t0,
+          "resize_linear and the peaks on the card equal the CPU's; "
+          "Detector2D (PoseResNet-50 at 960x512) agrees with the CPU; "
+          "convert_sequence converts a 5-camera HD sequence; show-results "
+          f"--out .html and --live agree with --cpu ({smi})")
 
     # a device time the profiler did not record is not measured: null
     for k in report:

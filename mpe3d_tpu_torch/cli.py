@@ -1,12 +1,13 @@
-"""Command line of the PyTorch port: serving, evaluation, training and the
-model files.
+"""Command line of the PyTorch port: serving, evaluation, training, the
+model files, the dataset conversor and the viewers.
 
 Port of ``mpe3d_tpu/cli.py`` (``load_rig`` :35, ``load_models`` :54,
 ``build_pipeline`` :133, ``cmd_train_matcher`` :213, ``cmd_train_lifter``
 :303, the evaluation commands :392-452, ``cmd_infer`` :454, ``cmd_serve``
 :520, ``cmd_merge_jsons`` and ``cmd_generate_synthetic`` :671-691,
 ``cmd_convert_torch`` / ``cmd_export_torch`` :714-785,
-``cmd_export_servable`` :787, the parser :990-1274)::
+``cmd_export_servable`` :787, ``cmd_show_results`` :571,
+``cmd_convert_panoptic`` :694, the parser :990-1274)::
 
     python -m mpe3d_tpu_torch serve --modelsdir models_demo/pan_irls_bf16 \\
         [--rig PANOPTIC|ARPLAB] [--tcp PORT] [--depth 3] [--track] \\
@@ -34,6 +35,11 @@ Port of ``mpe3d_tpu/cli.py`` (``load_rig`` :35, ``load_models`` :54,
     python -m mpe3d_tpu_torch export-torch --modelsdir DIR --out TORCH_DIR
     python -m mpe3d_tpu_torch export-servable --modelsdir DIR --out DIR2 \
         [--dtype int8|bf16]
+    python -m mpe3d_tpu_torch convert-panoptic SEQ_DIR [--weights \
+        pose_resnet50_panoptic.pth.tar] [--single] [--out-dir DIR]
+    python -m mpe3d_tpu_torch show-results --modelsdir DIR --testfiles \
+        f.json [--out results.gif | --out viewer.html | --live PORT] \
+        [--showgt] [--show-quality] [--track]
 
 Each evaluation command prints the JAX command's report (a JSON object);
 ``train-lifter`` writes ``pose_estimator.npz`` (and ``refined_rig.npz``
@@ -51,9 +57,12 @@ matching camera through the staged path's single-camera bypass.
 
 Commands that use a device run on the CUDA card, or with ``--cpu`` on the
 CPU through the kernels' plain versions; without a card and without
-``--cpu`` they fail.  Commands and options of the JAX command line that
-the port does not have are refused with the ROADMAP.md item that will
-bring them, never ignored.
+``--cpu`` they fail.  ``convert-panoptic`` decodes images with OpenCV and
+``show-results`` writes GIF / PNG output with matplotlib, each imported
+only there; the HTML and live viewers need neither.  Every command of the
+JAX command line is here; the options the port does not have (orbax
+checkpoints, ``--multi-device``, the TPU kernel switches) are refused with
+the ROADMAP.md item that will bring them, never ignored.
 """
 
 from __future__ import annotations
@@ -67,7 +76,8 @@ import sys
 
 import numpy as np
 
-from mpe3d_tpu_torch.config import LifterConfig, MatcherConfig, get_rig
+from mpe3d_tpu_torch.config import (PANOPTIC_HD_NODES, LifterConfig,
+                                    MatcherConfig, get_rig)
 
 # the lifter dtype a --serve-dtype asks weights.lifter_from_tree for; auto
 # keeps the port's default, bf16 (int8 exports serve int8 whatever it says)
@@ -728,11 +738,121 @@ def cmd_export_servable(args) -> int:
     return 0
 
 
-# commands of the JAX command line that later slices port
-REFUSED_COMMANDS = {
-    "show-results": "the viewers, ROADMAP.md section 1, item 9",
-    "convert-panoptic": "conversion, ROADMAP.md section 1, item 9",
-}
+def cmd_show_results(args) -> None:
+    """3D poses of wire files drawn: an animated GIF or a directory of PNGs
+    (matplotlib), or with an ``--out`` ending in ``.html`` the
+    self-contained interactive viewer, through the staged ``pipe(frame)``;
+    ``--live PORT`` serves the viewer over HTTP and streams each frame's
+    ``infer_fused`` poses to it at ``--live-fps`` (``--live-loop``
+    replays), then keeps it up until Ctrl+C (JAX ``cli.py:571-668``)."""
+    from mpe3d_tpu_torch.data.frames import load_eval_frames
+    from mpe3d_tpu_torch.geometry.camera import cam_centers_world
+    from mpe3d_tpu_torch.serve import gate_and_track
+
+    rig_config, rig, pipe = build_pipeline(args, args.backend)
+    fas, frame_gts = load_eval_frames(args.testfiles, rig_config,
+                                      args.max_skeletons)
+    fas, frame_gts = fas[: args.max_frames], frame_gts[: args.max_frames]
+    centers = np.asarray(cam_centers_world(np.asarray(rig.T_cw)))
+    source = os.path.basename(args.testfiles[0])
+
+    def gt3d(gt):
+        return gt.gt3d if (args.showgt and gt) else None
+
+    if args.live is not None:
+        import time
+
+        from mpe3d_tpu_torch.viz.live_viewer import LiveViewerServer
+
+        if not fas:
+            sys.exit("--live: no frames parsed from the test files")
+        fps = max(1, args.live_fps)
+        server = LiveViewerServer(
+            rig_config, camera_centers=centers, host=args.live_host,
+            port=args.live, fps=fps,
+            title=f"mpe3d_tpu_torch live · {args.backend} · {source}")
+        print(f"[mpe3d_torch] live viewer at {server.url}: open it in a "
+              f"browser; Ctrl+C stops", file=sys.stderr, flush=True)
+        try:
+            while True:
+                # a fresh tracker a replay: track state must not carry
+                # the recording's end into its first frame
+                tracker = _make_tracker(args)
+                for fa, gt in zip(fas, frame_gts):
+                    t0 = time.perf_counter()
+                    out = pipe.infer_fused(fa)
+                    p, q, _, ids, _ = gate_and_track(
+                        out.poses, out.quality, gate=args.quality_gate,
+                        tracker=tracker)
+                    server.push(p, gt=gt3d(gt), track_ids=ids,
+                                quality=q if args.show_quality else None)
+                    time.sleep(max(0.0, 1.0 / fps
+                                   - (time.perf_counter() - t0)))
+                if not args.live_loop:
+                    break
+            # the backlog replays to any browser that (re)connects
+            print("[mpe3d_torch] all frames streamed: the viewer stays up "
+                  "(Ctrl+C stops)", file=sys.stderr, flush=True)
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.close()
+        return
+
+    tracker = _make_tracker(args)
+    poses, gts, tids, quals = [], [], [], []
+    for fa, gt in zip(fas, frame_gts):
+        out = pipe(fa)
+        p, q, _, ids, _ = gate_and_track(out.poses, out.quality,
+                                         gate=args.quality_gate,
+                                         tracker=tracker)
+        if ids is not None:
+            tids.append(ids)
+        poses.append(p)
+        quals.append(q)
+        gts.append(gt3d(gt))
+    if args.out.endswith(".html"):
+        from mpe3d_tpu_torch.viz.html_viewer import write_html_viewer
+        path = write_html_viewer(
+            poses, rig_config, args.out,
+            frames_gt=gts if args.showgt else None,
+            frames_track_ids=tids if tracker else None,
+            frames_quality=quals if args.show_quality else None,
+            camera_centers=centers,
+            title=f"mpe3d_tpu_torch {args.backend} · {source}")
+    else:
+        from mpe3d_tpu_torch.viz.viewer import render_sequence
+        path = render_sequence(poses, rig_config, args.out,
+                               gts if args.showgt else None,
+                               frames_track_ids=tids if tracker else None,
+                               frames_quality=quals if args.show_quality
+                               else None)
+    print(f"wrote {path}")
+
+
+def cmd_convert_panoptic(args) -> None:
+    """A CMU Panoptic sequence -> wire JSON and ``tm_<seq>`` calibration
+    files (``convert/panoptic.py``; the reference's
+    panoptic_conversor/get_joints_from_panoptic_model[_multi].py).  Without
+    ``--weights`` the backbone is numpy-seeded He-normal: layout and speed
+    checks only."""
+    from mpe3d_tpu_torch.convert.panoptic import Detector2D, convert_sequence
+    from mpe3d_tpu_torch.convert.pose_resnet import (
+        he_normal_state, load_pose_resnet_checkpoint)
+
+    if args.weights:
+        state = load_pose_resnet_checkpoint(args.weights)
+    else:
+        print("[mpe3d_torch] no --weights given: random backbone (layout "
+              "checks only)", file=sys.stderr)
+        state = he_normal_state(0)
+    det = Detector2D(state, device="cpu" if args.cpu else "cuda")
+    out = convert_sequence(args.seq_dir, det, nodes=tuple(args.nodes),
+                           multi=not args.single, out_dir=args.out_dir,
+                           max_frames=args.max_frames)
+    print(f"wrote {out}")
 
 
 # ---------------------------------------------------------------------------
@@ -1016,15 +1136,50 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--rig", default="PANOPTIC")
     p.set_defaults(fn=cmd_export_servable, needs_device=False)
 
-    for name in REFUSED_COMMANDS:
-        sub.add_parser(name, help="not ported: refused")
+    p = sub.add_parser("show-results", help="3D poses as a GIF, PNGs, an "
+                       "HTML viewer or a live browser viewer")
+    _add_common(p)
+    p.add_argument("--testfiles", nargs="+", required=True)
+    p.add_argument("--out", default="results.gif",
+                   help="a .gif, a .html viewer, or a directory of PNGs")
+    p.add_argument("--showgt", action="store_true")
+    p.add_argument("--max-frames", type=int, default=100)
+    p.add_argument("--show-quality", action="store_true",
+                   help="overlay each pose's quality column (px)")
+    p.add_argument("--live", type=int, default=None, metavar="PORT",
+                   help="serve the interactive viewer over HTTP on this "
+                   "port (0 = any free port) and stream each frame's poses "
+                   "to it over SSE as the pipeline infers them; runs until "
+                   "Ctrl+C")
+    p.add_argument("--live-host", default="127.0.0.1",
+                   help="live viewer bind address (0.0.0.0 to expose)")
+    p.add_argument("--live-fps", type=int, default=10)
+    p.add_argument("--live-loop", action="store_true",
+                   help="replay the recording until Ctrl+C")
+    _add_track_flags(p)
+    p.set_defaults(fn=cmd_show_results)
+
+    p = sub.add_parser("convert-panoptic", help="a CMU Panoptic sequence "
+                       "-> wire JSON through the PoseResNet-50 detector")
+    p.add_argument("seq_dir", help="CMU Panoptic sequence directory")
+    p.add_argument("--weights", default=None,
+                   help="pose_resnet50_panoptic.pth.tar (simple-baselines "
+                   "torch checkpoint)")
+    p.add_argument("--nodes", type=int, nargs="+",
+                   default=list(PANOPTIC_HD_NODES))
+    p.add_argument("--single", action="store_true",
+                   help="emit the per-person training format")
+    p.add_argument("--out-dir", default=".")
+    p.add_argument("--max-frames", type=int, default=None)
+    p.add_argument("--cpu", action="store_true",
+                   help="run the detector on the CPU (default: the CUDA "
+                   "card)")
+    p.set_defaults(fn=cmd_convert_panoptic)
     return ap
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in REFUSED_COMMANDS:
-        _refuse(f"the {argv[0]} command", REFUSED_COMMANDS[argv[0]])
     args = make_parser().parse_args(argv)
     if getattr(args, "needs_device", True) and not args.cpu:
         import torch

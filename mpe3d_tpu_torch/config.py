@@ -1,6 +1,7 @@
 """Typed configuration for the rig and the two models of the serving path.
 
 Port of ``mpe3d_tpu/config.py`` (the joint vocabularies :15-34,
+``COCO_BONES`` :37, the conversor's constants of ``convert/panoptic.py``,
 ``RigConfig`` :45, the presets ``PANOPTIC`` :154 and ``ARPLAB`` :180 with
 ``get_rig`` :210, ``MatcherConfig`` :225, ``LifterConfig`` :260,
 ``MatcherTrainConfig`` :277, ``LifterTrainConfig`` :305).  A rig
@@ -34,6 +35,27 @@ BODY25_JOINT_NAMES: Tuple[str, ...] = (
 )
 
 JOINT_NAMES_BY_FORMAT = {"COCO": COCO_JOINT_NAMES, "BODY_25": BODY25_JOINT_NAMES}
+
+# COCO-18 bone topology for drawing (reference: human_pose.json)
+COCO_BONES: Tuple[Tuple[int, int], ...] = (
+    (17, 0), (0, 1), (0, 2), (1, 3), (2, 4),
+    (17, 5), (17, 6), (5, 7), (7, 9), (6, 8), (8, 10),
+    (17, 11), (17, 12), (11, 13), (13, 15), (12, 14), (14, 16),
+)
+
+# The Panoptic conversor (``convert/panoptic.py``; JAX
+# ``convert/panoptic.py:35-46``): COCO-19 (Panoptic) -> COCO-18 joint ids,
+# index 2 (bodyCenter) maps to the '-1' validity marker; the HD cameras of
+# panel 0 it converts; the detector's ImageNet normalisation and input size
+# (W, H).
+COCO19_TO_COCO18 = {0: 17, 1: 0, 3: 5, 4: 7, 5: 9, 6: 11, 7: 13, 8: 15,
+                    9: 6, 10: 8, 11: 10, 12: 12, 13: 14, 14: 16, 15: 1,
+                    16: 3, 17: 2, 18: 4}
+BODY_CENTER = 2
+PANOPTIC_HD_NODES = (3, 6, 12, 13, 23)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+DETECTOR_INPUT = (960, 512)
 
 
 @dataclass(frozen=True)

@@ -7,6 +7,12 @@ pytransform3d: a stub unpickler materialises the stored ``transforms``
 dict ({(from_frame, to_frame): 4x4}) and ``TransformSet`` answers direct,
 inverse and multi-hop queries itself.  A JSON format is also provided.
 
+The JAX package's conversor pickles its own ``TransformSet``
+(``mpe3d_tpu.geometry.calib_io.TransformSet``); such a file loads here as
+the port's class, without importing the JAX package, and
+``write_transform_set_pickle`` writes the port's under that name, so a
+``tm_<seq>.pickle`` of either package loads in both.
+
 Unpickling can run code named in the file: load only calibration files
 from a source you trust, as with pytransform3d itself.
 """
@@ -38,10 +44,16 @@ class _Stub:
             self.__dict__["_state"] = state
 
 
+# the class the JAX package's pickles name for a TransformSet
+_JAX_TRANSFORM_SET = ("mpe3d_tpu.geometry.calib_io", "TransformSet")
+
+
 class _StubUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if module.startswith("pytransform3d"):
             return type(name, (_Stub,), {"__module__": module})
+        if (module, name) == _JAX_TRANSFORM_SET:
+            return TransformSet
         return super().find_class(module, name)
 
 
@@ -90,6 +102,30 @@ class TransformSet:
         # legacy format {"a b": T}: only for names without spaces
         return cls({tuple(k.split(" ")): np.array(v)
                     for k, v in raw.items()})
+
+
+class _JaxNamePickler(pickle._Pickler):
+    """The pure-Python pickler with the port's ``TransformSet`` class
+    written as the JAX package's (``_JAX_TRANSFORM_SET``): the rest of the
+    stream is what ``pickle.dump`` writes, so the bytes equal the JAX
+    conversor's for the same transforms."""
+
+    def save_global(self, obj, name=None):
+        if obj is not TransformSet:
+            return super().save_global(obj, name)
+        for part in _JAX_TRANSFORM_SET:
+            self.save(part)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+def write_transform_set_pickle(ts: TransformSet, f) -> None:
+    """Pickle ``ts`` into the binary file ``f`` as the JAX conversor does
+    (``pickle.dump`` of its TransformSet, the default protocol, 4 or
+    more, which ``STACK_GLOBAL`` needs).  The class name is rewritten in
+    ``save_global``, a method that only the pure-Python pickler
+    (``pickle._Pickler``) calls: the C ``pickle.Pickler`` does not."""
+    _JaxNamePickler(f, pickle.DEFAULT_PROTOCOL).dump(ts)
 
 
 def load_transform_manager(path: str) -> TransformSet:

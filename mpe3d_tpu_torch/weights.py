@@ -25,6 +25,9 @@ weights, and the training forms: ``trainable_lifter_from_tree`` and
 ``init_lifter`` / ``init_matcher`` draws across), ``lifter_tree`` and
 ``matcher_tree`` give their weights back as the numpy trees the serving
 modules take and the npz checkpoint stores.
+
+``pose_resnet_from_jax`` carries the conversor's PoseResNet-50 tree into
+the port's ``convert/pose_resnet.py::PoseResNet``.
 """
 
 from __future__ import annotations
@@ -189,3 +192,43 @@ def random_lifter_tree(cfg: LifterConfig, seed: int) -> Tree:
             "b": rng.uniform(-bound, bound, d_out).astype(np.float32),
             "w": rng.uniform(-bound, bound, (d_in, d_out)).astype(np.float32)})
     return {"layers": layers}
+
+
+def pose_resnet_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
+    """The JAX ``init_pose_resnet`` / ``load_torch_pose_resnet`` tree
+    (``convert/pose_resnet.py:116-206``) as the state dict of the port's
+    ``PoseResNet`` (``convert/pose_resnet.py``): convolutions HWIO -> OIHW,
+    deconvolutions ``[kh, kw, Cout, Cin]`` -> ``[Cin, Cout, kh, kw]`` (the
+    inverse of the JAX import), batch norm ``scale / bias / mean / var`` ->
+    ``weight / bias / running_mean / running_var``."""
+    state: Dict[str, torch.Tensor] = {}
+
+    def conv(name, w):
+        state[name] = _f32(np.transpose(np.asarray(w), (3, 2, 0, 1)))
+
+    def bn(prefix, p):
+        for src, dst in (("scale", "weight"), ("bias", "bias"),
+                         ("mean", "running_mean"), ("var", "running_var")):
+            state[f"{prefix}.{dst}"] = _f32(p[src])
+        state[f"{prefix}.num_batches_tracked"] = torch.zeros((),
+                                                             dtype=torch.long)
+
+    conv("conv1.weight", params["conv1"])
+    bn("bn1", params["bn1"])
+    li = 1
+    while f"layer{li}" in params:
+        for bi, p in enumerate(params[f"layer{li}"]):
+            pre = f"layer{li}.{bi}"
+            for k in (1, 2, 3):
+                conv(f"{pre}.conv{k}.weight", p[f"conv{k}"])
+                bn(f"{pre}.bn{k}", p[f"bn{k}"])
+            if "down_conv" in p:
+                conv(f"{pre}.downsample.0.weight", p["down_conv"])
+                bn(f"{pre}.downsample.1", p["down_bn"])
+        li += 1
+    for di, d in enumerate(params["deconv"]):
+        conv(f"deconv_layers.{3 * di}.weight", d["w"])
+        bn(f"deconv_layers.{3 * di + 1}", d["bn"])
+    conv("final_layer.weight", params["final_w"])
+    state["final_layer.bias"] = _f32(params["final_b"])
+    return state

@@ -16,7 +16,8 @@ the JAX CLI's epoch lines; ``convert-torch`` / ``export-torch`` and
 ``export-servable`` write the files the JAX CLI writes (int8 leaves and
 bf16 bits equal), each command line serves the other's export and the
 reference's torch files alike, and ``infer --profile-trace`` writes a
-trace without changing the output.
+trace without changing the output.  ``show-results`` and
+``convert-panoptic`` run with ``--cpu``.
 """
 
 import dataclasses
@@ -41,6 +42,7 @@ from mpe3d_tpu_torch import cli
 from mpe3d_tpu_torch.config import ARPLAB, PANOPTIC
 from mpe3d_tpu_torch.data.synthetic import generate_frames, synthetic_ring_rig
 
+from test_convert import fake_sequence  # noqa: F401
 from test_torch_serve import assert_records_match, run_lines
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -423,11 +425,31 @@ def test_train_lifter_matches_jax_cli(eval_dir, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("command", ["show-results", "convert-panoptic"])
-def test_unported_commands_are_refused(command):
-    with pytest.raises(SystemExit) as e:
-        cli.main([command, "--anything"])
-    assert "not in the PyTorch port" in str(e.value.code)
-    assert "ROADMAP.md section 1, item" in str(e.value.code)
+def test_last_ported_commands_run_on_the_cpu(command, eval_dir,
+                                             fake_sequence, tmp_path,
+                                             capsys):
+    """The two commands the port refused until it had the viewers and the
+    conversor parse and run with ``--cpu`` (``tests/test_torch_viz.py`` and
+    ``tests/test_torch_convert_panoptic.py`` hold them to JAX)."""
+    if command == "show-results":
+        out = tmp_path / "viewer.html"
+        argv = [command, "--cpu", "--modelsdir", str(eval_dir / "models"),
+                "--testfiles", str(eval_dir / "test.json"), "--max-frames",
+                "3", "--out", str(out)]
+    else:
+        out = tmp_path / "160906_fake1_from_image_multi.json"
+        argv = [command, fake_sequence, "--cpu", "--nodes", "3", "6",
+                "--max-frames", "1", "--out-dir", str(tmp_path)]
+    capsys.readouterr()
+    assert cli.main(argv) == 0
+    assert f"wrote {out}" in capsys.readouterr().out
+    if command == "convert-panoptic":
+        frames = json.loads(out.read_text())
+        assert len(frames) == 1 and set(frames[0]) == {"trackera",
+                                                       "trackerb"}
+        assert (tmp_path / "tm_160906_fake1.pickle").exists()
+    else:
+        assert "<canvas" in out.read_text()
 
 
 def test_serve_batch_window_joins_its_flusher(wire_lines, monkeypatch):

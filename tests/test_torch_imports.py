@@ -19,12 +19,14 @@ def _sources():
 
 
 def test_imports_without_jax_or_reference_package():
-    """Every module imports with jax and mpe3d_tpu blocked; importing
-    chip_smoke as a module does not run its main."""
+    """Every module imports with jax, mpe3d_tpu, cv2 and matplotlib
+    blocked (the conversor reads images with OpenCV and the GIF viewer
+    draws with matplotlib only when called); importing chip_smoke as a
+    module does not run its main."""
     code = r"""
 import importlib, importlib.util, pkgutil, sys
-sys.modules["jax"] = None
-sys.modules["mpe3d_tpu"] = None
+for blocked in ("jax", "mpe3d_tpu", "cv2", "matplotlib"):
+    sys.modules[blocked] = None
 sys.path.insert(0, sys.argv[1])
 import mpe3d_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mpe3d_tpu_torch.__path__,
@@ -48,15 +50,20 @@ for n in ("mpe3d_tpu_torch.ops.gat_tiled", "mpe3d_tpu_torch.ops.gat_kernel",
           "mpe3d_tpu_torch.convert.gat2_replica",
           "mpe3d_tpu_torch.convert.torch_import",
           "mpe3d_tpu_torch.convert.torch_export",
-          "mpe3d_tpu_torch.utils.logging"):
+          "mpe3d_tpu_torch.utils.logging",
+          "mpe3d_tpu_torch.convert.peaks",
+          "mpe3d_tpu_torch.convert.pose_resnet",
+          "mpe3d_tpu_torch.convert.panoptic",
+          "mpe3d_tpu_torch.viz.viewer", "mpe3d_tpu_torch.viz.html_viewer",
+          "mpe3d_tpu_torch.viz.live_viewer"):
     assert n in names, n
 spec = importlib.util.spec_from_file_location("chip_smoke",
                                               sys.argv[1] + "/chip_smoke.py")
 mod = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mod)
 assert callable(mod.main)
-bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
-       or m == "mpe3d_tpu" or m.startswith("mpe3d_tpu.")]
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "mpe3d_tpu",
+                                                     "cv2", "matplotlib")]
 assert all(sys.modules[m] is None for m in bad), bad
 print("imported", len(names))
 """
