@@ -157,6 +157,10 @@ failure raises, and the script exits non-zero):
    of two batches of 256 (``shuffle=False``) on single-person samples, on
    the card and on the CPU from the same numpy init, per-epoch train and
    dev losses within ``TRAIN_RTOL``, then warm for the card's epoch times;
+   then trained on, on the card, for 40 epochs toward the largest AP
+   threshold (its MPJPE on the evaluation's 16 GT frames, random matcher,
+   before and after, and the IRLS triangulation's on the same decoded
+   groups, printed);
    the trained lifter saved, loaded by ``from_checkpoint`` (served bf16
    through ``mlp_run``) and evaluated by ``run_pose_metrics`` on 16 GT
    frames, ``fused`` and ``stream=3``, trained and random matcher, on the
@@ -211,6 +215,22 @@ failure raises, and the script exits non-zero):
    subprocess, its SSE events read over HTTP against the CPU's
    ``infer_fused``, then SIGINT and exit code 0.  Each time is printed
    with the card's name and power limit.
+
+12. checkpoints, parallel training and multi-device serving: probes
+   (libzstd.so.1, tensorstore, the cards, NCCL); (b) phase 9's lifter
+   trained with ``checkpoint_backend="orbax"`` (saves on the saver
+   thread), its checkpoint and a params + Adam save read back bit for bit,
+   a leg resumed from disk equal to one resumed from memory, and the
+   committed JAX-written OCDBT fixture against its npz twin; (c) a 2-rank
+   gloo world on cuda:0 (ranks: this script with ``--parallel-worker``)
+   trains the lifter data- and tensor-parallel and the matcher
+   data-parallel, and a 1-rank NCCL world the lifter, each against the
+   one-process card run at the same global batch within ``PAR_TOL``; the
+   same gloo world runs each task again with a planted fault
+   (``FAULTS``), which must break both limits; epoch seconds and rates
+   at 1 and 2 ranks; (d) two serving replicas on cuda:0 against one
+   device, ``infer_batch`` over a 2-device mesh, ``serve --multi-device``
+   against ``serve``.
 
 The last lines are the kernel table as one JSON object and the contract
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -2811,6 +2831,12 @@ N_EVAL_FRAMES, EVAL_STREAM = 16, 3
 # the card and the CPU only where a matched pose's error lies within the
 # poses' tolerance (POSE_TOL_M) of a threshold; MPJPE within POSE_TOL_M
 AP_THRESHOLDS_MM = tuple(range(25, 155, 25))
+# the lifter trained on for a chunk of epochs toward the largest AP
+# threshold (so AP and recall would compare hits), at the reference's lr
+# (1e-3 diverged: the poses left the cameras' fronts, where the clipped
+# loss has no gradient); the ring rig's matching keeps MPJPE above it (the
+# IRLS triangulation of the same groups reads about 342 mm), so one chunk
+MORE_EPOCHS, MORE_LR = 40, 1e-4
 
 
 def train_full_width(rig_config, rig, smi):
@@ -2822,22 +2848,12 @@ def train_full_width(rig_config, rig, smi):
     trained tree, its LifterConfig)."""
     import dataclasses
 
-    from mpe3d_tpu_torch.config import LifterConfig, LifterTrainConfig
-    from mpe3d_tpu_torch.data.synthetic import generate_single_person_frames
-    from mpe3d_tpu_torch.train.lifter import init_lifter_tree, train_lifter
-    from mpe3d_tpu_torch.train.lifter_data import build_lifter_dataset
+    from mpe3d_tpu_torch.config import LifterTrainConfig
+    from mpe3d_tpu_torch.train.lifter import train_lifter
 
-    wire = generate_single_person_frames(rig_config, rig, 160, seed=11)
-    net, err = build_lifter_dataset(wire, rig_config, rig, device=GPU)
-    if len(net) < N_TRAIN + N_DEV:
-        raise AssertionError(f"lifter dataset: {len(net)} samples")
-    data = (net[:N_TRAIN], err[:N_TRAIN], net[N_TRAIN:N_TRAIN + N_DEV],
-            err[N_TRAIN:N_TRAIN + N_DEV])
-    cfg = LifterConfig(in_dim=rig_config.lifter_input_dim,
-                       out_dim=rig_config.n_joints * 3)
+    data, cfg, init = phase9_lifter_data(rig_config, rig)
     tcfg = LifterTrainConfig(epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH,
                              eval_every=1, shuffle=False)
-    init = init_lifter_tree(cfg, TRAIN_SEED)
     runs = {}
     for device in (GPU, "cpu"):
         t = time.perf_counter()
@@ -3089,12 +3105,73 @@ def eval_on_card(rig_config, rig, ltree, lcfg, matchers, mcfg, smi, d):
     return fused_launches
 
 
+def train_toward_thresholds(rig_config, rig, ltree, lcfg, matchers, mcfg,
+                            d, smi):
+    """Phase 9 (a'): the card's lifter trained on for ``MORE_EPOCHS``
+    epochs (the phase's samples shuffled, lr ``MORE_LR``, each epoch
+    evaluated, the best kept), and its MPJPE on the 16 GT frames of the
+    evaluation (random matcher, ``run_pose_metrics`` fused on the card)
+    before and after, beside the IRLS triangulation of the same decoded
+    groups.  Returns the tree."""
+    from mpe3d_tpu_torch import weights
+    from mpe3d_tpu_torch.config import LifterTrainConfig
+    from mpe3d_tpu_torch.data.frames import load_eval_frames
+    from mpe3d_tpu_torch.data.synthetic import generate_frames, write_frames
+    from mpe3d_tpu_torch.eval.runners import run_pose_metrics
+    from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
+    from mpe3d_tpu_torch.train.lifter import train_lifter
+
+    data, _, _ = phase9_lifter_data(rig_config, rig)
+    test = os.path.join(d, "test.json")
+    write_frames(generate_frames(rig_config, rig, N_EVAL_FRAMES,
+                                 n_people=(2, 3), seed=21), test)
+    fas, gts = load_eval_frames([test], rig_config)
+    matcher = weights.matcher_from_tree(matchers["random"], mcfg, GPU)
+
+    def mpjpe(tree):
+        pipe = PoseEstimationPipeline(
+            rig_config, rig, matcher, weights.lifter_from_tree(tree, lcfg,
+                                                               GPU),
+            slot_buckets=(4,), person_buckets=(8,), device=GPU)
+        return run_pose_metrics((fas, gts), rig_config, pipe, datastep=1,
+                                fused=True)["mpjpe_mm"]
+
+    tcfg = LifterTrainConfig(epochs=MORE_EPOCHS, batch_size=TRAIN_BATCH,
+                             eval_every=1, lr=MORE_LR,
+                             patience=MORE_EPOCHS, seed=TRAIN_SEED)
+    trail = [(TRAIN_EPOCHS, mpjpe(ltree))]
+    t = time.perf_counter()
+    ltree = train_lifter(*data, rig_config, rig, lcfg, tcfg, params=ltree,
+                         log=lambda s: None, device=GPU).params
+    spent = time.perf_counter() - t
+    trail.append((TRAIN_EPOCHS + MORE_EPOCHS, mpjpe(ltree)))
+    under = trail[-1][1] < AP_THRESHOLDS_MM[-1]
+    # the matching's share: the triangulation backend on the same groups
+    tri = PoseEstimationPipeline(rig_config, rig, matcher, None,
+                                 slot_buckets=(4,), person_buckets=(8,),
+                                 device=GPU, backend="triangulation",
+                                 tri_variant="irls")
+    floor = run_pose_metrics((fas, gts), rig_config, tri, datastep=1,
+                             fused=True)["mpjpe_mm"]
+    print(f"  the card's lifter trained on ({spent:.1f} s, lr {MORE_LR}, "
+          f"{MORE_EPOCHS} epochs): MPJPE (epochs, mm) "
+          f"{[(e, round(float(m), 1)) for e, m in trail]}; "
+          + ("under" if under else "NOT under")
+          + f" the largest AP threshold {AP_THRESHOLDS_MM[-1]} mm"
+          + f"; the IRLS triangulation of the same decoded groups: MPJPE "
+          f"{floor:.1f} mm ({smi})", flush=True)
+    return ltree
+
+
 def run_eval_and_training(rig_config, rig, matchers, mcfg, smi):
-    """Phase 9: ``train_full_width`` then ``eval_on_card`` in a temporary
-    directory.  Returns the fused evaluation's launches and the trained
-    lifter (tree, LifterConfig)."""
+    """Phase 9: ``train_full_width``, ``train_toward_thresholds``, then
+    ``eval_on_card`` in a temporary directory.  Returns the fused
+    evaluation's launches and the trained lifter (tree, LifterConfig)."""
     import tempfile
     ltree, lcfg = train_full_width(rig_config, rig, smi)
+    with tempfile.TemporaryDirectory() as d:
+        ltree = train_toward_thresholds(rig_config, rig, ltree, lcfg,
+                                        matchers, mcfg, d, smi)
     with tempfile.TemporaryDirectory() as d:
         return (eval_on_card(rig_config, rig, ltree, lcfg, matchers, mcfg,
                              smi, d), ltree, lcfg)
@@ -4065,6 +4142,498 @@ def run_conversion_and_viewers(rtree, mcfg, rig_config, rig, smi):
         check_show_results(rtree, mcfg, rig_config, rig, d, smi)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: checkpoints, parallel training and multi-device serving
+# ---------------------------------------------------------------------------
+
+FIXTURE = os.path.join(ROOT, "tests", "data", "orbax_lifter")
+PAR_EPOCHS = 4             # epochs of each parallel run (the first warms)
+PAR_M_BATCH = 14           # the matcher's global batch: even, so 2 ranks
+# split it as one process takes it
+# (loss, parameter) limits of a world against the one-process card run at
+# the same global batch, a task each: the max relative per-epoch loss
+# difference and the max |d param| after PAR_EPOCHS epochs.  A sound world
+# takes the same steps with the gradient summed in another order (two
+# half-batch sums, then their sum), which Adam's normalised steps turn into
+# lr-sized moves where a gradient is near 0: on an H100 at 700 W the lifter
+# read 2.44e-5 / 9.82e-5 (8 steps), the matcher 2.67e-4 / 6.89e-4 (44
+# steps).  The limits are 3-4x those, well under the 2 x lr x steps
+# (1.6e-3, 8.8e-3) by which any two Adam runs from one init may part
+PAR_TOL = {"lifter": (1e-4, 3e-4), "matcher": (1e-3, 2e-3)}
+# planted faults, run in the same world, each of which must break both
+# limits (on that H100 the faulty runs read 1.8e-2 to 0.18 in loss and
+# 1.17e-3 to 2.81e-3 in parameters):
+# "unsummed", the gradients' all-reduce skipped (every sum of more than one
+# tensor; each rank steps on its own block, the losses are still summed);
+# "twice", every rank takes the first data block of each batch
+FAULTS = ("unsummed", "twice")
+WORLD_TIMEOUT_S = 420      # a world's processes, start to exit
+PG_TIMEOUT_S = 300         # any collective
+
+
+def probes():
+    """What the machine offers phase 12: libzstd, tensorstore (found, not
+    imported: the port does without it), the cards, NCCL."""
+    import importlib.util
+
+    import torch
+    import torch.distributed as dist
+    from mpe3d_tpu_torch.checkpoint_orbax import zstd_library
+    return {"libzstd.so.1": zstd_library() is not None,
+            "tensorstore": importlib.util.find_spec("tensorstore")
+            is not None,
+            "cards": torch.cuda.device_count(),
+            "nccl": dist.is_nccl_available()}
+
+
+def phase9_lifter_data(rig_config, rig):
+    """Phase 9's full-width lifter problem: (data, LifterConfig, init)."""
+    from mpe3d_tpu_torch.config import LifterConfig
+    from mpe3d_tpu_torch.data.synthetic import generate_single_person_frames
+    from mpe3d_tpu_torch.train.lifter import init_lifter_tree
+    from mpe3d_tpu_torch.train.lifter_data import build_lifter_dataset
+
+    wire = generate_single_person_frames(rig_config, rig, 160, seed=11)
+    net, err = build_lifter_dataset(wire, rig_config, rig, device=GPU)
+    if len(net) < N_TRAIN + N_DEV:
+        raise AssertionError(f"lifter dataset: {len(net)} samples")
+    data = (net[:N_TRAIN], err[:N_TRAIN], net[N_TRAIN:N_TRAIN + N_DEV],
+            err[N_TRAIN:N_TRAIN + N_DEV])
+    cfg = LifterConfig(in_dim=rig_config.lifter_input_dim,
+                       out_dim=rig_config.n_joints * 3)
+    return data, cfg, init_lifter_tree(cfg, TRAIN_SEED)
+
+
+def check_orbax(rig_config, rig, d, zstd, smi):
+    """Phase 12 (b): the full-width lifter trained with the orbax backend
+    (saves during training on the saver thread), its checkpoint and a
+    params + Adam save read back bit for bit, a leg resumed from the disk
+    equal to one resumed from memory; the committed JAX-written OCDBT
+    fixture read against its npz twin (where libzstd is missing, the read
+    must raise naming it)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    from mpe3d_tpu_torch.checkpoint import (flatten_tree, load_checkpoint,
+                                            open_checkpoint,
+                                            read_optimizer_leaves,
+                                            save_checkpoint,
+                                            wait_for_async_saves)
+    from mpe3d_tpu_torch.config import LifterTrainConfig
+    from mpe3d_tpu_torch.train.lifter import train_lifter
+
+    data, cfg, init = phase9_lifter_data(rig_config, rig)
+    tcfg = LifterTrainConfig(epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH,
+                             eval_every=1, shuffle=False,
+                             checkpoint_backend="orbax",
+                             save_rel_improve=0.0)
+    stem = os.path.join(d, "orbax", "pose_estimator")
+    t = time.perf_counter()
+    res = train_lifter(*data, rig_config, rig, cfg, tcfg, params=init,
+                       checkpoint_path=stem, log=lambda s: None, device=GPU)
+    t_train = time.perf_counter() - t
+    if not os.path.isdir(stem + ".orbax") or os.path.exists(stem + ".npz"):
+        raise AssertionError("train_lifter(checkpoint_backend='orbax') left "
+                             "no orbax checkpoint")
+    loaded, _, meta = load_checkpoint(stem, res.params)
+    for a, b in zip(flatten_tree(loaded), flatten_tree(res.params)):
+        if not np.array_equal(a, b):
+            raise AssertionError("the orbax checkpoint differs from the "
+                                 "trained parameters")
+    full = os.path.join(d, "orbax", "with_adam")
+    t = time.perf_counter()
+    save_checkpoint(full, res.params, opt_state=res.opt_state,
+                    meta={"lifter_config": cfg, "epoch": meta["epoch"]},
+                    backend="orbax", wait=False)
+    t_submit = time.perf_counter() - t
+    wait_for_async_saves(full)
+    t_save = time.perf_counter() - t
+    nbytes = sum(os.path.getsize(os.path.join(r, f))
+                 for r, _, fs in os.walk(full + ".orbax") for f in fs)
+    p2, o2, _ = load_checkpoint(full, res.params, res.opt_state)
+    pairs = list(zip(flatten_tree((p2, o2)),
+                     flatten_tree((res.params, res.opt_state))))
+    if len(pairs) != 1 + 3 * 2 * len(cfg.layer_dims()) or not all(
+            a.dtype == b.dtype and np.array_equal(a, b) for a, b in pairs):
+        raise AssertionError("the params + Adam checkpoint does not read "
+                             "back bit for bit")
+    more = dataclasses.replace(tcfg, epochs=1, checkpoint_backend="npz")
+    legs = [train_lifter(*data, rig_config, rig, cfg, more, params=p,
+                         opt_state=o, log=lambda s: None, device=GPU)
+            for p, o in ((p2, read_optimizer_leaves(full)),
+                         (res.params, res.opt_state))]
+    h = [[(x["train_loss"], x["val_loss"]) for x in leg.history]
+         for leg in legs]
+    if h[0] != h[1]:
+        raise AssertionError(f"a leg resumed from the orbax checkpoint "
+                             f"{h[0]} differs from one resumed from memory "
+                             f"{h[1]}")
+    print(f"  orbax backend: full-width train_lifter, {TRAIN_EPOCHS} "
+          f"epochs with saves on the saver thread, {t_train:.2f} s; the "
+          f"checkpoint equals the trained parameters bit for bit; params + "
+          f"Adam ({nbytes / 1e6:.1f} MB, plain zarr) submitted in "
+          f"{1e3 * t_submit:.1f} ms, committed in {t_save:.2f} s, read back "
+          f"bit for bit; a leg resumed from it equals one resumed from "
+          f"memory: {h[0]} ({smi})", flush=True)
+    fx = os.path.join(d, "fixture")
+    shutil.copytree(FIXTURE, fx)
+    if not zstd:
+        try:
+            open_checkpoint(os.path.join(fx, "pose_estimator"))
+        except RuntimeError as e:
+            if "libzstd.so.1" not in str(e):
+                raise
+            print(f"  the JAX-written OCDBT fixture: libzstd.so.1 is not on "
+                  f"this machine, and the read raises naming it: {e}",
+                  flush=True)
+            return
+        raise AssertionError("a zstd-compressed checkpoint read without "
+                             "libzstd.so.1")
+    got, fmeta = open_checkpoint(os.path.join(fx, "pose_estimator"))
+    with np.load(os.path.join(fx, "twin.npz")) as twin:
+        names = sorted(k for k in twin.files if k != "__meta_json__")
+        if sorted(got) != names or not all(
+                np.array_equal(got[k], twin[k]) and got[k].dtype ==
+                twin[k].dtype for k in names):
+            raise AssertionError("the JAX-written fixture differs from its "
+                                 "npz twin")
+        if fmeta != json.loads(bytes(twin["__meta_json__"]).decode()):
+            raise AssertionError("the fixture's meta differs from its twin's")
+    print(f"  the JAX-written OCDBT fixture (tests/data/orbax_lifter, "
+          f"{len(names)} leaves, zstd) equals its npz twin bit for bit, meta "
+          f"included", flush=True)
+
+
+def parallel_problems(rig_config, rig, d):
+    """The runs phase 12 trains in a world and in one process, written to
+    ``d/problems.pkl`` for the world's processes: the lifter (phase 9's)
+    and the matcher (phase 10's scenes, batch ``PAR_M_BATCH``)."""
+    import pickle
+
+    from mpe3d_tpu_torch.config import MatcherConfig
+    from mpe3d_tpu_torch.weights import random_matcher_tree
+
+    data, cfg, init = phase9_lifter_data(rig_config, rig)
+    _, topo, train, dev = matcher_scene_sets(rig_config, rig)
+    mcfg = MatcherConfig(in_dim=rig_config.matcher_feature_dim)
+    prob = {"lifter": (data, cfg, init),
+            "matcher": (train, dev, topo, mcfg,
+                        random_matcher_tree(mcfg, MATCHER_SEED))}
+    with open(os.path.join(d, "problems.pkl"), "wb") as f:
+        pickle.dump(prob, f)
+    return prob
+
+
+def parallel_task(task, prob, rig_config, rig, mesh):
+    """One run of phase 12 (over ``mesh``, one process without it):
+    {"history": [(train, dev, elapsed)], "params": leaves, "n": samples or
+    scenes an epoch}."""
+    from mpe3d_tpu_torch.checkpoint import flatten_tree
+    from mpe3d_tpu_torch.config import LifterTrainConfig, MatcherTrainConfig
+    from mpe3d_tpu_torch.train.lifter import train_lifter
+    from mpe3d_tpu_torch.train.matcher import train_matcher
+
+    if task.startswith("lifter"):
+        data, cfg, init = prob["lifter"]
+        res = train_lifter(*data, rig_config, rig, cfg, LifterTrainConfig(
+            epochs=PAR_EPOCHS, batch_size=TRAIN_BATCH, eval_every=1,
+            shuffle=False), params=init, mesh=mesh, log=lambda s: None,
+            device=GPU)
+        n = len(data[0]) // TRAIN_BATCH * TRAIN_BATCH
+    else:
+        train, dev, topo, cfg, init = prob["matcher"]
+        res = train_matcher(train, dev, rig_config, rig, topo, cfg,
+                            MatcherTrainConfig(epochs=PAR_EPOCHS,
+                                               batch_size=PAR_M_BATCH,
+                                               eval_every=1,
+                                               scan_epoch=False),
+                            params=init, mesh=mesh, log=lambda s: None,
+                            device=GPU)
+        n = len(train)
+    return {"history": [(h["train_loss"], h["val_loss"], h["elapsed_s"])
+                        for h in res.history],
+            "params": flatten_tree(res.params), "n": n,
+            "steps": int(res.opt_state[0])}
+
+
+def planted_fault(fault):
+    """A context in which the trainers run with ``fault`` (``FAULTS``)."""
+    import contextlib
+
+    from mpe3d_tpu_torch.parallel import mesh as pm
+    from mpe3d_tpu_torch.train import lifter, matcher
+
+    def unsummed(group, size, tensors):
+        return (list(tensors) if len(tensors) > 1
+                else pm.sum_over(group, size, tensors))
+
+    def twice(mesh, n):
+        lo, hi = pm.data_block(mesh, n)
+        return 0, hi - lo
+
+    name, fn = {"unsummed": ("sum_over", unsummed),
+                "twice": ("data_block", twice)}[fault]
+
+    @contextlib.contextmanager
+    def ctx():
+        for mod in (lifter, matcher):
+            setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            for mod in (lifter, matcher):
+                setattr(mod, name, getattr(pm, name))
+    return ctx()
+
+
+def parallel_worker(argv) -> int:
+    """A rank of a phase 12 world (``chip_smoke.py --parallel-worker``):
+    joins the world (``--backend``, a ``file://`` store in ``--dir``, a
+    timeout on every collective) on the card, checks the backend's
+    collectives on card tensors, runs ``--tasks`` over a data-axis mesh
+    (``lifter_tp``: a model-axis mesh; ``<task>:<fault>``: with a planted
+    fault) and, on rank 0, writes the results to ``DIR/<backend>.pkl``."""
+    import argparse
+    import contextlib
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from mpe3d_tpu_torch.config import PANOPTIC
+    from mpe3d_tpu_torch.data.synthetic import synthetic_ring_rig
+    from mpe3d_tpu_torch.parallel.mesh import make_mesh
+
+    ap = argparse.ArgumentParser()
+    for a in ("--rank", "--world"):
+        ap.add_argument(a, type=int, required=True)
+    for a in ("--backend", "--dir", "--tasks"):
+        ap.add_argument(a, required=True)
+    a = ap.parse_args(argv)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        a.backend, init_method=f"file://{a.dir}/store-{a.backend}",
+        rank=a.rank, world_size=a.world,
+        timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    w = a.world
+    t = torch.full((4,), float(a.rank + 1), device=GPU)
+    dist.all_reduce(t)
+    parts = [torch.empty(4, device=GPU) for _ in range(w)]
+    dist.all_gather(parts, t)
+    b = torch.full((2,), float(a.rank), device=GPU)
+    dist.broadcast(b, src=0)
+    if (t.tolist() != [w * (w + 1) / 2] * 4 or b.tolist() != [0.0, 0.0]
+            or any(p.tolist() != t.tolist() for p in parts)):
+        raise AssertionError(f"{a.backend} collectives on the card: "
+                             f"all_reduce {t.tolist()}, broadcast "
+                             f"{b.tolist()}")
+    with open(os.path.join(a.dir, "problems.pkl"), "rb") as f:
+        prob = pickle.load(f)
+    rig = synthetic_ring_rig(PANOPTIC)
+    out = {}
+    for task in a.tasks.split(","):
+        mesh = (make_mesh(n_data=1, n_model=w, device=GPU)
+                if task == "lifter_tp" else make_mesh(device=GPU))
+        fault = task.partition(":")[2]
+        with planted_fault(fault) if fault else contextlib.nullcontext():
+            out[task] = parallel_task(task, prob, PANOPTIC, rig, mesh)
+    if a.rank == 0:
+        with open(os.path.join(a.dir, f"{a.backend}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_world(d, backend, world, tasks):
+    """Start a world of ``world`` processes of this script on the card and
+    wait for it (``WORLD_TIMEOUT_S``); its results."""
+    import pickle
+
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-worker",
+         "--rank", str(r), "--world", str(world), "--backend", backend,
+         "--dir", d, "--tasks", ",".join(tasks)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT) for r in range(world)]
+    t0, logs = time.perf_counter(), []
+    try:
+        for p in procs:
+            left = WORLD_TIMEOUT_S - (time.perf_counter() - t0)
+            logs.append(p.communicate(timeout=max(left, 1.0))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"the {backend} world of {world} exited "
+                             f"{[p.returncode for p in procs]}:\n"
+                             + "\n".join(log[-3000:] for log in logs))
+    with open(os.path.join(d, f"{backend}.pkl"), "rb") as f:
+        return pickle.load(f), time.perf_counter() - t0
+
+
+def compare_runs(label, got, ref, tol):
+    """A world's run against the one-process run: (the limits of ``tol``
+    (``PAR_TOL``'s) that it breaks, of "steps", "loss" and "params"; a
+    line saying how far apart)."""
+    import numpy as np
+    rel = [max(abs(g / r - 1.0) for g, r in zip(gh[:2], rh[:2]))
+           for gh, rh in zip(got["history"], ref["history"])]
+    dp = max(float(np.abs(a - b).max()) for a, b in zip(got["params"],
+                                                       ref["params"]))
+    broken = ((["steps"] if len(got["history"]) != len(ref["history"])
+               or got["steps"] != ref["steps"] else [])
+              + (["loss"] if max(rel) > tol[0] else [])
+              + (["params"] if dp > tol[1] else []))
+    return broken, (f"{label}: max rel loss difference a epoch "
+                    f"{[float(f'{r:.3g}') for r in rel]} (limit {tol[0]:g}),"
+                    f" max |d param| {dp:.3g} (limit {tol[1]:g}) after "
+                    f"{ref['steps']} steps")
+
+
+def epoch_rate(run):
+    """(seconds of each epoch after the first, items a second of the last)."""
+    ends = [h[2] for h in run["history"]]
+    secs = [b - a for a, b in zip(ends, ends[1:])]
+    return secs, run["n"] / secs[-1]
+
+
+def check_parallel(rig_config, rig, d, nccl, smi):
+    """Phase 12 (c): a 2-rank gloo world on the one card (both ranks on
+    cuda:0: gloo takes CUDA tensors, NCCL refuses two ranks on one card)
+    trains the full-width lifter (batch 256), the lifter 1x2
+    tensor-parallel, and the full-width matcher (batch ``PAR_M_BATCH``);
+    each held to the one-process card run at the same global batch within
+    ``PAR_TOL`` (``compare_runs``), and each data-parallel task run again
+    with each planted fault of ``FAULTS``, which must break both.  A
+    1-rank NCCL world runs the lifter through the same path (its
+    collectives checked on card tensors first).  Epoch seconds and rates
+    at 1 and 2 ranks: overhead, not speed-up (one card)."""
+    prob = parallel_problems(rig_config, rig, d)
+    one = {t: parallel_task(t, prob, rig_config, rig, None)
+           for t in ("lifter", "matcher")}
+    planted = [f"{t}:{f}" for t in ("lifter", "matcher") for f in FAULTS]
+    gloo, t_gloo = run_world(d, "gloo", 2, ("lifter", "lifter_tp",
+                                            "matcher", *planted))
+    if not nccl:
+        raise AssertionError("torch.distributed has no NCCL on this machine")
+    nc, t_nccl = run_world(d, "nccl", 1, ("lifter",))
+    lines, bad, caught = [], [], []
+    for label, got, task in (
+            ("gloo 2 ranks, lifter", gloo["lifter"], "lifter"),
+            ("gloo 1x2 tensor-parallel, lifter", gloo["lifter_tp"],
+             "lifter"),
+            ("gloo 2 ranks, matcher", gloo["matcher"], "matcher"),
+            ("NCCL 1 rank, lifter", nc["lifter"], "lifter")):
+        ref = one[task]
+        broken, line = compare_runs(label, got, ref, PAR_TOL[task])
+        lines.append(line)
+        if broken:
+            bad.append(f"{line}, breaks {broken}: losses {got['history']} "
+                       f"against one process {ref['history']}")
+    for task in planted:
+        t, _, fault = task.partition(":")
+        broken, line = compare_runs(f"gloo 2 ranks, {t}, planted fault "
+                                    f"{fault}", gloo[task], one[t],
+                                    PAR_TOL[t])
+        caught.append(f"{line}: breaks {broken}")
+        if not {"loss", "params"} <= set(broken):
+            bad.append(f"{line}: the planted fault breaks only {broken}")
+    rates = []
+    for label, run, unit in (
+            ("lifter, 1 process", one["lifter"], "samples"),
+            ("lifter, gloo 2 ranks", gloo["lifter"], "samples"),
+            ("lifter 1x2 tensor-parallel, gloo", gloo["lifter_tp"],
+             "samples"),
+            ("lifter, NCCL 1 rank", nc["lifter"], "samples"),
+            ("matcher, 1 process", one["matcher"], "scenes"),
+            ("matcher, gloo 2 ranks", gloo["matcher"], "scenes")):
+        secs, rate = epoch_rate(run)
+        rates.append(f"{label}: warm epochs {[round(s, 4) for s in secs]} s,"
+                     f" {rate:.1f} {unit} a second")
+    print(f"  worlds on the card: gloo 2 ranks ({t_gloo:.1f} s, start to "
+          f"exit, planted faults included), NCCL 1 rank ({t_nccl:.1f} s); "
+          f"against one process at the same global batch: "
+          + "; ".join(lines), flush=True)
+    print("  planted faults against the same limits: " + "; ".join(caught),
+          flush=True)
+    print("  epoch times (dev evaluation included; two ranks on one card "
+          "measure overhead, not speed-up): " + "; ".join(rates)
+          + f" ({smi})", flush=True)
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
+def check_multi_device(pipe_of, frames, wire4, wire10, gate, smi):
+    """Phase 12 (d): ``enable_multi_device_serving(["cuda:0", "cuda:0"])``
+    on phase 4's 16 S=4 frames (pan_irls_bf16's lifter, random matcher):
+    persons equal to the single-device pipeline's, scores within 1e-5,
+    both replicas used, the kernels launched; ``infer_batch(mesh=...)`` over
+    the two replicas equal to the unsplit call; ``serve --multi-device``
+    over stdio equal to ``serve``."""
+    import numpy as np
+    from mpe3d_tpu_torch.parallel.mesh import make_mesh
+
+    single_pipe = pipe_of()
+    single = [single_pipe.infer_fused(f) for f in frames]
+    pipe = pipe_of()
+    n = pipe.enable_multi_device_serving(devices=["cuda:0", "cuda:0"])
+    reset_launches()
+    multi = list(pipe.infer_stream(frames, depth=2 * n))
+    launches = read_launches()
+
+    def same(got, ref, label):
+        for i, (g, r) in enumerate(zip(got, ref)):
+            ds = float(np.abs(g.scores - r.scores).max())
+            if not np.array_equal(g.persons, r.persons) or ds > 1e-5:
+                raise AssertionError(f"{label}, frame {i}: persons "
+                                     f"{g.persons} / {r.persons}, max |d "
+                                     f"score| {ds}")
+        return sum(len(g.persons) for g in got)
+
+    persons = same(multi, single, "multi-device serving")
+    if pipe.replica_uses != [8, 8] or not launches["mlp_run"] \
+            or not launches["gat_stack"]:
+        raise AssertionError(f"replica uses {pipe.replica_uses}, launches "
+                             f"{launches}")
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    whole = single_pipe.infer_batch(frames)
+    split = single_pipe.infer_batch(frames, mesh=mesh)
+    same(split, whole, "infer_batch(mesh=...)")
+    lines = [json.dumps(f) for f in wire4 + wire10]
+    one, _ = serve_stdio(lines, 3, gate)
+    import torch
+    got, err = serve_stdio(lines, 3, gate, "--multi-device")
+    cards = torch.cuda.device_count()
+    if f"round-robin serving over {cards} devices" not in err:
+        raise AssertionError(f"serve --multi-device: {err[-2000:]}")
+    compare_records(got, one, "serve --multi-device")
+    print(f"  multi-device serving, 2 replicas on cuda:0: 16 S=4 frames "
+          f"through infer_stream, persons equal to one device ({persons} "
+          f"persons), replica uses {pipe.replica_uses}, launches "
+          f"{launches}; infer_batch over a 2-device mesh equals the unsplit "
+          f"call; serve --multi-device ({cards} card(s), a replica each) "
+          f"over stdio equals serve ({len(got)} records) ({smi})",
+          flush=True)
+
+
+def run_parallel_and_serving(rig_config, rig, pipe_of, frames, wire4,
+                             wire10, gate, smi):
+    """Phase 12: probes, (b) orbax, (c) worlds, (d) multi-device serving,
+    in a temporary directory."""
+    import tempfile
+    p = probes()
+    print(f"  probes: {json.dumps(p)}", flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        check_orbax(rig_config, rig, d, p["libzstd.so.1"], smi)
+        check_parallel(rig_config, rig, d, p["nccl"], smi)
+    check_multi_device(pipe_of, frames, wire4, wire10, gate, smi)
+    return p
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4467,6 +5036,17 @@ def main() -> int:
           "convert_sequence converts a 5-camera HD sequence; show-results "
           f"--out .html and --live agree with --cpu ({smi})")
 
+    t0 = time.perf_counter()
+    p12 = run_parallel_and_serving(rig_config, rig,
+                                   lambda: pipeline(rtree, GPU), frames,
+                                   wire4, wire10, gate, smi)
+    phase("checkpoints, parallel training and multi-device serving", t0,
+          f"probes {json.dumps(p12)}; orbax checkpoints written and read "
+          f"back bit for bit, the JAX fixture against its npz twin; gloo 2 "
+          f"ranks (data- and tensor-parallel) and NCCL 1 rank track one "
+          f"process; two serving replicas give one device's persons "
+          f"({smi})")
+
     # a device time the profiler did not record is not measured: null
     for k in report:
         if k["device_ms"] != k["device_ms"]:
@@ -4479,4 +5059,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        sys.exit(parallel_worker(sys.argv[2:]))
     sys.exit(main())

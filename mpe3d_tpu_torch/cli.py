@@ -12,7 +12,7 @@ Port of ``mpe3d_tpu/cli.py`` (``load_rig`` :35, ``load_models`` :54,
     python -m mpe3d_tpu_torch serve --modelsdir models_demo/pan_irls_bf16 \\
         [--rig PANOPTIC|ARPLAB] [--tcp PORT] [--depth 3] [--track] \\
         [--quality-gate PX] [--warmup] [--batch-window N] \\
-        [--batch-linger-ms MS]
+        [--batch-linger-ms MS] [--multi-device]
     python -m mpe3d_tpu_torch infer --modelsdir DIR --testfiles f.json \\
         [--stream 3 | --batch] [--out poses.json] [--profile-trace DIR]
     python -m mpe3d_tpu_torch metrics-from-model --modelsdir DIR \
@@ -25,10 +25,12 @@ Port of ``mpe3d_tpu/cli.py`` (``load_rig`` :35, ``load_models`` :54,
         [--single-person] [--frames 200]
     python -m mpe3d_tpu_torch merge-jsons a.json b.json out.json
     python -m mpe3d_tpu_torch train-lifter --modelsdir DIR \
-        --trainset t.json --devset d.json [--resume] [--optimise-matrices]
+        --trainset t.json --devset d.json [--resume] [--optimise-matrices] \
+        [--ckpt-backend npz|orbax]
     python -m mpe3d_tpu_torch train-matcher --modelsdir DIR \
         --trainset a.json b.json --devset d.json [--testset t.json] \
-        [--slots 4] [--resume] [--device-synth]
+        [--slots 4] [--resume] [--device-synth] [--ckpt-backend npz|orbax]
+    torchrun --nproc-per-node N -m mpe3d_tpu_torch train-lifter ...
     python -m mpe3d_tpu_torch convert-torch --lifter pose_estimator.pytorch \
         --matcher skeleton_matching.tch --prms skeleton_matching.prms \
         --modelsdir DIR
@@ -60,9 +62,9 @@ CPU through the kernels' plain versions; without a card and without
 ``--cpu`` they fail.  ``convert-panoptic`` decodes images with OpenCV and
 ``show-results`` writes GIF / PNG output with matplotlib, each imported
 only there; the HTML and live viewers need neither.  Every command of the
-JAX command line is here; the options the port does not have (orbax
-checkpoints, ``--multi-device``, the TPU kernel switches) are refused with
-the ROADMAP.md item that will bring them, never ignored.
+JAX command line is here, with its options; the TPU kernel switches
+(``--no-pallas-matcher``, ``--fused-mlp``), which have no meaning in the
+port, are refused, never ignored.
 """
 
 from __future__ import annotations
@@ -95,9 +97,6 @@ def _refuse_unported(args) -> None:
         _refuse("--no-pallas-matcher / --fused-mlp (TPU kernel switches)",
                 "they have no meaning in the port: its kernels serve "
                 "every path")
-    if getattr(args, "multi_device", False):
-        _refuse("--multi-device", "multi-device serving, ROADMAP.md section "
-                "1, item 6; not applicable on one card")
 
 
 def load_rig(args):
@@ -122,13 +121,14 @@ def load_rig(args):
 
 def load_models(models_dir: str, rig_config):
     """(matcher tree, MatcherConfig, lifter tree, LifterConfig, prior) of a
-    models directory: its npz checkpoints (``checkpoint.py``), else the
-    reference's torch files (``skeleton_matching.tch`` + ``.prms``,
-    ``pose_estimator.pytorch``; ``convert/torch_import.py``); a model
-    without either gets numpy-seeded random weights, with a warning.
-    Orbax checkpoints are refused."""
+    models directory: its checkpoints, npz or orbax (``checkpoint.py``),
+    else the reference's torch files (``skeleton_matching.tch`` +
+    ``.prms``, ``pose_estimator.pytorch``; ``convert/torch_import.py``); a
+    model without either gets numpy-seeded random weights, with a
+    warning."""
     from mpe3d_tpu_torch import weights
-    from mpe3d_tpu_torch.checkpoint import (load_lifter_checkpoint,
+    from mpe3d_tpu_torch.checkpoint import (checkpoint_exists,
+                                            load_lifter_checkpoint,
                                             load_matcher_checkpoint)
     from mpe3d_tpu_torch.convert.torch_import import (load_reference_lifter,
                                                       load_reference_matcher)
@@ -139,11 +139,7 @@ def load_models(models_dir: str, rig_config):
     j = os.path.join
     stems = {name: j(models_dir, name)
              for name in ("skeleton_matching", "pose_estimator")}
-    for name, stem in stems.items():
-        if os.path.isdir(stem + ".orbax"):
-            _refuse(f"the orbax checkpoint {stem}.orbax",
-                    "checkpoints beyond npz, ROADMAP.md section 1, item 8")
-    if os.path.exists(stems["skeleton_matching"] + ".npz"):
+    if checkpoint_exists(stems["skeleton_matching"]):
         mtree, mcfg = load_matcher_checkpoint(stems["skeleton_matching"],
                                               mcfg)
     elif os.path.exists(j(models_dir, "skeleton_matching.tch")):
@@ -155,7 +151,7 @@ def load_models(models_dir: str, rig_config):
               file=sys.stderr)
         mtree = weights.random_matcher_tree(mcfg, 0)
     prior = "mean"
-    if os.path.exists(stems["pose_estimator"] + ".npz"):
+    if checkpoint_exists(stems["pose_estimator"]):
         ltree, lcfg, prior = load_lifter_checkpoint(
             stems["pose_estimator"], lcfg)
     elif os.path.exists(j(models_dir, "pose_estimator.pytorch")):
@@ -278,6 +274,12 @@ def cmd_serve(args) -> None:
     from mpe3d_tpu_torch.serve import PoseServer, serve_tcp
 
     rig_config, _, pipe = build_pipeline(args)
+    depth, n_dev = args.depth, 1
+    if args.multi_device:
+        n_dev = pipe.enable_multi_device_serving()
+        depth = max(depth, 2 * n_dev)       # keep every device busy
+        print(f"[mpe3d_torch] round-robin serving over {n_dev} devices "
+              f"(depth {depth})", file=sys.stderr)
     if args.warmup:
         pipe.warmup(fused=len(pipe.match_idx) > 1)
         native.load_library()
@@ -285,7 +287,8 @@ def cmd_serve(args) -> None:
             # the tracker's Hungarian solver (scipy.optimize) loads with it
             from mpe3d_tpu_torch import tracking  # noqa: F401
     if args.warmup and args.batch_window > 1 and len(pipe.match_idx) > 1:
-        # the padded batch of each slot bucket once: its plans and tables
+        # the padded batch of each slot bucket once on each replica (the
+        # submits go round): its plans and tables
         C, J = rig_config.n_cameras, rig_config.n_joints
         for S in pipe.slot_buckets:
             empty = FrameArrays(np.zeros((C, S, J, 2), np.float32),
@@ -293,12 +296,13 @@ def cmd_serve(args) -> None:
                                 np.zeros((C, S, J), np.float32),
                                 np.zeros((C, S, J), bool),
                                 np.zeros((C, S), bool), np.zeros(C))
-            pipe.collect_batch(pipe.submit_batch(
-                [empty], slots=S, pad_to=args.batch_window))
+            for _ in range(n_dev):
+                pipe.collect_batch(pipe.submit_batch(
+                    [empty], slots=S, pad_to=args.batch_window))
     # track state is per stream: every connection starts with fresh ids
     tracker_factory = (lambda: _make_tracker(args)) if args.track else None
     server = PoseServer(pipe, rig_config, max_skeletons=args.max_skeletons,
-                        depth=args.depth, tracker_factory=tracker_factory,
+                        depth=depth, tracker_factory=tracker_factory,
                         quality_gate=args.quality_gate,
                         batch_window=args.batch_window,
                         batch_linger_ms=args.batch_linger_ms)
@@ -416,9 +420,49 @@ def cmd_generate_synthetic(args) -> None:
     print(f"wrote {len(frames)} frames to {args.output}")
 
 
+@contextlib.contextmanager
+def _train_world(args):
+    """(device, mesh, rank 0?) of a training command.  Started by
+    ``torchrun`` (``WORLD_SIZE`` > 1), this process joins the world (NCCL
+    on the cards, gloo with ``--cpu``), trains on ``cuda:<LOCAL_RANK>``
+    over a data-axis mesh of every rank (as the JAX command's default
+    ``make_mesh()`` spans every device), and prints nothing on stdout but
+    on rank 0; the world is left at the end."""
+    import torch.distributed as dist
+
+    from mpe3d_tpu_torch.parallel.mesh import (init_distributed,
+                                               local_rank_device, make_mesh)
+
+    device = "cpu" if args.cpu else "cuda"
+    if not init_distributed(device):
+        yield device, None, True
+        return
+    dev = local_rank_device(device)
+    if dev.type == "cuda":
+        import torch
+        torch.cuda.set_device(dev)
+    mesh = make_mesh(device=dev)
+    stdout = sys.stdout
+    if mesh.rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        yield str(dev), mesh, mesh.rank == 0
+    finally:
+        if mesh.rank != 0:
+            sys.stdout.close()
+            sys.stdout = stdout
+        dist.destroy_process_group()
+
+
 def cmd_train_lifter(args) -> None:
     """Self-supervised lifter training into ``--modelsdir``
-    (``train/lifter.py``); ``--resume`` continues from its checkpoint."""
+    (``train/lifter.py``); ``--resume`` continues from its checkpoint.
+    Under ``torchrun``, data-parallel over its ranks (``_train_world``)."""
+    with _train_world(args) as (device, mesh, rank0):
+        _train_lifter(args, device, mesh, rank0)
+
+
+def _train_lifter(args, device, mesh, rank0) -> None:
     from mpe3d_tpu_torch.checkpoint import (checkpoint_exists,
                                             load_lifter_checkpoint,
                                             read_meta,
@@ -429,10 +473,6 @@ def cmd_train_lifter(args) -> None:
     from mpe3d_tpu_torch.train.lifter_data import (
         build_lifter_dataset_from_files)
 
-    if args.ckpt_backend == "orbax":
-        _refuse("--ckpt-backend orbax", "orbax checkpoints, ROADMAP.md "
-                "section 1, item 8")
-    device = "cpu" if args.cpu else "cuda"
     rig_config, rig = load_rig(args)
     tcfg = LifterTrainConfig(epochs=args.epochs, batch_size=args.batch_size,
                              optimise_matrices=args.optimise_matrices,
@@ -447,9 +487,6 @@ def cmd_train_lifter(args) -> None:
         if not checkpoint_exists(ckpt_path):
             sys.exit(f"--resume: no checkpoint at {ckpt_path} (.npz or "
                      f".orbax/) -- drop --resume to train fresh")
-        if not os.path.exists(ckpt_path + ".npz"):
-            _refuse(f"resuming the orbax checkpoint {ckpt_path}.orbax",
-                    "orbax checkpoints, ROADMAP.md section 1, item 8")
         meta = read_meta(ckpt_path)
         if meta.get("stored"):
             sys.exit(f"{ckpt_path} is a serving-only export (stored="
@@ -484,11 +521,13 @@ def cmd_train_lifter(args) -> None:
               f"val {meta.get('val_loss')}, "
               f"opt_state={'yes' if opt_state is not None else 'no'})")
     res = train_lifter(net_t, err_t, net_d, err_d, rig_config, rig, lcfg,
-                       tcfg, checkpoint_path=ckpt_path, params=params,
-                       opt_state=opt_state,
+                       tcfg, mesh=mesh, checkpoint_path=ckpt_path,
+                       params=params, opt_state=opt_state,
                        extra_meta={"prior": args.prior}, device=device)
     print(f"best dev loss {res.best_val_loss:.6f} after {res.epochs_run} "
           f"epochs \u2192 {ckpt_path} [{tcfg.checkpoint_backend}]")
+    if not rank0:
+        return
     if res.rig is not None:
         save_rig_npz(refined_rig_path, res.rig)
         print(f"refined calibration (--optimise-matrices) \u2192 "
@@ -508,7 +547,13 @@ def cmd_train_matcher(args) -> None:
     the device each epoch (``train/matcher_synth.py``); ``--resume``
     continues from the checkpoint (its architecture overrides the
     default); ``--testset`` prints the trained matcher's MSE on its
-    scenes, the mean over batches weighted by their sizes."""
+    scenes, the mean over batches weighted by their sizes.  Under
+    ``torchrun``, data-parallel over its ranks (``_train_world``)."""
+    with _train_world(args) as (device, mesh, rank0):
+        _train_matcher(args, device, mesh, rank0)
+
+
+def _train_matcher(args, device, mesh, rank0) -> None:
     import torch
 
     from mpe3d_tpu_torch.checkpoint import (checkpoint_exists,
@@ -523,19 +568,12 @@ def cmd_train_matcher(args) -> None:
     from mpe3d_tpu_torch.train.matcher_data import build_matcher_scenes
     from mpe3d_tpu_torch.weights import trainable_matcher_from_tree
 
-    if args.ckpt_backend == "orbax":
-        _refuse("--ckpt-backend orbax", "orbax checkpoints, ROADMAP.md "
-                "section 1, item 8")
-    device = "cpu" if args.cpu else "cuda"
     out = os.path.join(args.modelsdir, "skeleton_matching")
     if args.resume:
         # checked before the scenes are built: a bad resume fails at once
         if not checkpoint_exists(out):
             sys.exit(f"--resume: no checkpoint at {out} (.npz or .orbax/) "
                      f"-- drop --resume to train fresh")
-        if not os.path.exists(out + ".npz"):
-            _refuse(f"resuming the orbax checkpoint {out}.orbax",
-                    "orbax checkpoints, ROADMAP.md section 1, item 8")
     rig_config, rig = load_rig(args)
     topo = build_topology(rig_config.n_matching_cameras, args.slots)
     tcfg = MatcherTrainConfig(epochs=args.epochs, limit=args.limit,
@@ -569,11 +607,11 @@ def cmd_train_matcher(args) -> None:
               f"val {meta.get('val_loss')}, "
               f"opt_state={'yes' if opt_state is not None else 'no'})")
     res = train_matcher(train, dev, rig_config, rig, topo, cfg, tcfg,
-                        checkpoint_path=out, params=params,
+                        mesh=mesh, checkpoint_path=out, params=params,
                         opt_state=opt_state, synth_bank=bank, device=device)
     print(f"best dev loss {res.best_val_loss:.6f} after {res.epochs_run} "
           f"epochs \u2192 {out} [{tcfg.checkpoint_backend}]")
-    if args.testset:
+    if args.testset and rank0:
         test = build_matcher_scenes([load_frames(p) for p in args.testset],
                                     rig_config, topo, limit=tcfg.limit,
                                     seed=tcfg.seed + 2)
@@ -614,23 +652,14 @@ def cmd_convert_torch(args) -> None:
         print(f"wrote {out}.npz")
 
 
-def _npz_or_refuse(stem: str) -> bool:
-    """Whether ``<stem>.npz`` exists; an orbax checkpoint there instead is
-    refused."""
-    from mpe3d_tpu_torch.checkpoint import checkpoint_exists
-    if checkpoint_exists(stem) and not os.path.exists(stem + ".npz"):
-        _refuse(f"the orbax checkpoint {stem}.orbax", "orbax checkpoints, "
-                "ROADMAP.md section 1, item 8")
-    return os.path.exists(stem + ".npz")
-
-
 def cmd_export_torch(args) -> int:
     """The inverse of convert-torch: the npz checkpoints of ``--modelsdir``
     as the reference's torch files in ``--out``
     (``convert/torch_export.py``), which the reference's torch/DGL stack
     loads.  A bf16 serving export's lifter goes out as the fp32 values of
     its bf16 weights (exact); an int8 one is not exported."""
-    from mpe3d_tpu_torch.checkpoint import (load_lifter_checkpoint,
+    from mpe3d_tpu_torch.checkpoint import (checkpoint_exists,
+                                            load_lifter_checkpoint,
                                             load_matcher_checkpoint,
                                             read_meta)
     from mpe3d_tpu_torch.convert.torch_export import (export_reference_lifter,
@@ -641,7 +670,7 @@ def cmd_export_torch(args) -> int:
     j = os.path.join
     wrote = []
     mstem = j(args.modelsdir, "skeleton_matching")
-    if _npz_or_refuse(mstem):
+    if checkpoint_exists(mstem):
         mtree, mcfg = load_matcher_checkpoint(
             mstem, MatcherConfig(in_dim=rig_config.matcher_feature_dim))
         export_reference_matcher(mtree, mcfg,
@@ -649,7 +678,7 @@ def cmd_export_torch(args) -> int:
                                  j(args.out, "skeleton_matching.prms"))
         wrote += ["skeleton_matching.tch", "skeleton_matching.prms"]
     lstem = j(args.modelsdir, "pose_estimator")
-    if _npz_or_refuse(lstem):
+    if checkpoint_exists(lstem):
         stored = read_meta(lstem).get("stored")
         ltree, lcfg, _ = load_lifter_checkpoint(
             lstem, LifterConfig(in_dim=rig_config.lifter_input_dim,
@@ -669,7 +698,7 @@ def cmd_export_torch(args) -> int:
         except ValueError as e:
             print(f"[mpe3d_torch] lifter not exported: {e}", file=sys.stderr)
     if not wrote:
-        print(f"[mpe3d_torch] no npz checkpoints in {args.modelsdir}",
+        print(f"[mpe3d_torch] no checkpoints in {args.modelsdir}",
               file=sys.stderr)
         return 1
     print(f"wrote {', '.join(wrote)} to {args.out}")
@@ -678,24 +707,25 @@ def cmd_export_torch(args) -> int:
 
 def cmd_export_servable(args) -> int:
     """A serving-only models directory in ``--out``: the matcher
-    (``skeleton_matching.npz/.json``) and a refined calibration copied as
-    they are, the lifter stored ``--dtype int8`` (the weight-only
+    (``skeleton_matching.npz/.json``; an orbax one written again as npz)
+    and a refined calibration copied as they are, the lifter stored ``--dtype int8`` (the weight-only
     quantisation of ``models/mlp.py::quantize_lifter_weights``) or ``bf16``
     (the weights rounded to nearest even, stored as their uint16 bit
     patterns), meta ``"stored"`` set.  Serving reads it; an export is not
     exported again, and ``train-lifter --resume`` refuses it."""
     import torch
 
-    from mpe3d_tpu_torch.checkpoint import (load_lifter_checkpoint,
-                                            read_meta, save_checkpoint)
+    from mpe3d_tpu_torch.checkpoint import (checkpoint_exists,
+                                            load_lifter_checkpoint,
+                                            read_checkpoint, read_meta,
+                                            save_checkpoint)
     from mpe3d_tpu_torch.models.mlp import (lifter_is_quantized,
                                             quantize_lifter_weights)
 
     rig_config = get_rig(args.rig)
     j = os.path.join
-    _npz_or_refuse(j(args.modelsdir, "skeleton_matching"))
     lpath = j(args.modelsdir, "pose_estimator")
-    if not _npz_or_refuse(lpath):
+    if not checkpoint_exists(lpath):
         print(f"[mpe3d_torch] no lifter checkpoint in {args.modelsdir}",
               file=sys.stderr)
         return 1
@@ -711,6 +741,13 @@ def cmd_export_servable(args) -> int:
         if os.path.exists(src):
             shutil.copy2(src, j(args.out, name))
             wrote.append(name)
+    mstem = j(args.modelsdir, "skeleton_matching")
+    if "skeleton_matching.npz" not in wrote and checkpoint_exists(mstem):
+        # an orbax matcher: its parameter leaves and meta again, as npz
+        mleaves, mmeta = read_checkpoint(mstem)
+        save_checkpoint(j(args.out, "skeleton_matching"), mleaves,
+                        meta=mmeta)
+        wrote += ["skeleton_matching.npz", "skeleton_matching.json"]
     ltree, _, _ = load_lifter_checkpoint(
         lpath, LifterConfig(in_dim=rig_config.lifter_input_dim,
                             out_dim=rig_config.n_joints * 3))
@@ -970,7 +1007,9 @@ def make_parser() -> argparse.ArgumentParser:
                    "with --batch-window), and load the C++ parser, before "
                    "serving")
     p.add_argument("--multi-device", action="store_true",
-                   help="not ported: refused")
+                   help="a replica of the weights on every visible card (on "
+                   "the CPU with --cpu), frames to each in turn; depth at "
+                   "least twice the replica count")
     p.add_argument("--batch-window", type=int, default=1,
                    help="micro-batching: group up to N consecutive frames "
                    "into one submit_batch (1 = off)")
@@ -1069,7 +1108,8 @@ def make_parser() -> argparse.ArgumentParser:
                    "(zero head at the start); recorded in the checkpoint")
     p.add_argument("--ckpt-backend", default="npz",
                    choices=["npz", "orbax"],
-                   help="checkpoint format: npz (orbax is refused)")
+                   help="checkpoint format: npz, or orbax (<stem>.orbax/, "
+                        "saved on a background thread)")
     p.add_argument("--ema", type=float, default=0.0,
                    help="EMA weight-averaging decay (0 = off)")
     p.add_argument("--compute-dtype", default="fp32",
@@ -1096,7 +1136,8 @@ def make_parser() -> argparse.ArgumentParser:
                    "save)")
     p.add_argument("--ckpt-backend", default="npz",
                    choices=["npz", "orbax"],
-                   help="checkpoint format: npz (orbax is refused)")
+                   help="checkpoint format: npz, or orbax (<stem>.orbax/, "
+                        "saved on a background thread)")
     p.add_argument("--device-synth", action="store_true",
                    help="synthesise the training composites on the device "
                    "each epoch (train/matcher_synth.py) instead of "

@@ -264,7 +264,7 @@ class MatcherTrainConfig:
     off, batches of ``np.random.default_rng(seed)``'s permutation, the tail
     kept.  ``prune_dist`` (metres, 0 = off): pairs whose mean ray distance
     exceeds it leave the loss and the head softmax.  ``checkpoint_backend``:
-    "npz" ("orbax" is refused)."""
+    "npz", or "orbax" (``<stem>.orbax/``, saved on the saver thread)."""
 
     epochs: int = 100
     lr: float = 1e-4
@@ -291,8 +291,9 @@ class LifterTrainConfig:
     fraction since the last save (the best is saved at the end anyway).
     ``compute_dtype="bf16"``: matmul operands rounded to bf16, fp32 sums
     and fp32 master weights.  ``ema_decay`` > 0: evaluate, stop and save
-    on the Polyak average of the weights.  ``checkpoint_backend``: "npz"
-    ("orbax" is refused)."""
+    on the Polyak average of the weights.  ``checkpoint_backend``: "npz", or
+    "orbax" (``<stem>.orbax/``, the saves during training on the saver
+    thread)."""
 
     epochs: int = 10000
     lr: float = 1e-4

@@ -23,6 +23,8 @@ stays finite for the gradient clip to recover.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from mpe3d_tpu_torch.geometry.camera import CameraRig, project_points
@@ -55,19 +57,38 @@ def reprojection_error(pred: torch.Tensor, error_input: torch.Tensor,
     return torch.sum(l1, dim=(1, 2))
 
 
+def loss_denominator(error_input: torch.Tensor, n_cameras: int,
+                     n_joints: int, kind: str = "reference") -> torch.Tensor:
+    """What ``reprojection_loss`` of ``kind`` divides by for this batch:
+    its size ("reference"), else its count of valid (camera, joint) terms
+    (at least 1).  A data-parallel rank divides its block's sum by the
+    whole batch's denominator, so the blocks' losses add up to the
+    batch's."""
+    if kind == "reference":
+        return torch.tensor(float(error_input.shape[0]),
+                            device=error_input.device)
+    err_in = error_input.reshape(error_input.shape[0], n_cameras, n_joints, 4)
+    return torch.clamp(torch.sum((err_in[..., 0] >= 0.5).float()), min=1.0)
+
+
 def reprojection_loss(pred: torch.Tensor, error_input: torch.Tensor,
                       rig: CameraRig, n_joints: int,
                       kind: str = "reference",
-                      huber_delta: float = 10.0) -> torch.Tensor:
-    """The scalar training loss of ``kind`` (module header)."""
+                      huber_delta: float = 10.0,
+                      denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The scalar training loss of ``kind`` (module header); ``denom``
+    replaces the batch's own ``loss_denominator``."""
     if kind == "reference":
         err = reprojection_error(pred, error_input, rig, n_joints)
+        if denom is not None:
+            return torch.sum(err * err) / denom
         return torch.mean(err * err)
     if kind not in LOSS_KINDS:
         raise ValueError(f"kind must be 'reference', 'per_term' or "
                          f"'huber', got {kind!r}")
     d, valid = _reprojection_residuals(pred, error_input, rig, n_joints)
-    denom = torch.clamp(torch.sum(valid), min=1.0)
+    if denom is None:
+        denom = torch.clamp(torch.sum(valid), min=1.0)
     if kind == "per_term":
         return torch.sum(torch.sum(d * d, -1) * valid) / denom
     a = torch.abs(d)

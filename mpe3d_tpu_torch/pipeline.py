@@ -89,6 +89,16 @@ scratch (``ops/gat_tiled.py::_stack_plan``) and plan caches are shared by
 every call of a signature, and ctypes releases the GIL inside a launch.
 ``reload_weights`` swaps the matcher and lifter under the same lock.
 
+Multi-device serving (``mpe3d_tpu/pipeline.py:917-945, 1014-1060``):
+``enable_multi_device_serving(devices)`` builds a replica of the pipeline
+on each device (copies of the matcher and lifter as served, and the
+replica's own device state: rig tensors, topologies, staging buffers), and
+``submit_fused`` / ``submit_batch`` hand each submit to the next replica
+in turn; every replica launches under its own device
+(``torch.cuda.device``), and replicas on one device share its submit lock,
+as the kernels' caches are per device.  ``infer_batch(mesh=...)`` splits
+the frame axis over a mesh's devices the same way.
+
 The GAT is true fp32: TF32 is switched off for matmuls and convolutions at
 import, because rounded operands change decodes (RESULTS.md:1265-1271,
 1369-1377).
@@ -97,6 +107,7 @@ import, because rounded operands change decodes (RESULTS.md:1265-1271,
 from __future__ import annotations
 
 import contextlib
+import copy
 import os
 import sys
 import threading
@@ -247,6 +258,14 @@ _BUFFERS = (("kp", np.float32), ("valid", np.float32), ("prob", np.float32),
 _TREE_DTYPE = {"bf16": None, "fp32": "fp32", "int8": "int8"}
 
 
+def _device_key(d: torch.device) -> str:
+    """A device's name with its index ("cuda" is the current card)."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return str(d)
+
+
 def _slot_view(a: np.ndarray, S: int) -> np.ndarray:
     """Restrict a per-frame buffer [C, slots, ...] to S slots: slice, or
     zero-pad (absent slots) when the frame has fewer."""
@@ -328,6 +347,17 @@ class PoseEstimationPipeline:
         if pair_prune_dist < 0:
             raise ValueError(f"pair_prune_dist must be >= 0 (metres), got "
                              f"{pair_prune_dist!r}")
+        # what a serving replica on another device is built with
+        self._replica_kwargs = dict(
+            slot_buckets=slot_buckets, person_buckets=person_buckets,
+            threshold=threshold, decode_top_k=decode_top_k,
+            lifter_prior=lifter_prior, prior_gate_px=prior_gate_px,
+            use_frame_kernel=use_frame_kernel,
+            pair_prune_dist=pair_prune_dist, pair_prune_cap=pair_prune_cap,
+            use_layer_matcher=use_layer_matcher, backend=backend,
+            tri_variant=tri_variant, decode_on_device=decode_on_device,
+            geo_rerank=geo_rerank, geo_scale=geo_scale,
+            geo_rescue=geo_rescue, geo_rescue_dist=geo_rescue_dist)
         self.pair_prune_dist = float(pair_prune_dist)
         self.pair_prune_cap = int(pair_prune_cap)
         self.rig_config = rig_config
@@ -376,6 +406,12 @@ class PoseEstimationPipeline:
         # serialises submits (their launches share cached scratch) and the
         # weight swap of reload_weights
         self._submit_lock = threading.Lock()
+        # multi-device serving: the replicas submits go to in turn, and
+        # infer_batch(mesh=...)'s replicas by mesh
+        self._replicas: List["PoseEstimationPipeline"] = []
+        self.replica_uses: List[int] = []
+        self._rr, self._rr_lock = 0, threading.Lock()
+        self._mesh_replicas: Dict[tuple, list] = {}
 
     @classmethod
     def from_checkpoint(cls, models_dir: str, rig: CameraRig,
@@ -848,7 +884,12 @@ class PoseEstimationPipeline:
         """Start one frame on the device and its download to the host,
         without waiting for either; returns a ticket for
         :meth:`collect_fused`.  Thread-safe: submits are serialised (host
-        time only, the launches are asynchronous)."""
+        time only, the launches are asynchronous).  After
+        :meth:`enable_multi_device_serving` each submit goes to the next
+        replica."""
+        rep = self._next_replica()
+        if rep is not None:
+            return rep.submit_fused(frame)
         with self._submit_lock, torch.inference_mode(), self._on_device():
             S, args = self._frame_tensors(frame)
             if self.serving_path(S)[1]:
@@ -905,9 +946,14 @@ class PoseEstimationPipeline:
         micro-batcher with a varying fill reuses one set of plans and
         tables.  The chunks of ``batch_plan`` run in order, each one body;
         one upload, one pinned download, no host synchronisation on the
-        batch path (the eager body synchronises in its decode)."""
+        batch path (the eager body synchronises in its decode).  After
+        :meth:`enable_multi_device_serving` each submit goes to the next
+        replica."""
         if not frames:
             raise ValueError("submit_batch: no frames")
+        rep = self._next_replica()
+        if rep is not None:
+            return rep.submit_batch(frames, slots, pad_to)
         S = slots or self._batch_slots(frames)
         n = max(len(frames), pad_to or 0)
         plan = self.batch_plan(S, n)
@@ -943,17 +989,86 @@ class PoseEstimationPipeline:
     def infer_batch(self, frames, slots: Optional[int] = None,
                     mesh=None) -> List[PipelineOutput]:
         """Batched inference over a list of frames: one ticket
-        (``submit_batch``), a PipelineOutput a frame.  ``mesh`` (the
-        reference's frame axis sharded over several devices) raises: the
-        port serves one card."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "infer_batch(mesh=...): the frame axis sharded over several "
-                "cards is multi-device serving, not in the port (ROADMAP.md "
-                "section 1, item 6); the port serves one card")
+        (``submit_batch``), a PipelineOutput a frame.  ``mesh``
+        (``parallel/mesh.py::make_mesh``): the frame axis split into
+        contiguous blocks over its local devices (a replica of this
+        pipeline on each, made at the first call and kept), every block at
+        the whole batch's slot bucket, so the results are the unsplit
+        call's; a mesh of ranks raises ValueError."""
         if not frames:
             return []
-        return self.collect_batch(self.submit_batch(frames, slots))
+        if mesh is None:
+            return self.collect_batch(self.submit_batch(frames, slots))
+        from mpe3d_tpu_torch.parallel.mesh import Mesh
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"infer_batch: mesh must be a parallel.mesh.Mesh"
+                            f" (make_mesh), got {type(mesh).__name__}")
+        S = slots or self._batch_slots(frames)
+        devices = mesh.local_devices()
+        key = tuple(str(d) for d in devices)
+        if key not in self._mesh_replicas:
+            self._mesh_replicas[key] = self._make_replicas(devices)
+        reps = self._mesh_replicas[key]
+        per = -(-len(frames) // len(reps))
+        tickets = [rep.submit_batch(frames[i * per:(i + 1) * per], S)
+                   for i, rep in enumerate(reps) if frames[i * per:]]
+        return [o for t in tickets for o in self.collect_batch(t)]
+
+    # ---- multi-device serving ---------------------------------------------
+
+    def _make_replicas(self, devices) -> List["PoseEstimationPipeline"]:
+        """A replica of this pipeline on each of ``devices``: copies of the
+        matcher and lifter (bf16, int8 or fp32 as served, packed for the
+        kernels) and its own device state.  Replicas on one device share
+        that device's submit lock (the kernels' cached scratch is per
+        device)."""
+        locks = {_device_key(self.device): self._submit_lock}
+        reps = []
+        for d in devices:
+            dev = torch.device(d)
+            rep = PoseEstimationPipeline(
+                self.rig_config, self.rig,
+                copy.deepcopy(self.matcher).to(dev),
+                None if self.lifter is None
+                else copy.deepcopy(self.lifter).to(dev),
+                device=dev, **self._replica_kwargs)
+            rep._submit_lock = locks.setdefault(_device_key(dev),
+                                                threading.Lock())
+            reps.append(rep)
+        return reps
+
+    def enable_multi_device_serving(self, devices=None) -> int:
+        """Frame-level device parallelism for serving
+        (``mpe3d_tpu/pipeline.py:1014-1060``): one replica of the weights
+        on each device, and each later ``submit_fused`` / ``submit_batch``
+        to the next one in turn (under a lock, so concurrent streams share
+        the devices fairly); ``collect_*`` return each ticket's results,
+        so a stream's results come back in its order.  ``devices`` None:
+        every visible card (on a CPU pipeline, the CPU); a list pins them
+        (a device may repeat).  Returns the replica count.
+        ``replica_uses[i]``: the submits replica i took."""
+        if devices is None:
+            devices = ([torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())]
+                       if self.device.type == "cuda" else [self.device])
+        if not devices:
+            raise ValueError("enable_multi_device_serving: no devices")
+        reps = self._make_replicas(devices)
+        with self._rr_lock:
+            self._replicas, self.replica_uses = reps, [0] * len(reps)
+            self._rr = 0
+        return len(reps)
+
+    def _next_replica(self) -> Optional["PoseEstimationPipeline"]:
+        """The next serving replica, or None without multi-device
+        serving."""
+        if not self._replicas:
+            return None
+        with self._rr_lock:
+            i = self._rr % len(self._replicas)
+            self._rr += 1
+            self.replica_uses[i] += 1
+        return self._replicas[i]
 
     # ---- the staged path --------------------------------------------------
 
@@ -1103,6 +1218,11 @@ class PoseEstimationPipeline:
         ``fused=False`` also the staged path (the match of each slot
         bucket, the 3D stage on each person bucket's rows, or ``persons``
         rows), as the reference's ``warmup`` compiles it."""
+        if self._replicas:
+            for rep in self._replicas:
+                rep.warmup(slots, persons, fused)
+            if fused and persons is None:
+                return
         C, J = self.rig_config.n_cameras, self.rig_config.n_joints
         buckets = [slots] if slots else list(self.slot_buckets)
 
@@ -1131,7 +1251,7 @@ class PoseEstimationPipeline:
         """Swap the serving weights for trees in the JAX package's layout
         (``weights.py``; ``checkpoint.py`` reads them from npz files)
         without rebuilding the pipeline (``mpe3d_tpu/pipeline.py:1063-
-        1160``, without its multi-device part).
+        1160``); the serving and mesh replicas are reloaded too.
 
         The new weights get the construction's serving transform (the
         lifter in this pipeline's ``serve_dtype``: int8 quantised, bf16
@@ -1174,3 +1294,6 @@ class PoseEstimationPipeline:
                                  f"({new} vs current {old})")
         with self._submit_lock:
             self.matcher, self.lifter = matcher, lifter
+        for rep in self._replicas + [r for reps in self._mesh_replicas.values()
+                                     for r in reps]:
+            rep.reload_weights(matcher_tree, lifter_tree)

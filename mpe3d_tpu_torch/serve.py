@@ -236,7 +236,8 @@ class PoseServer:
 
         Trust model: the client names a path the server process can read,
         as on the command line; the server binds localhost by default."""
-        from mpe3d_tpu_torch.checkpoint import (load_lifter_checkpoint,
+        from mpe3d_tpu_torch.checkpoint import (checkpoint_exists,
+                                                load_lifter_checkpoint,
                                                 load_matcher_checkpoint)
 
         if not modelsdir or not isinstance(modelsdir, str):
@@ -246,7 +247,7 @@ class PoseServer:
         mstem = os.path.join(modelsdir, "skeleton_matching")
         lstem = os.path.join(modelsdir, "pose_estimator")
         mtree = ltree = None
-        if os.path.exists(mstem + ".npz"):
+        if checkpoint_exists(mstem):
             mtree, mcfg = load_matcher_checkpoint(mstem,
                                                   self.pipe.matcher.cfg)
             if mcfg != self.pipe.matcher.cfg:
@@ -254,7 +255,7 @@ class PoseServer:
                     f"matcher checkpoint architecture {mcfg} does not "
                     f"match the serving pipeline's {self.pipe.matcher.cfg} "
                     f"(restart the server on the new modelsdir instead)")
-        if os.path.exists(lstem + ".npz"):
+        if checkpoint_exists(lstem):
             ltree, lcfg, prior = load_lifter_checkpoint(lstem,
                                                         self.pipe.lifter.cfg)
             if lcfg != self.pipe.lifter.cfg:

@@ -1,4 +1,4 @@
-"""Matcher (GAT) training on one device.
+"""Matcher (GAT) training, on one device or data-parallel over a mesh.
 
 Port of ``mpe3d_tpu/train/matcher.py`` (:38-425), the reference trainer
 (skeleton_matching/train_skeleton_matching.py:31-58, 158-251): AdamW
@@ -43,11 +43,23 @@ device by ``train/matcher_synth.py``).
   ``scan_epoch``.
 * The best parameters (on an improved dev loss) are kept, and written with
   the optimizer state and the meta ``{epoch, val_loss, matcher_config,
-  train_config, n_slots}`` to an npz checkpoint (``checkpoint.py``).
+  train_config, n_slots}`` to a checkpoint of ``tcfg.checkpoint_backend``
+  (``checkpoint.py``; an orbax save on the saver thread, waited for at
+  the end).
 
 A fresh run initialises from ``weights.random_matcher_tree(cfg, seed)``:
-numpy draws of ``init_matcher``'s family, not ``jax.random``'s numbers.  Meshes and
-orbax checkpoints are refused (ROADMAP.md section 1, item 8).
+numpy draws of ``init_matcher``'s family, not ``jax.random``'s numbers.
+
+``mesh`` (a ``make_mesh()`` of the ranks of a ``torch.distributed``
+world, JAX :242-375): the batch is ``max(batch_size // n_dev * n_dev,
+n_dev)`` scenes; every rank draws (or synthesises on its device) the same
+whole batch from the same generator and scores its contiguous block along
+the data axis, dividing by the whole batch's weight sum, so the blocks'
+losses add up to the batch's; a host batch short of a multiple of n_dev is
+padded with repeats at zero weight (JAX :317-333).  The gradients are
+summed over the data group in one collective a step; dropout masks come
+from a generator of each data rank.  The stop and save decisions are
+rank 0's, broadcast; rank 0 alone logs and saves.
 """
 
 from __future__ import annotations
@@ -59,7 +71,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from mpe3d_tpu_torch.checkpoint import ORBAX_REFUSED, save_checkpoint
+from mpe3d_tpu_torch.checkpoint import save_checkpoint, wait_for_async_saves
 from mpe3d_tpu_torch.config import (MatcherConfig, MatcherTrainConfig,
                                     RigConfig)
 from mpe3d_tpu_torch.geometry.camera import CameraRig
@@ -71,6 +83,8 @@ from mpe3d_tpu_torch.matching.features import (PairTopology,
                                                head_features,
                                                pair_ray_distances)
 from mpe3d_tpu_torch.models.gat import gat_topology, union_topology
+from mpe3d_tpu_torch.parallel.mesh import (data_block, from_rank0, sum_over,
+                                           training_mesh)
 from mpe3d_tpu_torch.train.lifter import Adam
 from mpe3d_tpu_torch.train.matcher_data import MatcherScenes
 from mpe3d_tpu_torch.weights import (matcher_tree, random_matcher_tree,
@@ -78,11 +92,6 @@ from mpe3d_tpu_torch.weights import (matcher_tree, random_matcher_tree,
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-
-MESH_REFUSED = ("train_matcher(mesh=...): data-parallel meshes are not in "
-                "the PyTorch port (ROADMAP.md section 1, item 8: "
-                "parallel/mesh.py -> DDP); it trains on one device")
-
 
 @dataclass
 class MatcherTrainResult:
@@ -111,12 +120,16 @@ def bce_per_element(scores: torch.Tensor,
 
 
 def matcher_loss(scores: torch.Tensor, labels: torch.Tensor,
-                 weight: torch.Tensor, use_bce: bool = False) -> torch.Tensor:
+                 weight: torch.Tensor, use_bce: bool = False,
+                 denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The batch's loss: per-element MSE (or BCE) weighted by the pair
-    multiplicities, over the weight sum (at least 1)."""
+    multiplicities, over the weight sum (at least 1), or over ``denom``
+    (a data-parallel rank's block: the whole batch's)."""
     per = (bce_per_element(scores, labels) if use_bce
            else (scores - labels) ** 2)
-    return torch.sum(per * weight) / torch.clamp(torch.sum(weight), min=1.0)
+    if denom is None:
+        denom = torch.clamp(torch.sum(weight), min=1.0)
+    return torch.sum(per * weight) / denom
 
 
 class MatcherObjective:
@@ -186,15 +199,23 @@ class MatcherObjective:
         return torch.sigmoid(model(x_all, weight.reshape(-1), graph,
                                    generator)).view(B, E)
 
-    def loss(self, model, batch, generator=None) -> torch.Tensor:
+    def loss(self, model, batch, generator=None,
+             block: Optional[tuple] = None) -> torch.Tensor:
         """The loss of one batch (kp, valid, prob, observed, present,
-        labels, weight)."""
+        labels, weight); ``block`` (lo, hi): the part of it that the scenes
+        [lo, hi) add, over the whole batch's weight sum."""
         kp, valid, prob, observed, present, labels, weight = batch
         if self.prune_dist > 0.0:
             weight = self.pruned_weight(kp, valid, observed, weight)
+        denom = None
+        if block is not None:
+            denom = torch.clamp(torch.sum(weight), min=1.0)
+            kp, valid, prob, observed, present, labels, weight = (
+                t[block[0]:block[1]] for t in (kp, valid, prob, observed,
+                                               present, labels, weight))
         scores = self.scores(model, kp, valid, prob, observed, present,
                              weight, generator)
-        return matcher_loss(scores, labels, weight, self.use_bce)
+        return matcher_loss(scores, labels, weight, self.use_bce, denom)
 
 
 def scene_tensors(scenes: MatcherScenes, device, idx=None):
@@ -220,16 +241,22 @@ def train_matcher(train_scenes: Optional[MatcherScenes],
     ``rig``: the FULL rig (numpy or tensors); the matching sub-rig is taken
     here.  ``params`` / ``opt_state``: a previous leg to resume (a
     JAX-layout tree; optimizer leaves or a (count, mu, nu) tree,
-    ``checkpoint.read_optimizer_leaves``).  ``mesh`` (the JAX package's
-    device mesh) is refused."""
+    ``checkpoint.read_optimizer_leaves``).  ``mesh``: a ``make_mesh()`` of
+    the ranks of a ``torch.distributed`` world, ``device`` this rank's
+    device."""
     cfg = cfg or MatcherConfig(in_dim=rig_config.matcher_feature_dim)
     tcfg = tcfg or MatcherTrainConfig()
-    if mesh is not None:
-        raise NotImplementedError(MESH_REFUSED)
-    if tcfg.checkpoint_backend == "orbax":
-        raise NotImplementedError(ORBAX_REFUSED)
+    if tcfg.checkpoint_backend not in ("npz", "orbax"):
+        raise ValueError(f"unknown checkpoint backend: "
+                         f"{tcfg.checkpoint_backend!r}")
     if synth_bank is not None and not tcfg.scan_epoch:
         raise ValueError("synth_bank requires tcfg.scan_epoch")
+    mesh = training_mesh(mesh)
+    n_dev = mesh.size if mesh is not None else 1
+    dp = mesh is not None and mesh.n_data > 1
+    rank0 = mesh is None or mesh.rank == 0
+    if not rank0:
+        log = lambda message: None          # noqa: E731 -- rank 0 logs
     device = torch.device(device)
     obj = MatcherObjective(rig.select(rig_config.matching_camera_indices()),
                            rig_config, topo, cfg, device,
@@ -243,14 +270,34 @@ def train_matcher(train_scenes: Optional[MatcherScenes],
     dropout_on = cfg.feat_drop > 0.0 or cfg.attn_drop > 0.0
     gen = torch.Generator(device=device)
     gen.manual_seed(tcfg.seed + 1)
+    drop_gen = gen
+    if dp:      # the permutation stays shared; each block its own masks
+        drop_gen = torch.Generator(device=device)
+        drop_gen.manual_seed(tcfg.seed + 1 + 1000003 * (mesh.coords[0] + 1))
+
+    def block_loss(batch, generator=None) -> torch.Tensor:
+        if not dp:
+            return obj.loss(model, batch, generator)
+        return obj.loss(model, batch, generator,
+                        block=data_block(mesh, len(batch[0])))
 
     def step(batch) -> torch.Tensor:
-        loss = obj.loss(model, batch, gen if dropout_on else None)
-        grads = torch.autograd.grad(loss, variables)
-        opt.step(list(grads))
+        loss = block_loss(batch, drop_gen if dropout_on else None)
+        grads = list(torch.autograd.grad(loss, variables))
+        if dp:
+            grads = sum_over(mesh.data_group, mesh.n_data, grads)
+        opt.step(grads)
         return loss.detach()
 
-    bs = max(tcfg.batch_size, 1)
+    def data_mean(losses) -> float:
+        if not losses:
+            return 0.0
+        t = torch.stack(losses)
+        if dp:
+            t = sum_over(mesh.data_group, mesh.n_data, [t])[0]
+        return float(t.mean())
+
+    bs = max(tcfg.batch_size // n_dev * n_dev, n_dev)
     if synth_bank is not None:
         from mpe3d_tpu_torch.train.matcher_synth import synth_scenes
         k_batches = max(tcfg.limit // bs, 1)
@@ -275,61 +322,83 @@ def train_matcher(train_scenes: Optional[MatcherScenes],
     def host_batches(scenes: MatcherScenes, rng: np.random.Generator):
         order = rng.permutation(len(scenes))
         for i in range(0, len(order), bs):
-            yield scene_tensors(scenes, device, order[i:i + bs])
+            sel = order[i:i + bs]
+            need = (-len(sel)) % n_dev
+            if not need:
+                yield scene_tensors(scenes, device, sel)
+                continue
+            # padded to a multiple of the mesh by repeats at zero weight
+            extra = order[:need] if len(order) >= need else sel[:need]
+            b = scene_tensors(scenes, device, np.concatenate([sel, extra]))
+            w = b[6].clone()
+            w[len(sel):] = 0.0
+            yield b[:6] + (w,)
 
     def evaluate() -> float:
         with torch.no_grad():
             if dev_t is not None:
-                losses = [obj.loss(model, tuple(t[i * bs:(i + 1) * bs]
-                                                for t in dev_t))
+                losses = [block_loss(tuple(t[i * bs:(i + 1) * bs]
+                                           for t in dev_t))
                           for i in range(k_dev)]
             else:
-                losses = [obj.loss(model, b) for b in
+                losses = [block_loss(b) for b in
                           host_batches(dev_scenes, np.random.default_rng(0))]
-        return (float(torch.stack(losses).mean()) if losses else 0.0)
+        return data_mean(losses)
 
     result = MatcherTrainResult(params=None)
     rng = np.random.default_rng(tcfg.seed)
     best, patience = float("inf"), 0
     t0 = time.time()
-    for epoch in range(tcfg.epochs):
-        if synth_bank is not None:
-            losses = [step(synth_scenes(bank_t, gen, bs))
-                      for _ in range(k_batches)]
-        elif tcfg.scan_epoch and k_batches > 0:
-            perm = torch.randperm(n, generator=gen, device=device)
-            losses = [step(tuple(t[idx] for t in train_t))
-                      for idx in perm[:k_batches * bs].view(k_batches, bs)]
-        else:
-            losses = [step(b) for b in host_batches(train_scenes, rng)]
-        train_loss = (float(torch.stack(losses).mean()) if losses else 0.0)
-
-        if epoch % tcfg.eval_every == 0:
-            val_loss = evaluate()
-            result.history.append({"epoch": epoch, "train_loss": train_loss,
-                                   "val_loss": val_loss,
-                                   "elapsed_s": time.time() - t0})
-            log(f"epoch {epoch:5d} | loss {train_loss:.6f} | "
-                f"val {val_loss:.6f} | patience {patience}")
-            if val_loss < best:
-                best, patience = val_loss, 0
-                result.params = matcher_tree(model)
-                result.best_val_loss = best
-                if checkpoint_path:
-                    save_checkpoint(checkpoint_path, result.params,
-                                    opt_state=opt.state(),
-                                    meta={"epoch": epoch,
-                                          "val_loss": val_loss,
-                                          "matcher_config": cfg,
-                                          "train_config": tcfg,
-                                          "n_slots": topo.n_slots})
+    try:
+        for epoch in range(tcfg.epochs):
+            if synth_bank is not None:
+                losses = [step(synth_scenes(bank_t, gen, bs))
+                          for _ in range(k_batches)]
+            elif tcfg.scan_epoch and k_batches > 0:
+                perm = torch.randperm(n, generator=gen, device=device)
+                losses = [step(tuple(t[idx] for t in train_t))
+                          for idx in perm[:k_batches * bs].view(k_batches,
+                                                                bs)]
             else:
-                patience += 1
-                if patience >= tcfg.patience:
-                    result.epochs_run = epoch + 1     # the epoch did run
-                    break
-        result.epochs_run = epoch + 1
-    if not result.history:
-        result.params = matcher_tree(model)
+                losses = [step(b) for b in host_batches(train_scenes, rng)]
+            train_loss = data_mean(losses)
+
+            if epoch % tcfg.eval_every == 0:
+                val_loss = evaluate()
+                result.history.append({"epoch": epoch,
+                                       "train_loss": train_loss,
+                                       "val_loss": val_loss,
+                                       "elapsed_s": time.time() - t0})
+                log(f"epoch {epoch:5d} | loss {train_loss:.6f} | "
+                    f"val {val_loss:.6f} | patience {patience}")
+                improved = val_loss < best
+                give_up = not improved and patience + 1 >= tcfg.patience
+                improved, give_up = (bool(v) for v in from_rank0(
+                    mesh, [improved, give_up], device))
+                if improved:
+                    best, patience = val_loss, 0
+                    result.params = matcher_tree(model)
+                    result.best_val_loss = best
+                    if checkpoint_path and rank0:
+                        save_checkpoint(checkpoint_path, result.params,
+                                        opt_state=opt.state(),
+                                        meta={"epoch": epoch,
+                                              "val_loss": val_loss,
+                                              "matcher_config": cfg,
+                                              "train_config": tcfg,
+                                              "n_slots": topo.n_slots},
+                                        backend=tcfg.checkpoint_backend,
+                                        wait=False)
+                else:
+                    patience += 1
+                    if give_up:
+                        result.epochs_run = epoch + 1   # the epoch did run
+                        break
+            result.epochs_run = epoch + 1
+        if not result.history:
+            result.params = matcher_tree(model)
+    finally:
+        if rank0:
+            wait_for_async_saves()      # a failed save must not pass
     result.opt_state = opt.state()
     return result

@@ -1,1 +1,2 @@
-"""Utilities of the command line: the profiler trace."""
+"""Utilities: the JSONL event log, the numerics guard, the profiler
+trace."""

@@ -235,9 +235,19 @@ def test_batch_plan_follows_the_configuration(trees):
 
 
 def test_infer_batch_mesh_raises(trees, wire):
+    """``mesh`` (refused before) splits the batch: over a one-device mesh
+    the unsplit call's results (``tests/test_torch_multidevice.py`` holds
+    two devices to JAX); a mesh that is no ``Mesh`` raises."""
+    from mpe3d_tpu_torch.parallel.mesh import make_mesh
+
     port = _port(trees)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.infer_batch([parse_frame(wire[0], PANOPTIC, 4)], mesh=object())
+    frames = [parse_frame(w, PANOPTIC, 4) for w in wire[:3]]
+    with pytest.raises(TypeError, match="make_mesh"):
+        port.infer_batch(frames[:1], mesh=object())
+    split = port.infer_batch(frames, mesh=make_mesh(devices=["cpu"]))
+    for a, b in zip(split, port.infer_batch(frames)):
+        np.testing.assert_array_equal(a.persons, b.persons)
+        np.testing.assert_array_equal(a.scores, b.scores)
     assert port.infer_batch([]) == []
     with pytest.raises(ValueError, match="no frames"):
         port.submit_batch([])

@@ -9,7 +9,8 @@ must give the JAX ``cmd_infer``'s records; the tolerances are those of
 the triangulation backend (median, IRLS) and with geo rerank / rescue, and
 ``serve --batch-window 3``, and ``serve`` / ``infer`` with ``--rig
 ARPLAB`` on ``models_demo/arp_irls`` (int8 lifter, IRLS prior).  Every
-option the port does not have is refused with its ROADMAP.md item, and without a card and without ``--cpu``
+option without meaning in the port is refused, ``serve --multi-device``
+serves as ``serve`` does, and without a card and without ``--cpu``
 the command fails instead of serving on the CPU.  The evaluation and
 training commands print the JAX CLI's numbers; ``train-matcher`` tracks
 the JAX CLI's epoch lines; ``convert-torch`` / ``export-torch`` and
@@ -102,7 +103,6 @@ def test_infer_matches_jax_cmd_infer(wire_lines, tmp_path):
 
 
 @pytest.mark.parametrize("args, message", [
-    (["serve", "--multi-device"], "item 6"),
     (["serve", "--no-pallas-matcher"], "no meaning"),
     (["serve", "--fused-mlp"], "no meaning"),
     (["infer", "--fused-mlp", "--testfiles", "f.json"], "no meaning"),
@@ -112,6 +112,24 @@ def test_unported_options_are_refused(args, message):
         cli.main([*args, "--cpu", "--modelsdir", DEMO])
     assert "not in the PyTorch port" in str(e.value.code)
     assert message in str(e.value.code)
+
+
+def test_serve_multi_device_matches_single_device(wire_lines):
+    """``serve --multi-device`` (refused before): on the CPU one replica,
+    the depth raised to twice the replica count, and the records of
+    ``serve`` without it, timing apart."""
+    lines = "\n".join(wire_lines[:4]) + "\n"
+    one = _run_port(["serve", "--cpu", "--modelsdir", DEMO], lines)
+    multi = _run_port(["serve", "--cpu", "--modelsdir", DEMO,
+                       "--multi-device", "--depth", "1"], lines)
+    assert multi.returncode == 0, multi.stderr
+    assert "round-robin serving over 1 devices (depth 2)" in multi.stderr
+    got = [json.loads(l) for l in multi.stdout.splitlines()]
+    want = [json.loads(l) for l in one.stdout.splitlines()]
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        g.pop("latency_ms"), w.pop("latency_ms")
+        assert g == w
 
 
 @pytest.fixture(scope="module")
@@ -376,7 +394,8 @@ def test_train_lifter_matches_jax_cli(eval_dir, capsys, tmp_path):
     command lines, one batch an epoch (so the shuffles agree): the epoch
     lines within 1e-3 relative; the port's checkpoint loads in JAX and
     serves ``metrics-from-model``; ``--optimise-matrices`` writes
-    ``refined_rig.npz``; the refusals and the resume checks."""
+    ``refined_rig.npz``; the resume checks; ``--ckpt-backend orbax``
+    (refused before) writes a checkpoint the JAX command line reads."""
     from mpe3d_tpu.geometry.camera import load_rig_npz as j_load_rig
 
     runs = {}
@@ -417,11 +436,16 @@ def test_train_lifter_matches_jax_cli(eval_dir, capsys, tmp_path):
              "no checkpoint"),
             (["--modelsdir", str(tmp_path / "p"), "--resume", "--prior",
               "irls"], "prior=mean"),
-            (["--modelsdir", str(d), "--ckpt-backend", "orbax"], "item 8"),
             (["--modelsdir", DEMO, "--resume"], "serving-only")):
         with pytest.raises(SystemExit) as e:
             cli.main([*base, *extra])
         assert message in str(e.value.code)
+    ox = tmp_path / "ox"
+    cli.main([*base, "--modelsdir", str(ox), "--ckpt-backend", "orbax",
+              "--epochs", "1", "--batch-size", "80"])
+    assert (ox / "pose_estimator.orbax").is_dir()
+    lparams = jcli.load_models(str(ox), J_PANOPTIC)[2]
+    assert len(lparams["layers"]) == 9
 
 
 @pytest.mark.parametrize("command", ["show-results", "convert-panoptic"])
@@ -519,7 +543,8 @@ def test_train_matcher_matches_jax_cli(eval_dir, capsys, tmp_path):
     shuffles agree; the JAX CLI's 8 virtual devices make its batch 8): the
     epoch lines and the test-set MSE within 1e-3 relative; the port's
     checkpoint is read by the JAX CLI's ``load_models``; ``--device-synth``
-    trains; the refusals."""
+    trains; a missing checkpoint fails; ``--ckpt-backend orbax`` (refused
+    before) writes a checkpoint the JAX command line reads."""
     files = [str(eval_dir / "train.json"), str(eval_dir / "dev.json")]
     runs = {}
     for name, main in (("p", cli.main), ("j", jcli.main)):
@@ -553,13 +578,15 @@ def test_train_matcher_matches_jax_cli(eval_dir, capsys, tmp_path):
     assert "device-synth bank" in out and (d / "skeleton_matching.npz").exists()
     base = ["train-matcher", "--cpu", "--trainset", *files, "--devset",
             files[1]]
-    for extra, message in (
-            (["--modelsdir", str(tmp_path / "none"), "--resume"],
-             "no checkpoint"),
-            (["--modelsdir", str(d), "--ckpt-backend", "orbax"], "item 8")):
-        with pytest.raises(SystemExit) as e:
-            cli.main([*base, *extra])
-        assert message in str(e.value.code)
+    with pytest.raises(SystemExit) as e:
+        cli.main([*base, "--modelsdir", str(tmp_path / "none"), "--resume"])
+    assert "no checkpoint" in str(e.value.code)
+    # --ckpt-backend orbax (refused before): the JAX command line reads it
+    cli.main([*base, "--modelsdir", str(d), "--ckpt-backend", "orbax",
+              "--epochs", "1", "--limit", "8"])
+    assert (d / "skeleton_matching.orbax").is_dir()
+    assert not (d / "skeleton_matching.npz").exists()
+    assert len(jcli.load_models(str(d), J_PANOPTIC)[0]["layers"]) == 5
 
 
 def test_convert_and_export_torch_match_jax_cli(eval_dir, tmp_path):

@@ -1,4 +1,6 @@
-"""The PyTorch port and chip_smoke.py import neither JAX nor the JAX package."""
+"""The PyTorch port and chip_smoke.py import neither JAX nor the JAX package,
+nor orbax or tensorstore (the card's machine has no tensorstore: the port
+reads and writes orbax checkpoints itself)."""
 
 import os
 import re
@@ -19,13 +21,14 @@ def _sources():
 
 
 def test_imports_without_jax_or_reference_package():
-    """Every module imports with jax, mpe3d_tpu, cv2 and matplotlib
-    blocked (the conversor reads images with OpenCV and the GIF viewer
-    draws with matplotlib only when called); importing chip_smoke as a
-    module does not run its main."""
+    """Every module imports with jax, mpe3d_tpu, orbax, tensorstore, cv2
+    and matplotlib blocked (the conversor reads images with OpenCV and the
+    GIF viewer draws with matplotlib only when called); importing
+    chip_smoke as a module does not run its main."""
     code = r"""
 import importlib, importlib.util, pkgutil, sys
-for blocked in ("jax", "mpe3d_tpu", "cv2", "matplotlib"):
+for blocked in ("jax", "mpe3d_tpu", "orbax", "tensorstore", "cv2",
+                "matplotlib"):
     sys.modules[blocked] = None
 sys.path.insert(0, sys.argv[1])
 import mpe3d_tpu_torch
@@ -55,15 +58,17 @@ for n in ("mpe3d_tpu_torch.ops.gat_tiled", "mpe3d_tpu_torch.ops.gat_kernel",
           "mpe3d_tpu_torch.convert.pose_resnet",
           "mpe3d_tpu_torch.convert.panoptic",
           "mpe3d_tpu_torch.viz.viewer", "mpe3d_tpu_torch.viz.html_viewer",
-          "mpe3d_tpu_torch.viz.live_viewer"):
+          "mpe3d_tpu_torch.viz.live_viewer",
+          "mpe3d_tpu_torch.checkpoint_orbax",
+          "mpe3d_tpu_torch.parallel.mesh"):
     assert n in names, n
 spec = importlib.util.spec_from_file_location("chip_smoke",
                                               sys.argv[1] + "/chip_smoke.py")
 mod = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mod)
 assert callable(mod.main)
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "mpe3d_tpu",
-                                                     "cv2", "matplotlib")]
+bad = [m for m in sys.modules if m.split(".")[0] in (
+    "jax", "mpe3d_tpu", "orbax", "tensorstore", "cv2", "matplotlib")]
 assert all(sys.modules[m] is None for m in bad), bad
 print("imported", len(names))
 """
@@ -77,7 +82,8 @@ print("imported", len(names))
 
 IMPORT_RE = re.compile(
     r"^\s*(?:import\s+jax\b|from\s+jax\b|import\s+mpe3d_tpu\b(?!_torch)"
-    r"|from\s+mpe3d_tpu\b(?!_torch))", re.M)
+    r"|from\s+mpe3d_tpu\b(?!_torch)|(?:import|from)\s+(?:orbax|tensorstore)\b)",
+    re.M)
 
 
 @pytest.mark.parametrize("path", _sources())

@@ -16,6 +16,8 @@ both sides take the same batches.
 """
 
 import dataclasses
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -215,19 +217,42 @@ def test_train_lifter_optimise_matrices_and_bf16_track_jax(data, init):
                                rtol=BF16_RTOL)
 
 
-def test_train_lifter_refuses_mesh_and_orbax(data, init):
+def test_train_lifter_refuses_mesh_and_orbax(data, init, tmp_path):
+    """What was refused now trains: a one-device mesh trains as no mesh,
+    a mesh of two local devices asks for a ``torch.distributed`` world
+    (the port trains one process a device; ``tests/test_torch_parallel.py``
+    holds the worlds to JAX), and the orbax backend trains with saves on
+    the saver thread: the checkpoint JAX loads is the result."""
+    from mpe3d_tpu_torch.parallel.mesh import make_mesh as p_mesh
+
     net, err, nd, ed = data
     args = (net, err, nd, ed, PANOPTIC, synthetic_ring_rig(PANOPTIC),
             LifterConfig(widths=WIDTHS))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train_lifter(*args, LifterTrainConfig(**TRAIN), mesh=object(),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train_lifter(*args, LifterTrainConfig(**TRAIN,
-                                              checkpoint_backend="orbax"),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ckpt.save_checkpoint("/nonexistent/x", init, backend="orbax")
+    quiet = dict(params=init, log=lambda s: None, device="cpu")
+    one = train_lifter(*args, LifterTrainConfig(**TRAIN),
+                       mesh=p_mesh(devices=["cpu"]), **quiet)
+    plain = train_lifter(*args, LifterTrainConfig(**TRAIN), **quiet)
+    np.testing.assert_array_equal(_losses(one.history),
+                                  _losses(plain.history))
+    with pytest.raises(ValueError, match="torchrun"):
+        train_lifter(*args, LifterTrainConfig(**TRAIN),
+                     mesh=p_mesh(devices=["cpu", "cpu"]), **quiet)
+    stem = str(tmp_path / "pose_estimator")
+    res = train_lifter(*args, LifterTrainConfig(
+        **TRAIN, checkpoint_backend="orbax", save_rel_improve=0.0),
+        checkpoint_path=stem, **quiet)
+    assert os.path.isdir(stem + ".orbax") and not os.path.exists(
+        stem + ".npz")
+    np.testing.assert_array_equal(_losses(res.history),
+                                  _losses(plain.history))
+    loaded, _, meta = jckpt.load_checkpoint(
+        stem, init_lifter(jax.random.PRNGKey(1), JLifterConfig(
+            widths=WIDTHS)))
+    for a, b in zip(jax.tree_util.tree_leaves(loaded),
+                    ckpt.flatten_tree(res.params)):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    assert meta["train_config"]["checkpoint_backend"] == "orbax"
+    assert meta["val_loss"] == res.best_val_loss
 
 
 def test_checkpoints_cross_load_and_resume(data, init, tmp_path):
@@ -301,3 +326,43 @@ def test_checkpoints_cross_load_and_resume(data, init, tmp_path):
                      opt_state=leaves[:3], device="cpu")
     assert ckpt.checkpoint_exists(stem)
     assert not ckpt.checkpoint_exists(str(tmp_path / "none"))
+
+
+def test_jsonl_logger_and_nan_debugging_match_jax(data, init, tmp_path,
+                                                  capsys):
+    """``utils/logging.py``: ``JsonlLogger`` as ``train_lifter``'s log
+    writes the records (and prints the lines) JAX's logger writes for the
+    same events, the time apart; ``enable_nan_debugging`` makes a backward
+    pass through a NaN raise."""
+    from mpe3d_tpu.utils import logging as jlog
+    from mpe3d_tpu_torch.utils import logging as plog
+
+    net, err, nd, ed = data
+    got = plog.JsonlLogger(str(tmp_path / "p" / "run.jsonl"), run="lifter")
+    train_lifter(net, err, nd, ed, PANOPTIC, synthetic_ring_rig(PANOPTIC),
+                 LifterConfig(widths=WIDTHS),
+                 LifterTrainConfig(**{**TRAIN, "epochs": 2}), params=init,
+                 log=got, device="cpu")
+    got.event("done", loss=0.25, epochs=2)
+    got.close()
+    printed = capsys.readouterr().out
+    lines = (tmp_path / "p" / "run.jsonl").read_text().splitlines()
+    recs = [json.loads(line) for line in lines]
+    assert [r["kind"] for r in recs] == ["log", "log", "done"]
+    ref = jlog.JsonlLogger(str(tmp_path / "j.jsonl"), run="lifter")
+    for r in recs:
+        ref.event(r["kind"], **{k: v for k, v in r.items()
+                                if k not in ("t", "kind", "run")})
+    ref.close()
+    want = [json.loads(line) for line in
+            (tmp_path / "j.jsonl").read_text().splitlines()]
+    assert [{k: v for k, v in r.items() if k != "t"} for r in recs] == \
+        [{k: v for k, v in r.items() if k != "t"} for r in want]
+    assert printed.splitlines()[-1] == "[done] loss=0.25 epochs=2"
+    plog.enable_nan_debugging()
+    try:
+        x = torch.tensor([0.0], requires_grad=True)
+        with pytest.raises(RuntimeError, match="nan"):
+            torch.sqrt(x * float("nan")).sum().backward()
+    finally:
+        torch.autograd.set_detect_anomaly(False)

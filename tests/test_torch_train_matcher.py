@@ -377,14 +377,36 @@ def test_dropout_semantics(scenes):
                                rtol=0)
 
 
-def test_train_matcher_refuses_meshes_and_orbax(scenes):
+def test_train_matcher_refuses_meshes_and_orbax(scenes, tmp_path):
+    """What was refused now trains: a one-device mesh as no mesh, a mesh
+    of two local devices asks for a ``torch.distributed`` world
+    (``tests/test_torch_parallel.py`` holds the worlds to JAX), and the
+    orbax backend writes the best parameters and optimizer state, which
+    JAX's ``load_checkpoint`` reads."""
+    from mpe3d_tpu_torch.parallel.mesh import make_mesh as p_mesh
+
     cfg = MatcherConfig(in_dim=PANOPTIC.matcher_feature_dim, **NARROW)
     rig = synthetic_ring_rig(PANOPTIC)
     topo = build_topology(5, 4)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train_matcher(*scenes, PANOPTIC, rig, topo, cfg, mesh=object(),
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train_matcher(*scenes, PANOPTIC, rig, topo, cfg,
-                      MatcherTrainConfig(checkpoint_backend="orbax"),
-                      device="cpu")
+    init = random_matcher_tree(cfg, 3)
+    tcfg = MatcherTrainConfig(**TRAIN)
+    quiet = dict(params=init, log=lambda s: None, device="cpu")
+    one = train_matcher(*scenes, PANOPTIC, rig, topo, cfg, tcfg,
+                        mesh=p_mesh(devices=["cpu"]), **quiet)
+    plain = train_matcher(*scenes, PANOPTIC, rig, topo, cfg, tcfg, **quiet)
+    assert _losses(one) == _losses(plain)
+    with pytest.raises(ValueError, match="torchrun"):
+        train_matcher(*scenes, PANOPTIC, rig, topo, cfg, tcfg,
+                      mesh=p_mesh(devices=["cpu", "cpu"]), **quiet)
+    stem = str(tmp_path / "skeleton_matching")
+    res = train_matcher(*scenes, PANOPTIC, rig, topo, cfg,
+                        dataclasses.replace(tcfg, checkpoint_backend="orbax"),
+                        checkpoint_path=stem, **quiet)
+    assert _losses(res) == _losses(plain)
+    tmpl = init_matcher(jax.random.PRNGKey(0), _jcfg(cfg))
+    loaded, opt, meta = jckpt.load_checkpoint(
+        stem, tmpl, optax.adamw(1e-3).init(tmpl))
+    for a, b in zip(jax.tree_util.tree_leaves(loaded),
+                    ckpt.flatten_tree(res.params)):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    assert opt is not None and meta["val_loss"] == res.best_val_loss
