@@ -1,0 +1,136 @@
+"""A run's last lines, the imports a run may load, and a cell added as
+files and manifest entries only."""
+
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+from portbench.cell import HERE, ROOT
+
+ENV = dict(os.environ, PYTHONPATH=ROOT)
+
+
+def _run(args, cwd=ROOT, env=ENV, timeout=600):
+    return subprocess.run([sys.executable, "-m", "portbench", *args],
+                          cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+def test_last_line(trace):
+    p = _run(["--workload", "panoptic.batch_s4", "--seed", "4294967301",
+              "--seconds", "1", "--trace", str(trace), "--cpu"])
+    assert p.returncode == 0, p.stderr[-2000:]
+    out = json.loads(p.stdout.strip().splitlines()[-1])
+    for k in ("correct", "attempted", "failed", "metrics", "device"):
+        assert k in out
+    assert list(out)[-1] == "checks"
+    assert set(out["checks"]) == {"score_gap", "decode_miss", "pose_gap",
+                                  "quality_gap"}
+    for v in out["checks"].values():
+        assert set(v) == {"value", "limit"}
+    assert set(out["device"]) >= {"platform", "kind", "count",
+                                  "memory_peak_bytes"}
+    err = p.stderr.strip().splitlines()
+    assert all(line.startswith("check ") for line in err[-4:])
+    if trace:
+        assert {"busy_s", "window_s"} <= set(out["device"])
+        assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
+        assert "submit_ms.batch" in out["metrics"]
+    else:
+        assert set(out["metrics"]) == {"frames_per_s", "batch_p95_ms",
+                                       "setup_s"}
+
+
+def test_no_card_no_result():
+    p = _run(["--workload", "panoptic.batch_s4", "--seed", "1", "--seconds",
+              "1", "--trace", "0"])
+    assert p.returncode != 0
+    assert p.stdout.strip() == ""
+
+
+def test_only_manifest_and_paths_is_not_enough(tmp_path):
+    shutil.copytree(HERE, tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__", ".cache"))
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), tmp_path)
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    p = _run(["--workload", "panoptic.batch_s4", "--seed", "1", "--seconds",
+              "1", "--trace", "0", "--cpu"], cwd=tmp_path, env=env)
+    assert p.returncode != 0 and p.stdout.strip() == ""
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_imports_by_whole_top_level_name():
+    sources = [os.path.join(d, f) for d, _, fs in os.walk(HERE)
+               for f in fs if f.endswith(".py")]
+    for path in sources:
+        tops = {m.split(".")[0] for m in _imports(path)}
+        assert not tops & {"jax", "jaxlib", "flax", "mpe3d_tpu"}, path
+        rel = os.path.relpath(path, HERE)
+        if "mpe3d_tpu_torch" in tops:
+            assert rel in ("program.py",) or rel.startswith("tests"), rel
+    code = ("import sys, portbench.reference.pose, "
+            "portbench.reference.lifter_train, portbench.reference.geometry;"
+            "print(sorted({m.split('.')[0] for m in sys.modules}))")
+    p = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
+                       capture_output=True, text=True, timeout=120)
+    loaded = set(json.loads(p.stdout.replace("'", '"')))
+    assert not loaded & {"mpe3d_tpu_torch", "mpe3d_tpu", "jax", "jaxlib",
+                         "flax"}
+
+
+def test_a_cell_added_as_files_only(tmp_path):
+    """A new mix, limits, per-layer metric and cell: new files and new
+    manifest entries, no existing file edited."""
+    root = tmp_path
+    shutil.copytree(HERE, root / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__", ".cache"))
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        man = json.load(f)
+    before = {p: open(p, "rb").read() for p in
+              (str(q) for q in (root / "portbench").rglob("*") if q.is_file())}
+    mix = json.load(open(os.path.join(HERE, "traffic", "batch_s4.json")))
+    mix.update(people=[3, 3], why="three people a frame")
+    (root / "portbench/traffic/batch_s4_three.json").write_text(
+        json.dumps(mix))
+    (root / "portbench/limits/panoptic.batch_s4_three.json").write_text(
+        open(os.path.join(HERE, "limits", "panoptic.batch_s4.json")).read())
+    (root / "portbench/metrics/persons_per_frame.batch.py").write_text(
+        "def read(ctx):\n"
+        "    n = len(ctx['persons'])\n"
+        "    return float(ctx['persons'].sum()) / n if n else None\n")
+    man["workloads"].append({"name": "panoptic.batch_s4_three",
+                             "config": "panoptic", "traffic": "batch_s4_three",
+                             "chips": 1, "why": "three people a frame"})
+    for m in man["end_to_end"]:
+        if "workloads" in m and "panoptic.batch_s4" in m["workloads"]:
+            m["workloads"].append("panoptic.batch_s4_three")
+    man["per_layer"].append({"name": "persons_per_frame.batch",
+                             "unit": "persons", "better": "higher",
+                             "source": "program_counter",
+                             "layer": "decode + gather + pack",
+                             "moves": "frames_per_s",
+                             "workloads": ["panoptic.batch_s4_three"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(man))
+    for p, data in before.items():
+        assert open(p, "rb").read() == data
+    env = dict(os.environ, PYTHONPATH=f"{root}{os.pathsep}{ROOT}")
+    p = _run(["--workload", "panoptic.batch_s4_three", "--seed", "8",
+              "--seconds", "1", "--trace", "1", "--cpu"], cwd=root, env=env)
+    assert p.returncode == 0, p.stderr[-2000:]
+    out = json.loads(p.stdout.strip().splitlines()[-1])
+    assert out["correct"]
+    assert out["metrics"]["persons_per_frame.batch"]["value"] > 0
