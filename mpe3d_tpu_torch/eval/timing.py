@@ -1,11 +1,11 @@
 """Timed sections of the evaluation runners: the reference's t_pp / t_3Dg /
 t_3Di metrics (test/metrics_from_model.py:178-235, 296-300, 386-390).
 
-Port of ``mpe3d_tpu/eval/timing.py``.  Each span is also a
-``torch.profiler.record_function`` range, so it names its region in a
-profiler trace.  A span is wall-clock time on the host: it ends where its
-body returns, which in the runners is after the host readback of the
-body's results.
+Port of ``mpe3d_tpu/eval/timing.py``.  Each span opens a
+``utils/trace.py`` span of the same name, so under a profiler it names
+its region in the trace and lands in the port's span buffer.  A span is
+wall-clock time on the host: it ends where its body returns, which in
+the runners is after the host readback of the body's results.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import time
 from contextlib import contextmanager
 from typing import Dict
 
-import torch
+from mpe3d_tpu_torch.utils import trace
 
 
 class TimingAccumulator:
@@ -27,7 +27,7 @@ class TimingAccumulator:
 
     @contextmanager
     def span(self, name: str, n_items: int = 1):
-        with torch.profiler.record_function(name):
+        with trace.span(name):
             t0 = time.perf_counter()
             yield
             dt = time.perf_counter() - t0

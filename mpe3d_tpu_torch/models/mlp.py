@@ -44,6 +44,7 @@ from mpe3d_tpu_torch.ops.fused_mlp import (Fp32Layer, Int8Layer,
                                            fused_mlp_forward,
                                            pack_fp32_layer, pack_int8_layer,
                                            pack_layer)
+from mpe3d_tpu_torch.utils import trace
 
 NUMBERS_PER_JOINT = 14
 
@@ -174,7 +175,9 @@ class Lifter(nn.Module):
         return super()._apply(fn, *args, **kwargs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [M, in_dim] packed inputs (fp32) -> [M, out_dim] decameters."""
+        """x [M, in_dim] packed inputs (fp32) -> [M, out_dim] decameters.
+        Counts the M rows under ``lifter.rows`` (``utils/trace.py``)."""
+        trace.count("lifter.rows", x.shape[0])
         h = fused_mlp_forward(x, self.packed_layers(),
                               self.cfg.negative_slope, self.cfg.out_dim)
         if self.cfg.residual_prior:

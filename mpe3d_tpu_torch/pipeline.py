@@ -99,6 +99,21 @@ in turn; every replica launches under its own device
 as the kernels' caches are per device.  ``infer_batch(mesh=...)`` splits
 the frame axis over a mesh's devices the same way.
 
+Spans (``utils/trace.py``; recorded only while a ``torch.profiler``
+session runs, as ``infer --profile-trace`` starts one): ``batch.submit``
+(the whole ``submit_batch``, lock wait included; its key is the
+pipeline's submit sequence number, which the ticket carries) holds
+``batch.pack`` (stacking, padding, staging and upload), each chunk's
+``chunk.features`` (``_gat_inputs``), ``chunk.gat`` (the matcher and the
+sigmoid), ``chunk.decode`` (the decode kernel and its arguments; on the
+eager body the decode and the person gather), ``chunk.lifter`` (the 3D
+backend; on the eager body with its packing) and ``chunk.quality`` (the
+quality column, the person mask, the views), and ``batch.download`` (the
+output concatenation and the pinned download); ``batch.collect`` is the
+whole ``collect_batch`` under the ticket's key.  The frame path has the
+same stages under ``frame.submit`` (``frame.pack``, ``frame.download``)
+and ``frame.collect``.
+
 The GAT is true fp32: TF32 is switched off for matmuls and convolutions at
 import, because rounded operands change decodes (RESULTS.md:1265-1271,
 1369-1377).
@@ -108,6 +123,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import os
 import sys
 import threading
@@ -149,6 +165,7 @@ from mpe3d_tpu_torch.ops.frame_kernel import (cam_consts, cam_to_world,
                                               frame_kernel_supported)
 from mpe3d_tpu_torch.ops.gat_kernel import MAX_D, GatTopology
 from mpe3d_tpu_torch.ops.gat_tiled import MAX_HEADS, MAX_PAIRS
+from mpe3d_tpu_torch.utils import trace
 from mpe3d_tpu_torch.weights import lifter_from_tree, matcher_from_tree
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -406,6 +423,8 @@ class PoseEstimationPipeline:
         # serialises submits (their launches share cached scratch) and the
         # weight swap of reload_weights
         self._submit_lock = threading.Lock()
+        # the sequence number of each submit (the key of its spans)
+        self._seq = itertools.count()
         # multi-device serving: the replicas submits go to in turn, and
         # infer_batch(mesh=...)'s replicas by mesh
         self._replicas: List["PoseEstimationPipeline"] = []
@@ -615,17 +634,25 @@ class PoseEstimationPipeline:
         the GAT topology, or the alt-1 graph)."""
         b = self._bucket_state(S)
         if b.form != "alt1":
-            x_all, pmask, gtopo, _, _ = self._gat_inputs(
-                S, *(a[None] for a in (kp, valid, prob, observed, present)))
-            return self._scores(b, x_all, pmask, gtopo), pmask, x_all, gtopo
+            with trace.span("chunk.features"):
+                x_all, pmask, gtopo, _, _ = self._gat_inputs(
+                    S, *(a[None] for a in (kp, valid, prob, observed,
+                                           present)))
+            with trace.span("chunk.gat"):
+                return (self._scores(b, x_all, pmask, gtopo), pmask, x_all,
+                        gtopo)
         ms = self._match_sel
-        feats, live = alt1_node_features(
-            kp[ms], valid[ms], prob[ms], observed[ms], present[ms],
-            self.image_size, self.rig_config.joint_format)
-        pmask = pair_mask_from_present(present[ms], b.gtopo.e1, b.gtopo.e2)
-        x_all = torch.cat([feats, b.efeats])
-        scores = apply_matcher_alt1(self.matcher, x_all, live, pmask, b.alt1)
-        return scores * pmask, pmask, x_all, b.alt1
+        with trace.span("chunk.features"):
+            feats, live = alt1_node_features(
+                kp[ms], valid[ms], prob[ms], observed[ms], present[ms],
+                self.image_size, self.rig_config.joint_format)
+            pmask = pair_mask_from_present(present[ms], b.gtopo.e1,
+                                           b.gtopo.e2)
+            x_all = torch.cat([feats, b.efeats])
+        with trace.span("chunk.gat"):
+            scores = apply_matcher_alt1(self.matcher, x_all, live, pmask,
+                                        b.alt1)
+            return scores * pmask, pmask, x_all, b.alt1
 
     def _geo_decode_scores(self, scores, kp, valid, observed, topo):
         """(eligibility scores, order scores or None) of the decode under
@@ -660,36 +687,44 @@ class PoseEstimationPipeline:
             self.threshold, self._p_max(S), top_k=self._decode_top_k_eff,
             order_scores=order)
 
-    def _lift_rows(self, pkp, pval, pprob, pobs):
+    def _lift_rows(self, pkp, pval, pprob, pobs, person_mask=None):
         """The 3D backend on P person rows of gathered observations:
         (poses [P, J, 3] metres, joint ok [P, J] or None, quality [P],
         lifter input [P, F] or None).  The triangulation backend's quality
-        leaves out the joints it could not reconstruct."""
+        leaves out the joints it could not reconstruct.  ``person_mask``
+        [P] zeroes the poses of empty person slots after the quality."""
         J = self.rig_config.n_joints
-        if self.backend == "triangulation":
-            tri = (triangulate_irls if self.tri_variant == "irls"
-                   else triangulate_median_filtered)
-            poses, ok = tri(pkp, pobs.to(pkp.dtype), self.used_rig)
-            return poses, ok, pose_quality_px(poses, pkp, pval, pobs,
-                                              self.used_rig, ok), None
-        nets, _ = pack_lifter_input(pkp, pval, pprob, pobs, self.used_rig,
-                                    self.image_size, prior=self.lifter_prior,
-                                    prior_gate_px=self.prior_gate_px)
-        poses = self.lifter(nets).reshape(pkp.shape[0], J, 3) * 10.0
-        return poses, None, pose_quality_px(poses, pkp, pval, pobs,
-                                            self.used_rig), nets
+        ok = nets = None
+        with trace.span("chunk.lifter"):
+            if self.backend == "triangulation":
+                tri = (triangulate_irls if self.tri_variant == "irls"
+                       else triangulate_median_filtered)
+                poses, ok = tri(pkp, pobs.to(pkp.dtype), self.used_rig)
+            else:
+                nets, _ = pack_lifter_input(
+                    pkp, pval, pprob, pobs, self.used_rig, self.image_size,
+                    prior=self.lifter_prior,
+                    prior_gate_px=self.prior_gate_px)
+                poses = self.lifter(nets).reshape(pkp.shape[0], J, 3) * 10.0
+        with trace.span("chunk.quality"):
+            quality = pose_quality_px(poses, pkp, pval, pobs, self.used_rig,
+                                      ok)
+            if person_mask is not None:
+                poses = poses * person_mask[:, None, None]
+        return poses, ok, quality, nets
 
     @torch.inference_mode()
     def _run(self, S: int, kp, valid, prob, observed, present):
         b = self._bucket_state(S)
         scores, pmask, x_all, _ = self._match_scores(S, kp, valid, prob,
                                                      observed, present)
-        persons, person_mask = self._decode(S, scores, pmask, kp, valid,
-                                            observed)
-        pkp, pval, pprob, pobs = self._person_obs(persons, kp, valid, prob,
-                                                  observed)
-        poses, _, quality, nets = self._lift_rows(pkp, pval, pprob, pobs)
-        poses = poses * person_mask[:, None, None]
+        with trace.span("chunk.decode"):
+            persons, person_mask = self._decode(S, scores, pmask, kp, valid,
+                                                observed)
+            pkp, pval, pprob, pobs = self._person_obs(persons, kp, valid,
+                                                      prob, observed)
+        poses, _, quality, nets = self._lift_rows(pkp, pval, pprob, pobs,
+                                                  person_mask)
         return ((poses, persons.to(torch.int32), person_mask, scores,
                  quality), (x_all, pmask, b.gtopo, nets))
 
@@ -779,29 +814,34 @@ class PoseEstimationPipeline:
         decode kernel's (positional, keyword) arguments)."""
         b = self._bucket_state(S)
         n, E, P = kp.shape[0], b.topo.n_pairs, self._p_max(S)
-        x, pw, gtopo, pairs, idx = self._gat_inputs(S, kp, valid, prob,
-                                                    observed, present, prune)
-        scores = self._scores(b, x, pw, gtopo)
-        bufs = (kp, valid, prob, observed)
-        if n == 1:
-            bufs = tuple(a[0] for a in bufs)
-        else:
-            scores, pw = scores.view(n, E), pw.view(n, E)
-        args, kw = self._frame_decode_args(S, scores, pw, *bufs, pairs)
-        f = frame_decode_pack(*args, **kw)
-        # the residual prior (fields 11-13 of camera block 0) is added in
-        # Lifter.forward
-        poses = self.lifter(f.net).reshape(n * P, -1, 3) * 10.0
-        quality = pose_quality_px(poses, f.kp, f.valid, f.observed,
-                                  self.used_rig)
-        poses = poses * f.person_mask[:, None, None]
-        if idx is not None:
-            scores = torch.zeros(E, dtype=scores.dtype,
-                                 device=scores.device).index_copy(0, idx,
-                                                                  scores)
-        return ((poses.view(n, P, -1, 3), f.persons.view(n, P, -1),
-                 f.person_mask.view(n, P), scores.view(n, E),
-                 quality.view(n, P)), (args, kw))
+        with trace.span("chunk.features"):
+            x, pw, gtopo, pairs, idx = self._gat_inputs(
+                S, kp, valid, prob, observed, present, prune)
+        with trace.span("chunk.gat"):
+            scores = self._scores(b, x, pw, gtopo)
+        with trace.span("chunk.decode"):
+            bufs = (kp, valid, prob, observed)
+            if n == 1:
+                bufs = tuple(a[0] for a in bufs)
+            else:
+                scores, pw = scores.view(n, E), pw.view(n, E)
+            args, kw = self._frame_decode_args(S, scores, pw, *bufs, pairs)
+            f = frame_decode_pack(*args, **kw)
+        with trace.span("chunk.lifter"):
+            # the residual prior (fields 11-13 of camera block 0) is added
+            # in Lifter.forward
+            poses = self.lifter(f.net).reshape(n * P, -1, 3) * 10.0
+        with trace.span("chunk.quality"):
+            quality = pose_quality_px(poses, f.kp, f.valid, f.observed,
+                                      self.used_rig)
+            poses = poses * f.person_mask[:, None, None]
+            if idx is not None:
+                scores = torch.zeros(E, dtype=scores.dtype,
+                                     device=scores.device).index_copy(
+                                         0, idx, scores)
+            return ((poses.view(n, P, -1, 3), f.persons.view(n, P, -1),
+                     f.person_mask.view(n, P), scores.view(n, E),
+                     quality.view(n, P)), (args, kw))
 
     def _run_each(self, S: int, *bufs):
         """The eager body on each of n frames [n, C, S, ...], outputs
@@ -890,27 +930,33 @@ class PoseEstimationPipeline:
         rep = self._next_replica()
         if rep is not None:
             return rep.submit_fused(frame)
-        with self._submit_lock, torch.inference_mode(), self._on_device():
-            S, args = self._frame_tensors(frame)
+        key = next(self._seq)
+        with trace.span("frame.submit", key), self._submit_lock, \
+                torch.inference_mode(), self._on_device():
+            with trace.span("frame.pack"):
+                S, args = self._frame_tensors(frame)
             if self.serving_path(S)[1]:
                 out = [t[0] for t in self._run_frames(
                     S, *(a[None] for a in args),
                     prune=self.pair_prune_dist > 0)[0]]
             else:
                 out = self._run(S, *args)[0]
-            return (frame,) + self._download(out)
+            with trace.span("frame.download"):
+                return (frame,) + self._download(out) + (key,)
 
     def collect_fused(self, ticket) -> PipelineOutput:
         """Wait for a ticket's download and crop to the real persons (int32
         slots, as the reference's decode gives them)."""
-        frame, host, done = ticket
-        if done is not None:
-            done.synchronize()
-        poses, persons, person_mask, scores, quality = (t.numpy()
-                                                        for t in host)
-        n = int(person_mask.sum())
-        return PipelineOutput(poses[:n], persons[:n].astype(np.int32),
-                              scores, int(frame.present.sum()), quality[:n])
+        frame, host, done, key = ticket
+        with trace.span("frame.collect", key):
+            if done is not None:
+                done.synchronize()
+            poses, persons, person_mask, scores, quality = (t.numpy()
+                                                            for t in host)
+            n = int(person_mask.sum())
+            return PipelineOutput(poses[:n], persons[:n].astype(np.int32),
+                                  scores, int(frame.present.sum()),
+                                  quality[:n])
 
     def infer_fused(self, frame: FrameArrays) -> PipelineOutput:
         """Full-frame inference."""
@@ -954,37 +1000,43 @@ class PoseEstimationPipeline:
         rep = self._next_replica()
         if rep is not None:
             return rep.submit_batch(frames, slots, pad_to)
-        S = slots or self._batch_slots(frames)
-        n = max(len(frames), pad_to or 0)
-        plan = self.batch_plan(S, n)
-        with self._submit_lock, torch.inference_mode(), self._on_device():
-            bufs = self._batch_tensors(frames, S, n)
-            outs, i = [], 0
-            for m in plan.chunks:
-                chunk = [a[i:i + m] for a in bufs]
-                outs.append(self._run_frames(S, *chunk)[0] if plan.union
-                            else self._run_each(S, *chunk))
-                i += m
-            out = (outs[0] if len(outs) == 1
-                   else tuple(torch.cat(parts) for parts in zip(*outs)))
-            return (frames,) + self._download(out)
+        key = next(self._seq)
+        with trace.span("batch.submit", key):
+            S = slots or self._batch_slots(frames)
+            n = max(len(frames), pad_to or 0)
+            plan = self.batch_plan(S, n)
+            with self._submit_lock, torch.inference_mode(), \
+                    self._on_device():
+                with trace.span("batch.pack"):
+                    bufs = self._batch_tensors(frames, S, n)
+                outs, i = [], 0
+                for m in plan.chunks:
+                    chunk = [a[i:i + m] for a in bufs]
+                    outs.append(self._run_frames(S, *chunk)[0] if plan.union
+                                else self._run_each(S, *chunk))
+                    i += m
+                with trace.span("batch.download"):
+                    out = (outs[0] if len(outs) == 1 else
+                           tuple(torch.cat(parts) for parts in zip(*outs)))
+                    return (frames,) + self._download(out) + (key,)
 
     def collect_batch(self, ticket):
         """Wait for a :meth:`submit_batch` ticket's download: a
         PipelineOutput a frame, pad frames cropped."""
-        frames, host, done = ticket
-        if done is not None:
-            done.synchronize()
-        poses, persons, person_mask, scores, quality = (t.numpy()
-                                                        for t in host)
-        res = []
-        for i, f in enumerate(frames):
-            n = int(person_mask[i].sum())
-            res.append(PipelineOutput(poses[i][:n],
-                                      persons[i][:n].astype(np.int32),
-                                      scores[i], int(f.present.sum()),
-                                      quality[i][:n]))
-        return res
+        frames, host, done, key = ticket
+        with trace.span("batch.collect", key):
+            if done is not None:
+                done.synchronize()
+            poses, persons, person_mask, scores, quality = (t.numpy()
+                                                            for t in host)
+            res = []
+            for i, f in enumerate(frames):
+                n = int(person_mask[i].sum())
+                res.append(PipelineOutput(poses[i][:n],
+                                          persons[i][:n].astype(np.int32),
+                                          scores[i], int(f.present.sum()),
+                                          quality[i][:n]))
+            return res
 
     def infer_batch(self, frames, slots: Optional[int] = None,
                     mesh=None) -> List[PipelineOutput]:

@@ -35,6 +35,14 @@ without improvement.
   while training goes on); the final best is saved and every pending save
   waited for at the end (JAX :290-340).
 
+Spans (``utils/trace.py``; recorded only while a ``torch.profiler``
+session runs): ``train.epoch`` (keyed by the epoch's number) holds each
+step's ``train.grad`` (forward, loss and ``autograd.grad``) and
+``train.update`` (the all-reduce, clip, Adam and EMA), the epoch loss's
+``train.readback``, and at evaluation epochs ``train.eval`` and
+``train.select`` (the history, the improved / save / give-up decision,
+the best copy, the checkpoint and the host copies).
+
 A fresh run initialises from ``weights.random_lifter_tree(cfg, seed)``,
 numpy draws of ``init_lifter``'s family (not ``jax.random``'s numbers),
 with a zero head for ``residual_prior``; pass ``params`` (a JAX-layout
@@ -87,6 +95,7 @@ from mpe3d_tpu_torch.models.mlp import extract_prior
 from mpe3d_tpu_torch.parallel.mesh import (TensorParallel, data_block,
                                            from_rank0, lifter_tp_shardings,
                                            sum_over, training_mesh)
+from mpe3d_tpu_torch.utils import trace
 from mpe3d_tpu_torch.weights import (random_lifter_tree,
                                      trainable_lifter_from_tree)
 
@@ -304,18 +313,20 @@ def train_lifter(net_train: np.ndarray, err_train: np.ndarray,
         return loss_of(tensors, net_all[mine], err_all[mine], denom)
 
     def train_step(idx) -> torch.Tensor:
-        loss = block_loss(variables, net_t, err_t, idx)
-        grads = torch.autograd.grad(loss, variables, allow_unused=True)
-        grads = [torch.zeros_like(v) if g is None else g
-                 for v, g in zip(variables, grads)]
-        if dp:
-            grads = sum_over(mesh.data_group, mesh.n_data, grads)
-        opt.step(grads)
-        if ema is not None:
-            d = tcfg.ema_decay
-            with torch.no_grad():
-                for e, v in zip(ema, variables):
-                    e.mul_(d).add_(v * (1.0 - d))
+        with trace.span("train.grad"):
+            loss = block_loss(variables, net_t, err_t, idx)
+            grads = torch.autograd.grad(loss, variables, allow_unused=True)
+            grads = [torch.zeros_like(v) if g is None else g
+                     for v, g in zip(variables, grads)]
+        with trace.span("train.update"):
+            if dp:
+                grads = sum_over(mesh.data_group, mesh.n_data, grads)
+            opt.step(grads)
+            if ema is not None:
+                d = tcfg.ema_decay
+                with torch.no_grad():
+                    for e, v in zip(ema, variables):
+                        e.mul_(d).add_(v * (1.0 - d))
         return loss.detach()
 
     def data_sum(t: torch.Tensor) -> torch.Tensor:
@@ -367,84 +378,99 @@ def train_lifter(net_train: np.ndarray, err_train: np.ndarray,
             stop = stop_flag() if (stop_flag and rank0) else False
             if from_rank0(mesh, [stop], device)[0]:
                 break
-            if tcfg.scan_epoch and k_batches > 0:
-                perm = (torch.randperm(n, generator=gen, device=device)
-                        if tcfg.shuffle else
-                        torch.arange(n, device=device))[:k_batches * bs]
-                losses = [train_step(idx)
-                          for idx in perm.view(k_batches, bs)]
-                train_loss = float(data_sum(torch.stack(losses)).mean())
-            else:
-                order = (rng.permutation(n) if tcfg.shuffle
-                         else np.arange(n))
-                losses, sizes = [], []
-                for i in range(0, n, bs):
-                    sel = order[i:i + bs]
-                    sel = sel[:len(sel) // n_dev * n_dev]
-                    if len(sel) == 0:
-                        continue
-                    losses.append(train_step(torch.as_tensor(sel,
-                                                             device=device)))
-                    sizes.append(len(sel))
-                host = (data_sum(torch.stack(losses)).cpu().numpy()
-                        if losses else [])
-                train_loss = (sum(float(l) * b for l, b in zip(host, sizes))
-                              / max(sum(sizes), 1))
-            if tcfg.loss == "per_term":
-                mae_per_coord = (train_loss / 2.0) ** 0.5
-            elif tcfg.loss == "huber":
-                mae_per_coord = train_loss ** 0.5
-            else:
-                mae_per_coord = ((train_loss ** 0.5)
-                                 / rig_config.n_cameras / J / 2)
-
-            if epoch % tcfg.eval_every == 0:
-                eval_vars = ema if ema is not None else variables
-                val_loss = evaluate(eval_vars)
-                result.history.append({"epoch": epoch,
-                                       "train_loss": train_loss,
-                                       "val_loss": val_loss,
-                                       "mae_per_coord": mae_per_coord,
-                                       "elapsed_s": time.time() - t0})
-                log(f"epoch {epoch:5d} | loss {train_loss:.5f} | "
-                    f"val {val_loss:.5f} | mae/coord {mae_per_coord:.5f} | "
-                    f"patience {patience}")
-                improved = val_loss < best
-                save = improved and (
-                    val_loss <= last_saved * (1.0 - tcfg.save_rel_improve))
-                give_up = not improved and patience + 1 >= tcfg.patience
-                improved, save, give_up = (bool(v) for v in from_rank0(
-                    mesh, [improved, save, give_up], device))
-                if improved:
-                    best, patience = val_loss, 0
-                    result.best_val_loss = best
-                    best_copy = [v.detach().clone() for v in eval_vars]
-                    best_meta = {"epoch": epoch, "val_loss": val_loss,
-                                 "train_loss": train_loss,
-                                 "lifter_config": cfg, "train_config": tcfg,
-                                 **(extra_meta or {})}
-                    if save:
-                        last_saved = val_loss
-                        full = whole(best_copy)
-                        if tcfg.checkpoint_backend == "orbax":
-                            # the device tensors go to the saver thread,
-                            # which copies them to the host
-                            if checkpoint_path and rank0:
-                                save_checkpoint(checkpoint_path,
-                                                model_tree(full, False),
-                                                meta=best_meta,
-                                                backend="orbax", wait=False)
-                        else:
-                            result.params = model_tree(full, True)
-                            if checkpoint_path and rank0:
-                                save_checkpoint(checkpoint_path,
-                                                result.params, meta=best_meta)
+            with trace.span("train.epoch", epoch):
+                if tcfg.scan_epoch and k_batches > 0:
+                    perm = (torch.randperm(n, generator=gen, device=device)
+                            if tcfg.shuffle else
+                            torch.arange(n, device=device))[:k_batches * bs]
+                    losses = [train_step(idx)
+                              for idx in perm.view(k_batches, bs)]
+                    with trace.span("train.readback"):
+                        train_loss = float(
+                            data_sum(torch.stack(losses)).mean())
                 else:
-                    patience += 1
-                    if give_up:
-                        result.epochs_run = epoch + 1
-                        break
-            result.epochs_run = epoch + 1
+                    order = (rng.permutation(n) if tcfg.shuffle
+                             else np.arange(n))
+                    losses, sizes = [], []
+                    for i in range(0, n, bs):
+                        sel = order[i:i + bs]
+                        sel = sel[:len(sel) // n_dev * n_dev]
+                        if len(sel) == 0:
+                            continue
+                        losses.append(train_step(
+                            torch.as_tensor(sel, device=device)))
+                        sizes.append(len(sel))
+                    with trace.span("train.readback"):
+                        host = (data_sum(torch.stack(losses)).cpu().numpy()
+                                if losses else [])
+                        train_loss = (sum(float(l) * b
+                                          for l, b in zip(host, sizes))
+                                      / max(sum(sizes), 1))
+                if tcfg.loss == "per_term":
+                    mae_per_coord = (train_loss / 2.0) ** 0.5
+                elif tcfg.loss == "huber":
+                    mae_per_coord = train_loss ** 0.5
+                else:
+                    mae_per_coord = ((train_loss ** 0.5)
+                                     / rig_config.n_cameras / J / 2)
+
+                if epoch % tcfg.eval_every == 0:
+                    eval_vars = ema if ema is not None else variables
+                    with trace.span("train.eval"):
+                        val_loss = evaluate(eval_vars)
+                    with trace.span("train.select"):
+                        result.history.append(
+                            {"epoch": epoch, "train_loss": train_loss,
+                             "val_loss": val_loss,
+                             "mae_per_coord": mae_per_coord,
+                             "elapsed_s": time.time() - t0})
+                        log(f"epoch {epoch:5d} | loss {train_loss:.5f} | "
+                            f"val {val_loss:.5f} | mae/coord "
+                            f"{mae_per_coord:.5f} | patience {patience}")
+                        improved = val_loss < best
+                        save = improved and (
+                            val_loss <= last_saved
+                            * (1.0 - tcfg.save_rel_improve))
+                        give_up = (not improved
+                                   and patience + 1 >= tcfg.patience)
+                        improved, save, give_up = (
+                            bool(v) for v in from_rank0(
+                                mesh, [improved, save, give_up], device))
+                        if improved:
+                            best, patience = val_loss, 0
+                            result.best_val_loss = best
+                            best_copy = [v.detach().clone()
+                                         for v in eval_vars]
+                            best_meta = {"epoch": epoch,
+                                         "val_loss": val_loss,
+                                         "train_loss": train_loss,
+                                         "lifter_config": cfg,
+                                         "train_config": tcfg,
+                                         **(extra_meta or {})}
+                            if save:
+                                last_saved = val_loss
+                                full = whole(best_copy)
+                                if tcfg.checkpoint_backend == "orbax":
+                                    # the device tensors go to the saver
+                                    # thread, which copies them to the host
+                                    if checkpoint_path and rank0:
+                                        save_checkpoint(
+                                            checkpoint_path,
+                                            model_tree(full, False),
+                                            meta=best_meta, backend="orbax",
+                                            wait=False)
+                                else:
+                                    result.params = model_tree(full, True)
+                                    if checkpoint_path and rank0:
+                                        save_checkpoint(checkpoint_path,
+                                                        result.params,
+                                                        meta=best_meta)
+                        else:
+                            patience += 1
+                            if give_up:
+                                result.epochs_run = epoch + 1
+                                break
+                result.epochs_run = epoch + 1
     finally:
         if best_copy is not None:
             full = whole(best_copy)

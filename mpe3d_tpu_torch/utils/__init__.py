@@ -1,2 +1,2 @@
 """Utilities: the JSONL event log, the numerics guard, the profiler
-trace."""
+trace, the spans and counters of the port's host work."""
