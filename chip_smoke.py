@@ -121,12 +121,21 @@ failure raises, and the script exits non-zero):
 7. batch and staged paths: ``infer_batch`` of the 16 S=4 frames (buckets
    (4,) / (8,)) and of the 6 S=10 frames (default buckets, "mean" prior)
    for ``pan_irls_bf16`` and the int8 ``pan_irls``, trained and random
-   matcher: the kernels' launches as ``batch_plan`` gives them (one GAT
-   call on the union of the frames' graphs, one decode launch, a lifter
-   launch a group of 64 rows), ``submit_batch`` under
-   ``set_sync_debug_mode("error")``, persons equal to the card's
+   matcher: the kernels' launches of the key's first (eager) batch as
+   ``batch_plan`` gives them (one GAT call on the union of the frames'
+   graphs, one decode launch, a lifter launch a group of 64 rows), the
+   second (captured into a CUDA graph) under
+   ``set_sync_debug_mode("error")``, the captured and the replayed batch
+   bit-equal to the eager one, persons equal to the card's
    ``infer_fused`` and to the CPU's ``infer_batch``, scores within
-   ``SCORE_TOL``, poses within ``POSE_TOL_M``; ``pipe(frame)`` (the staged
+   ``SCORE_TOL``, poses within ``POSE_TOL_M``; the batch graphs at each
+   batch cell's shapes (Panoptic S=4 x 100 frames, ARPLAB S=4 x 84,
+   Panoptic S=16 x 24), a ``pad_to=4`` micro-batch and a key after
+   ``reload_weights``: the captured batch and replays with two batches in
+   flight bit-equal to the eager body's, the lifter's cooperative
+   ``mlp_run`` launch captured and replayed alone bit-equal, each key's
+   capture seconds, graph pool bytes and submit host ms eager against
+   replayed; ``pipe(frame)`` (the staged
    path) with host and device decode, the triangulation backend (median,
    IRLS) and geo rerank against the CPU; ``serve --batch-window 4`` over
    stdio against ``--batch-window 1``; then the frames per second of
@@ -2220,24 +2229,28 @@ def run_batch_path(gpu, cpu, frames, label):
     ``batch_plan`` gives them (the counts set to 0 just before, read just
     after), persons equal to the card's ``infer_fused`` and the CPU's
     ``infer_batch``, scores within SCORE_TOL, poses within POSE_TOL_M;
-    ``submit_batch`` raises no sync error.  Returns the launches."""
+    ``submit_batch`` raises no sync error.  The launches are the key's
+    first batch's (eager); its second (the CUDA graph's capture, under the
+    sync check) and third (a replay) are bit-equal to it.  Returns the
+    launches."""
     import torch
     want, plan = expected_batch_launches(gpu, frames)
     gpu.infer_batch(frames[:2])                    # plans and tables
-    gpu.infer_batch(frames)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        ticket = gpu.submit_batch(frames)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    gpu.collect_batch(ticket)
     reset_launches()
-    outs = gpu.infer_batch(frames)
+    eager = gpu.infer_batch(frames)                # the key's first: eager
     launches = read_launches()
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{want}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ticket = gpu.submit_batch(frames)          # captured, replayed
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    same_bits(gpu.collect_batch(ticket), eager, f"{label}, captured")
+    outs = gpu.infer_batch(frames)                 # replayed
+    same_bits(outs, eager, f"{label}, replayed")
     single = [gpu.infer_fused(f) for f in frames]
     n, ds1, dp1 = compare_outputs(outs, single, f"{label}, against "
                                   f"infer_fused on the card")
@@ -2249,6 +2262,178 @@ def run_batch_path(gpu, cpu, frames, label):
           f"card max |d score| {ds1:.3g}, |d pose| {dp1:.3g} m; against the "
           f"CPU's infer_batch {ds2:.3g}, {dp2:.3g} m", flush=True)
     return launches
+
+
+def same_bits(got, ref, label):
+    """Frame outputs bit-equal to reference outputs (poses, persons,
+    scores, quality)."""
+    import numpy as np
+    if len(got) != len(ref):
+        raise AssertionError(f"{label}: {len(got)} / {len(ref)} frames")
+    for i, (o, r) in enumerate(zip(got, ref)):
+        for name in ("poses", "persons", "scores", "quality"):
+            a, b = getattr(o, name), getattr(r, name)
+            if a.shape != b.shape or not np.array_equal(a, b):
+                raise AssertionError(f"{label} frame {i}: {name} differ "
+                                     f"from the eager body's")
+
+
+def graph_case(label, make, frames_a, frames_b, slots, pad_to=None):
+    """One key of the batch graphs on the card: on a pipeline of ``make()``
+    the frames_a batch eagerly (the key's first), captured and replayed
+    (its second), then frames_b and frames_a as two batches in flight (two
+    replays on the one static input and output set); the captured batch
+    and both replays bit-equal to the eager body's (frames_b's on a fresh
+    pipeline).  Returns {capture_s, pool_bytes, eager_ms, replay_ms}: the
+    capture's host seconds, the graph's pool bytes, and the median host
+    ms of submit_batch on the eager body (graphs off) and on replays."""
+    import statistics
+    import torch
+    from mpe3d_tpu_torch.pipeline import _Graph
+
+    def run(p, fr):
+        return p.collect_batch(p.submit_batch(fr, slots=slots, pad_to=pad_to))
+
+    def submit_ms(p, fr, n=5):
+        ms = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ticket = p.submit_batch(fr, slots=slots, pad_to=pad_to)
+            ms.append(1e3 * (time.perf_counter() - t))
+            p.collect_batch(ticket)
+        return statistics.median(ms)
+
+    pipe = make()
+    n = max(len(frames_a), pad_to or 0)
+    if not pipe.batch_plan(slots, n).union:
+        raise AssertionError(f"{label}: the batch is not on the batch body")
+    eager_a = run(pipe, frames_a)
+    captured = run(pipe, frames_a)
+    graph = pipe._graphs.entries.get(pipe._graph_key(slots, n))
+    if not isinstance(graph, _Graph):
+        raise AssertionError(f"{label}: the second batch did not capture "
+                             f"({graph!r})")
+    tb = pipe.submit_batch(frames_b, slots=slots, pad_to=pad_to)
+    ta = pipe.submit_batch(frames_a, slots=slots, pad_to=pad_to)
+    if tb[3] is not graph or ta[3] is not graph:
+        raise AssertionError(f"{label}: a later batch did not replay")
+    replay_b, replay_a = pipe.collect_batch(tb), pipe.collect_batch(ta)
+    same_bits(captured, eager_a, f"{label}, captured batch")
+    same_bits(replay_a, eager_a, f"{label}, replay in flight")
+    same_bits(replay_b, run(make(), frames_b), f"{label}, replay of other "
+              f"frames in flight")
+    eager = make()
+    eager._graphs.graph_type = None             # the eager body alone
+    run(eager, frames_a)
+    return {"capture_s": graph.capture_s,
+            "pool_bytes": graph.graph.pool_bytes,
+            "eager_ms": submit_ms(eager, frames_a),
+            "replay_ms": submit_ms(pipe, frames_a),
+            "persons": sum(len(o.persons) for o in eager_a)}
+
+
+def check_run_capture(lifter, K0, label):
+    """The lifter's cooperative ``mlp_run`` launch (after its sync words'
+    memset) captured alone in a CUDA graph: the replay bit-equal to the
+    eager launch on the captured input and, after the input is refilled,
+    on another."""
+    import torch
+    from mpe3d_tpu_torch.pipeline import _CudaGraph
+    gen = torch.Generator(device=GPU).manual_seed(7)
+    x = torch.randn(64, K0, device=GPU, generator=gen)
+    other = torch.randn(64, K0, device=GPU, generator=gen)
+    with torch.inference_mode():
+        want, want2 = lifter(x).clone(), lifter(other).clone()
+        g = _CudaGraph(torch.cuda.Stream())
+        y = g.capture(lambda: lifter(x))
+        g.replay()
+        got = y.clone()
+        x.copy_(other)
+        g.replay()
+        got2 = y.clone()
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(got2, want2)):
+        raise AssertionError(f"{label}: the captured mlp_run differs from "
+                             f"the eager launch")
+    print(f"  {label}: mlp_run (cooperative launch after a memset) captured "
+          f"in a CUDA graph, two replays bit-equal to eager launches, "
+          f"pool {g.pool_bytes} B", flush=True)
+
+
+def check_batch_graphs(pipeline, arplab, mtree, rtree, rig_config, rig,
+                       smi):
+    """The batch graphs on the card (module header, phase 7).
+    ``pipeline(tree, device, **kw)`` builds a Panoptic pipeline of the
+    bf16 lifter; ``arplab`` is phase 8's bf16 ARPLAB variant."""
+    from mpe3d_tpu_torch.data.frames import parse_frame
+    from mpe3d_tpu_torch.data.synthetic import generate_frames
+
+    def frames(rc, rg, n, people, seed, slots):
+        return [parse_frame(f, rc, max_skeletons=slots)
+                for f in generate_frames(rc, rg, n, n_people=people,
+                                         seed=seed)]
+
+    s4 = dict(slots=(4,), persons=(4, 8, 16))
+    s16 = dict(slots=(16,), persons=(16,), lifter_prior=CROWDED_PRIOR)
+    a_rig = arplab.rig
+    cases = {
+        "Panoptic S=4 x 100": (
+            lambda: pipeline(rtree, GPU, **s4),
+            frames(rig_config, rig, 100, (2, 4), 21, 4),
+            frames(rig_config, rig, 100, (2, 4), 22, 4), 4, None),
+        "ARPLAB S=4 x 84": (
+            lambda: arplab.pipeline("random", GPU, persons=(4, 8, 16)),
+            frames(arplab.rc, a_rig, 84, (2, 4), 23, 4),
+            frames(arplab.rc, a_rig, 84, (2, 4), 24, 4), 4, None),
+        "Panoptic S=16 x 24": (
+            lambda: pipeline(rtree, GPU, **s16),
+            frames(rig_config, rig, 24, (10, 14), 25, 16),
+            frames(rig_config, rig, 24, (10, 14), 26, 16), 16, None),
+        "Panoptic S=4, 3 frames pad_to=4": (
+            lambda: pipeline(rtree, GPU, **s4),
+            frames(rig_config, rig, 3, (2, 4), 27, 4),
+            frames(rig_config, rig, 3, (2, 4), 28, 4), 4, 4)}
+    out = {}
+    for label, (make, fa, fb, slots, pad_to) in cases.items():
+        out[label] = graph_case(label, make, fa, fb, slots, pad_to)
+        r = out[label]
+        print(f"  batch graph, {label}: {r['persons']} persons; captured "
+              f"and replayed bit-equal to the eager body (two in flight); "
+              f"capture {r['capture_s']:.3f} s, graph pool "
+              f"{r['pool_bytes']} B; submit_batch host ms eager "
+              f"{r['eager_ms']:.3f}, replayed {r['replay_ms']:.3f} ({smi})",
+              flush=True)
+    # after reload_weights: the graphs dropped, the key eager again, then
+    # captured and replayed with the new weights
+    fa = cases["Panoptic S=4 x 100"][1]
+    pipe = pipeline(mtree, GPU, **s4)
+    old = [pipe.collect_batch(pipe.submit_batch(fa, slots=4))
+           for _ in range(3)][-1]
+    pipe.reload_weights(matcher_tree=rtree)
+    if pipe._graphs.entries:
+        raise AssertionError("reload_weights left batch graphs")
+    ref = pipeline(rtree, GPU, **s4)
+    want = ref.collect_batch(ref.submit_batch(fa, slots=4))
+    tickets = []
+    for i in range(3):
+        ticket = pipe.submit_batch(fa, slots=4)
+        tickets.append(ticket[3] is not None)
+        same_bits(pipe.collect_batch(ticket), want,
+                  f"after reload_weights, batch {i}")
+    if tickets != [False, True, True]:
+        raise AssertionError(f"after reload_weights: replays {tickets}")
+    if all(o.scores.tobytes() == w.scores.tobytes()
+           for o, w in zip(old, want)):
+        raise AssertionError("after reload_weights: the old and new "
+                             "matchers score alike")
+    print("  batch graph after reload_weights (trained -> random matcher, "
+          "S=4 x 100): the cache emptied, eager, captured and replayed "
+          "bit-equal to a fresh pipeline of the new weights", flush=True)
+    check_run_capture(pipeline(rtree, GPU).lifter,
+                      rig_config.lifter_input_dim,
+                      "pan_irls_bf16 lifter, M=64")
+    return out
 
 
 def check_staged(gpu_of, frames):
@@ -4937,6 +5122,8 @@ def main() -> int:
             pipeline(matchers[mlabel], "cpu", True, **kw), bframes,
             f"infer_batch, {pname}, {mlabel} matcher, {len(bframes)} "
             f"{blabel} frames")
+    graphs = check_batch_graphs(pipeline, variants["arplab_bf16"], mtree,
+                                rtree, rig_config, rig, smi)
     staged = check_staged(
         lambda device, **kw: pipeline(rtree, device, **kw),
         frames[:STAGED_FRAMES])
@@ -4973,7 +5160,9 @@ def main() -> int:
                              f"{missing}")
     phase("batch and staged paths", t0,
           f"infer_batch on the card agrees with infer_fused and the CPU for "
-          f"both pairs and matchers at S=4 and S=10; the staged path "
+          f"both pairs and matchers at S=4 and S=10; the batch graphs "
+          f"replay bit-equal to the eager body ({', '.join(graphs)}, after "
+          f"reload_weights); the staged path "
           f"({', '.join(staged)}) agrees with the CPU; serve --batch-window "
           f"4 equals --batch-window 1 (median latency_ms "
           f"{batch_lat[4]:.3f} / {batch_lat[1]:.3f})")

@@ -62,6 +62,19 @@ rescue, the triangulation backend, an fp32 lifter) the chunk is the eager
 body frame by frame, as ``batch_plan`` reports.  The batch scores all
 pairs: pair pruning, like the reference's batch program, does not apply.
 
+On a CUDA device a union batch's body (every chunk's ``_run_frames`` and
+the output concatenation) is a fixed launch sequence for its key
+(``_graph_key``: the slot bucket, the frame count and every setting the
+body bakes into its launches), so the batch path replays it as one CUDA
+graph (``_BatchGraphs``): the first batch of a key runs eagerly (it builds
+the union topology, the kernels' plans and tables), the second is
+captured into a graph and replayed, and later ones upload into the
+graph's static input and replay it; the download copies the graph's
+static outputs into the ticket's own pinned buffer.  At most
+``MAX_BATCH_GRAPHS`` keys are kept, least recently used out;
+``reload_weights`` drops them all.  The eager body, the frame path and
+the CPU never capture.
+
 The staged path (reference :1220-1370: ``match``, ``match_decode``,
 ``host_decode_scores``, ``gather_person_obs``, ``lift``, ``__call__``) is
 the reference's debug path: the matcher's scores to the host, the host
@@ -109,7 +122,12 @@ sigmoid), ``chunk.decode`` (the decode kernel and its arguments; on the
 eager body the decode and the person gather), ``chunk.lifter`` (the 3D
 backend; on the eager body with its packing) and ``chunk.quality`` (the
 quality column, the person mask, the views), and ``batch.download`` (the
-output concatenation and the pinned download); ``batch.collect`` is the
+output concatenation and the pinned download); on a replayed batch
+``batch.replay`` (the graph's launch) takes the chunks' place and the
+download is the copy alone.  Counters: ``batch.capture`` (a batch body
+captured), ``batch.replay`` (a batch whose body ran as a replay) and
+``lifter.rows`` (on a replay, the rows its graph gives the lifter: the
+frames times the person slots).  ``batch.collect`` is the
 whole ``collect_batch`` under the ticket's key.  The frame path has the
 same stages under ``frame.submit`` (``frame.pack``, ``frame.download``)
 and ``frame.collect``.
@@ -121,12 +139,14 @@ import, because rounded operands change decodes (RESULTS.md:1265-1271,
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import itertools
 import os
 import sys
 import threading
+import time
 from typing import (Dict, Iterable, Iterator, List, NamedTuple, Optional,
                     Tuple)
 
@@ -159,6 +179,7 @@ from mpe3d_tpu_torch.matching.features import (PairTopology, build_topology,
 from mpe3d_tpu_torch.models.gat import (Matcher, gat_topology,
                                         union_topology)
 from mpe3d_tpu_torch.models.mlp import Lifter, lifter_is_quantized
+from mpe3d_tpu_torch.ops import fused_mlp, gat_tiled
 from mpe3d_tpu_torch.ops.frame_kernel import (cam_consts, cam_to_world,
                                               frame_decode_pack,
                                               frame_kernel_fits,
@@ -293,6 +314,114 @@ def _slot_view(a: np.ndarray, S: int) -> np.ndarray:
     return np.concatenate([a, pad], axis=1)
 
 
+# batch graphs a pipeline keeps (keys seen once count too)
+MAX_BATCH_GRAPHS = 8
+
+
+class _CudaGraph:
+    """One batch body as a ``torch.cuda.CUDAGraph``: captured on the
+    cache's side stream of the current device (a capture does not wait for
+    the batches in flight), replayed on the current stream.
+    ``pool_bytes``: the device memory its private pool reserved."""
+
+    def __init__(self, stream: torch.cuda.Stream):
+        self.graph = torch.cuda.CUDAGraph()
+        self.stream = stream
+        self.pool_bytes = 0
+
+    def capture(self, body):
+        """Capture ``body()`` (nothing runs) and return its outputs, the
+        graph's static tensors.  Only this thread is held to the capture's
+        rules: a collect may wait on an event meanwhile."""
+        reserved = torch.cuda.memory_reserved()
+        with torch.cuda.stream(self.stream):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = body()
+            finally:
+                self.graph.capture_end()
+        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        return out
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+class _Graph(NamedTuple):
+    """A captured batch body: the graph, its static input (the packed
+    upload's device buffer) and outputs, what its launches read through
+    addresses baked in at the capture (kept alive with it), and the
+    capture's host seconds."""
+
+    graph: object
+    input: torch.Tensor
+    outputs: Tuple[torch.Tensor, ...]
+    held: tuple
+    capture_s: float
+
+
+_SEEN, _EAGER = "seen", "eager"     # a key seen once; one that will not capture
+
+
+def _kernel_state() -> tuple:
+    """What the kernels cache between calls and read through raw addresses
+    (the lifter's run tables, the tiled GAT's plans and scratch): their
+    caches may drop an entry that a graph's launches still read."""
+    return tuple(fused_mlp._RUNS.values()) + tuple(gat_tiled._PLANS.values())
+
+
+class _BatchGraphs:
+    """The batch path's graphs by key, least recently used first out
+    (module header).  ``graph_type(stream)`` makes a graph
+    (``_CudaGraph``); None never captures (the CPU)."""
+
+    def __init__(self, graph_type, device: torch.device):
+        self.graph_type, self.device = graph_type, device
+        self.entries: "collections.OrderedDict[tuple, object]" = \
+            collections.OrderedDict()
+        self._stream = None
+
+    def look(self, key):
+        """The key's state before this sight (None: a first sight, or no
+        graphs; ``_SEEN``; ``_EAGER``; a ``_Graph``), the sight recorded."""
+        if self.graph_type is None or key is None:
+            return None
+        state = self.entries.get(key)
+        if state is None:
+            self.entries[key] = _SEEN
+            while len(self.entries) > MAX_BATCH_GRAPHS:
+                self.entries.popitem(last=False)
+        else:
+            self.entries.move_to_end(key)
+        return state
+
+    def capture(self, key, inp: torch.Tensor, body, held):
+        """Capture ``body`` for ``key`` reading the static input ``inp``:
+        its ``_Graph``, or None (the key then stays eager, and the batch
+        runs eagerly) when a launch will not capture, as a kernel's table
+        rebuilt from host memory inside the capture would not (its cache
+        emptied by other lifters since the key's first batch)."""
+        if self._stream is None and self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+        graph = self.graph_type(self._stream)
+        t0, before = time.perf_counter(), _kernel_state()
+        try:
+            out = graph.capture(body)
+        except RuntimeError as exc:     # CUDA's and the launches' errors
+            self.entries[key] = _EAGER
+            print(f"[mpe3d_torch] batch {key[:2]} did not capture into a "
+                  f"CUDA graph ({type(exc).__name__}: {exc}); it runs "
+                  f"eagerly", file=sys.stderr)
+            return None
+        self.entries[key] = _Graph(graph, inp, out,
+                                   (before, _kernel_state(), held),
+                                   time.perf_counter() - t0)
+        return self.entries[key]
+
+    def clear(self) -> None:
+        self.entries.clear()
+
+
 class PoseEstimationPipeline:
     """Frame -> poses, on ``device``.
 
@@ -420,6 +549,9 @@ class PoseEstimationPipeline:
         # the batch path's union topologies and edge rows, by (slots, frames)
         self._unions: Dict[Tuple[int, int], Tuple[GatTopology,
                                                   torch.Tensor]] = {}
+        # the batch path's CUDA graphs (module header)
+        self._graphs = _BatchGraphs(
+            _CudaGraph if self.device.type == "cuda" else None, self.device)
         # serialises submits (their launches share cached scratch) and the
         # weight swap of reload_weights
         self._submit_lock = threading.Lock()
@@ -566,17 +698,21 @@ class PoseEstimationPipeline:
         full, rest = divmod(n_frames, per)
         return BatchPlan(True, (per,) * full + ((rest,) if rest else ()))
 
-    def _upload(self, host):
+    def _upload(self, host, into: Optional[torch.Tensor] = None):
         """Move host buffers to the device in one copy: packed into one
         (pinned, on a CUDA device) host buffer, uploaded with
-        ``non_blocking=True``, viewed back on the device."""
+        ``non_blocking=True`` into a fresh tensor or ``into`` (a batch
+        graph's static input, of the packed size), viewed back on the
+        device."""
         buf = torch.empty(sum(a.nbytes for a in host), dtype=torch.uint8,
                           pin_memory=self.device.type == "cuda")
         flat, off = buf.numpy(), 0
         for a in host:      # fp32 buffers first: every offset stays aligned
             flat[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
             off += a.nbytes
-        dev, args, off = buf.to(self.device, non_blocking=True), [], 0
+        dev = (buf.to(self.device, non_blocking=True) if into is None
+               else into.copy_(buf, non_blocking=True))
+        args, off = [], 0
         for a in host:
             dt = torch.float32 if a.dtype == np.float32 else torch.bool
             args.append(dev[off:off + a.nbytes].view(dt).view(a.shape))
@@ -595,6 +731,11 @@ class PoseEstimationPipeline:
     def _batch_tensors(self, frames, S: int, n: int):
         """The frames' five buffers stacked [n, ...] at S slots, padded
         with empty frames (nothing present) to ``n``, in one upload."""
+        return self._upload(self._batch_host(frames, S, n))
+
+    @staticmethod
+    def _batch_host(frames, S: int, n: int) -> List[np.ndarray]:
+        """The host side of ``_batch_tensors``: the five stacked buffers."""
         host = []
         for name, dt in _BUFFERS:
             a = np.stack([_slot_view(getattr(f, name), S) for f in frames])
@@ -602,7 +743,7 @@ class PoseEstimationPipeline:
                 a = np.concatenate([a, np.zeros((n - len(frames),)
                                                 + a.shape[1:], a.dtype)])
             host.append(np.ascontiguousarray(a, dtype=dt))
-        return self._upload(host)
+        return host
 
     def _person_obs(self, persons, kp, valid, prob, observed):
         """Each decoded person's observations in the used cameras:
@@ -992,7 +1133,9 @@ class PoseEstimationPipeline:
         micro-batcher with a varying fill reuses one set of plans and
         tables.  The chunks of ``batch_plan`` run in order, each one body;
         one upload, one pinned download, no host synchronisation on the
-        batch path (the eager body synchronises in its decode).  After
+        batch path (the eager body synchronises in its decode); on a CUDA
+        device a union batch's body replays a graph of its key from the
+        key's third batch on (module header).  After
         :meth:`enable_multi_device_serving` each submit goes to the next
         replica."""
         if not frames:
@@ -1007,23 +1150,72 @@ class PoseEstimationPipeline:
             plan = self.batch_plan(S, n)
             with self._submit_lock, torch.inference_mode(), \
                     self._on_device():
+                gkey = self._graph_key(S, n) if plan.union else None
+                state = self._graphs.look(gkey)
+                entry = state if isinstance(state, _Graph) else None
                 with trace.span("batch.pack"):
-                    bufs = self._batch_tensors(frames, S, n)
-                outs, i = [], 0
-                for m in plan.chunks:
-                    chunk = [a[i:i + m] for a in bufs]
-                    outs.append(self._run_frames(S, *chunk)[0] if plan.union
-                                else self._run_each(S, *chunk))
-                    i += m
+                    host = self._batch_host(frames, S, n)
+                    inp = None if entry is None else entry.input
+                    if state is _SEEN:      # the graph's static input
+                        inp = torch.empty(sum(a.nbytes for a in host),
+                                          dtype=torch.uint8,
+                                          device=self.device)
+                    bufs = self._upload(host, inp)
+                if state is _SEEN:
+                    entry = self._graphs.capture(
+                        gkey, inp,
+                        lambda: self._joined(self._chunks(S, plan, bufs)),
+                        (self.matcher, self.lifter))
+                    if entry is not None:
+                        trace.count("batch.capture")
+                if entry is None:
+                    outs = self._chunks(S, plan, bufs)
+                    with trace.span("batch.download"):
+                        return ((frames,) + self._download(self._joined(outs))
+                                + (None, key))
+                # one static input and output set a key is enough for two
+                # batches in flight: on the one stream, batch k's replay and
+                # download come before batch k+1's upload and replay
+                with trace.span("batch.replay"):
+                    entry.graph.replay()
+                trace.count("batch.replay")
+                if state is entry:      # a capture counts its rows itself
+                    trace.count("lifter.rows", n * self._p_max(S))
                 with trace.span("batch.download"):
-                    out = (outs[0] if len(outs) == 1 else
-                           tuple(torch.cat(parts) for parts in zip(*outs)))
-                    return (frames,) + self._download(out) + (key,)
+                    return ((frames,) + self._download(entry.outputs)
+                            + (entry, key))
+
+    def _graph_key(self, S: int, n: int) -> tuple:
+        """What a batch graph of n frames of the bucket S bakes into its
+        launches: the sizes, the decode's threshold, candidate cap, views
+        and person slots, the prior and its gate."""
+        return (S, n, self.threshold, self.decode_top_k, self.lifter_prior,
+                self.prior_gate_px, self.rig_config.min_number_of_views,
+                self._p_max(S))
+
+    def _chunks(self, S: int, plan: BatchPlan, bufs):
+        """Each chunk of ``plan`` on its frames of ``bufs`` [n, ...]: the
+        chunks' outputs, in order."""
+        outs, i = [], 0
+        for m in plan.chunks:
+            chunk = [a[i:i + m] for a in bufs]
+            outs.append(self._run_frames(S, *chunk)[0] if plan.union
+                        else self._run_each(S, *chunk))
+            i += m
+        return outs
+
+    @staticmethod
+    def _joined(outs):
+        """The chunks' outputs concatenated on the frame axis."""
+        return (outs[0] if len(outs) == 1 else
+                tuple(torch.cat(parts) for parts in zip(*outs)))
 
     def collect_batch(self, ticket):
         """Wait for a :meth:`submit_batch` ticket's download: a
-        PipelineOutput a frame, pad frames cropped."""
-        frames, host, done, key = ticket
+        PipelineOutput a frame, pad frames cropped.  The ticket holds the
+        graph it replayed (or None) until then: a graph dropped from the
+        cache meanwhile keeps its memory while its replay may run."""
+        frames, host, done, _graph, key = ticket
         with trace.span("batch.collect", key):
             if done is not None:
                 done.synchronize()
@@ -1320,7 +1512,10 @@ class PoseEstimationPipeline:
         (``ops/fused_mlp.py::mlp_run``) and hold only addresses and
         shapes, and the tiled GAT's cached plans
         (``ops/gat_tiled.py::_stack_plan``) no weight address, so neither
-        serves stale weights."""
+        serves stale weights.  The batch graphs bake the weights' addresses
+        into their launches, so the swap drops them all (a ticket in flight
+        holds its own graph, with the old weights, until it is collected);
+        each key starts again from an eager batch."""
         matcher, lifter = self.matcher, self.lifter
         if matcher_tree is not None:
             matcher = matcher_from_tree(matcher_tree, self.matcher.cfg,
@@ -1346,6 +1541,7 @@ class PoseEstimationPipeline:
                                  f"({new} vs current {old})")
         with self._submit_lock:
             self.matcher, self.lifter = matcher, lifter
+            self._graphs.clear()    # their launches read the old weights
         for rep in self._replicas + [r for reps in self._mesh_replicas.values()
                                      for r in reps]:
             rep.reload_weights(matcher_tree, lifter_tree)
