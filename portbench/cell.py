@@ -5,7 +5,7 @@ each found by name in files of its own:
 * ``configs/<config>.json``: the configuration's sizes (the manifest's
   ``file``);
 * ``traffic/<traffic>.json``: the mix, whose ``kind`` names the general
-  loop that reads it (``loops/<kind>.py``);
+  loop that reads it and runs the cell (``loops/<kind>.py``);
 * ``metrics/<metric>.py``: one reader a per-layer metric;
 * ``limits/<workload>.json``: the limit of each number the cell's
   comparison checks."""
@@ -42,6 +42,11 @@ class Cell:
     chips: int
     end_to_end: List[Dict[str, Any]] = field(default_factory=list)
     per_layer: List[Dict[str, Any]] = field(default_factory=list)
+    loop: Any = None        # the loop module of its kind (``loop``)
+
+    def __post_init__(self):
+        if self.loop is None:
+            self.loop = loop(self.kind)
 
     @property
     def kind(self) -> str:

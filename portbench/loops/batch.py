@@ -22,20 +22,26 @@ the reference lifting the program's persons from the frames' buffers (an
 RMS, not a largest gap: a bf16 activation that lies on a rounding
 boundary flips by one bf16 step (2^-8) on a change of summation order,
 and the largest gap reads such flips); ``quality_gap`` the largest |quality - reference
-quality of the program's poses| / max(1, |reference|)."""
+quality of the program's poses| / max(1, |reference|).
+
+A loop of another batch form hands ``setup`` its own ``Form`` (the
+models, the program built on them, the reference's lifter stage) in
+place of ``SEEDED``, and imports ``measure``, ``judge``,
+``layer_context``, ``control`` and ``tiny`` unchanged."""
 
 from __future__ import annotations
 
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from portbench import frames as F
 from portbench import program, weights
+from portbench.loops import Measured
 from portbench.reference import pose as R
 from portbench.reference.geometry import torch_rig
 from portbench.trace import Tracer, maybe
@@ -58,8 +64,10 @@ class State:
     batches: List[list]
     B: int
     S: int
+    n_check: int          # batches the comparison samples
     mlayers: list
-    llayers: list
+    llayers: Any          # as ``form.lift_ref`` reads them
+    form: "Form"
     pipe: object = None
 
 
@@ -89,28 +97,74 @@ def p_max(cfg: dict, traffic: dict) -> int:
                max(C * traffic["slots"] // max(cfg["min_views"], 1), 1))
 
 
-def setup(cell, seed: int, device, build_program: bool = True) -> State:
+def seeded_models(cfg: dict, seed: int, dev) -> Tuple[list, list]:
+    """The seeded matcher (fp32) and lifter (bf16) weights."""
+    return (weights.matcher_layers(cfg["matcher"], seed, dev),
+            weights.lifter_layers(cfg["lifter"], seed, dev, torch.bfloat16))
+
+
+def seeded_pipeline(st: State):
+    """The program's pipeline on the seeded weights."""
+    return program.pipeline(st.cfg, st.traffic, st.rig, st.mlayers,
+                            st.llayers, st.device)
+
+
+def lift_mean_prior(st: State, g, trig, size, precision: str
+                    ) -> torch.Tensor:
+    """The reference's lifter stage on gathered persons ``g``: their rows
+    packed with the "mean" prior, the lifter, poses [n, J, 3] metres."""
+    net = R.lifter_input(*g, trig, size)
+    return (R.lift(net, st.llayers, st.cfg["lifter"]["negative_slope"],
+                   precision)[:, :st.cfg["lifter"]["out_dim"]]
+            .reshape(len(net), -1, 3) * 10.0)
+
+
+class Form(NamedTuple):
+    """What a batch form is made of: ``models(cfg, seed, device)``, the
+    matcher's and the lifter's weights that set-up makes, as the
+    reference reads them; ``build(state)``, the program on them;
+    ``lift_ref(state, persons, rig, size, precision)``, the reference's
+    lifter stage (the gathered persons packed with their prior into the
+    lifter's input, and the lifter on it)."""
+    models: Callable
+    build: Callable
+    lift_ref: Callable
+
+
+SEEDED = Form(seeded_models, seeded_pipeline, lift_mean_prior)
+
+
+def state(cell, seed: int, device, B: int, n_batches: int, n_check: int,
+          form: Form = SEEDED) -> State:
+    """The seeded rig, a pool of ``n_batches`` batches of ``B`` frames and
+    the models; no program yet."""
     cfg, tr = cell.config, cell.traffic
     dev = torch.device(device)
     rig = F.ring_rig(cfg)
-    B, S = batch_size(cfg, tr), tr["slots"]
-    pool = F.generate(cfg, rig, tr["pool_batches"] * B, tuple(tr["people"]),
-                      S, seed, tr["spread_m"])
-    st = State(cfg, tr, dev, rig, pool, [], B, S,
-               weights.matcher_layers(cfg["matcher"], seed, dev),
-               weights.lifter_layers(cfg["lifter"], seed, dev,
-                                     torch.bfloat16))
+    S = tr["slots"]
+    pool = F.generate(cfg, rig, n_batches * B, tuple(tr["people"]), S, seed,
+                      tr["spread_m"])
+    return State(cfg, tr, dev, rig, pool, [], B, S, n_check,
+                 *form.models(cfg, seed, dev), form)
+
+
+def setup(cell, seed: int, device, build_program: bool = True,
+          form: Form = SEEDED) -> State:
+    tr = cell.traffic
+    st = state(cell, seed, device, batch_size(cell.config, tr),
+               tr["pool_batches"], tr["check_batches"], form)
     if build_program:
-        program.check_rig(cfg)
-        st.pipe = program.pipeline(cfg, tr, rig, st.mlayers, st.llayers, dev)
-        fl = program.frame_list(pool)
+        program.check_rig(cell.config)
+        st.pipe = form.build(st)
+        fl = program.frame_list(st.pool)
+        B, S = st.B, st.S
         st.batches = [fl[i * B:(i + 1) * B] for i in range(tr["pool_batches"])]
         for _ in range(2):          # every shape, twice: plans and buffers
             tickets = [st.pipe.submit_batch(b, slots=S) for b in st.batches]
             for t in tickets:
                 st.pipe.collect_batch(t)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        if st.device.type == "cuda":
+            torch.cuda.synchronize(st.device)
     return st
 
 
@@ -122,7 +176,7 @@ def window(st: State, seconds: float, seed: int,
            tracer: Optional[Tracer] = None, trace_at: float = 0.0,
            trace_s: float = 0.0) -> Window:
     pipe, S, B = st.pipe, st.S, st.B
-    n_keep = st.traffic["check_batches"]
+    n_keep = st.n_check
     rng = np.random.default_rng([seed % 2 ** 63, 17])
     q: deque = deque()
     lat, sample, traced, submit_s = [], [], [], []
@@ -178,6 +232,18 @@ def end_to_end(win: Window) -> Dict[str, float]:
             "batch_p95_ms": 1e3 * float(np.percentile(win.latencies_s, 95))}
 
 
+def measure(st: State, seconds: float, seed: int,
+            tracer: Optional[Tracer] = None, trace_at: float = 0.0,
+            trace_s: float = 0.0, window: Callable = window,
+            end_to_end: Callable = end_to_end) -> Measured:
+    """The window (another loop of this state hands its own ``window``
+    and ``end_to_end``); the comparison reads its sampled batches."""
+    at = time.time()
+    win = window(st, seconds, seed, tracer, trace_at, trace_s)
+    return Measured(end_to_end(win), at, win.attempted, win.failed,
+                    win.sample, win)
+
+
 def _frame_tensors(fr: F.Frames, i: int, dev):
     return tuple(torch.as_tensor(a[i], device=dev) for a in fr)
 
@@ -199,10 +265,7 @@ def reference_outputs(st: State, idx, precision: str) -> List[FrameOut]:
                            cfg["serve"]["decode_top_k"], cfg["min_views"],
                            p_max(cfg, st.traffic))
         g = R.gather(persons, fr)
-        net = R.lifter_input(*g, trig, size)
-        poses = (R.lift(net, st.llayers, cfg["lifter"]["negative_slope"],
-                        precision)[:, :cfg["lifter"]["out_dim"]]
-                 .reshape(len(persons), -1, 3) * 10.0)
+        poses = st.form.lift_ref(st, g, trig, size, precision)
         q = R.quality(poses, g[0], g[1], g[3], trig, precision)
         out.append(FrameOut(poses.cpu().numpy(), persons.astype(np.int32), s,
                             q.cpu().numpy()))
@@ -242,9 +305,7 @@ def judge(st: State, sample: List[Tuple[int, List[FrameOut]]]
         if not rows:
             continue
         g = tuple(torch.cat(parts) for parts in zip(*rows))
-        net = R.lifter_input(*g, trig, size)
-        ref = (R.lift(net, st.llayers, cfg["lifter"]["negative_slope"], "fp32")
-               [:, :cfg["lifter"]["out_dim"]].reshape(len(net), -1, 3) * 10.0)
+        ref = st.form.lift_ref(st, g, trig, size, "fp32")
         got = torch.as_tensor(np.concatenate(got_poses), device=dev)
         pose_err += float(((got - ref) ** 2).sum())
         pose_sq += float((ref * ref).sum())
@@ -263,16 +324,17 @@ def control(st: State, seed: int) -> Dict[str, float]:
     the program's place on as many batches as a run compares."""
     rng = np.random.default_rng([seed % 2 ** 63, 17])
     picks = rng.choice(len(st.pool) // st.B, size=min(
-        st.traffic["check_batches"], len(st.pool) // st.B), replace=False)
+        st.n_check, len(st.pool) // st.B), replace=False)
     sample = [(int(b), reference_outputs(
         st, range(int(b) * st.B, (int(b) + 1) * st.B), "control"))
         for b in picks]
     return judge(st, sample)
 
 
-def layer_context(st: State, win: Window, tracer: Tracer) -> dict:
+def layer_context(st: State, m: Measured, tracer: Tracer) -> dict:
     """What the per-layer readers of a batch cell read: the traced
     batches' present skeletons, candidate trips and decoded persons."""
+    win = m.window
     topo = R.topology(len(st.cfg["cameras"]["names"]), st.S)
     thr, top_k = st.cfg["serve"]["threshold"], st.cfg["serve"]["decode_top_k"]
     present, live, persons = [], [], []
@@ -291,3 +353,11 @@ def layer_context(st: State, win: Window, tracer: Tracer) -> dict:
                 -1, len(st.cfg["cameras"]["names"]), st.S),
             "live": np.asarray(live, float),
             "persons": np.asarray(persons, float)}
+
+
+def tiny(cfg: dict, tr: dict) -> None:
+    """Rehearsal size: a batch of one union of at most two frames, two
+    pool batches, one compared."""
+    C = len(cfg["cameras"]["names"])
+    tr.update(chunks=1, chunk_heads=2 * C * tr["slots"], pool_batches=2,
+              check_batches=1)

@@ -35,6 +35,7 @@ import torch
 
 from portbench import frames as F
 from portbench import lifter_data, program, weights
+from portbench.loops import Measured
 from portbench.reference import lifter_train as RT
 from portbench.reference.geometry import torch_rig
 from portbench.trace import Tracer
@@ -166,6 +167,18 @@ def end_to_end(st: State) -> Dict[str, float]:
             / (m["t1"] - m["t0"])}
 
 
+def measure(st: State, seconds: float, seed: int,
+            tracer: Optional[Tracer] = None, trace_at: float = 0.0,
+            trace_s: float = 0.0) -> Measured:
+    """Set-up's epoch 0 and the window (``run``); the comparison reads the
+    captured gradient and parameters and epoch 0's loss."""
+    run(st, seconds, tracer, trace_at, trace_s)
+    at = st.marks["t0"] - time.perf_counter() + time.time()
+    return Measured(end_to_end(st), at,
+                    st.marks["epochs"] * st.traffic["train_batches"], 0,
+                    program_readings(st))
+
+
 def _batches(st: State, n_rows: int) -> torch.Tensor:
     """The first epoch's batches as the trainer draws them: a permutation
     from a generator on the device seeded ``seed + 1``, cut into full
@@ -201,7 +214,11 @@ def follow(st: State, precision: str, half: bool = False) -> Dict:
 def judge(st: State, got: Dict, ref: Optional[Dict] = None) -> Dict[str, float]:
     """The comparison's numbers for ``got`` (the program's readings, or the
     control's): ``loss`` epoch 0's mean loss, ``grads`` step 1's gradient,
-    ``params`` the parameters after ``follow_steps`` steps."""
+    ``params`` the parameters after ``follow_steps`` steps.  The program's
+    trained state is freed first, so that the reference fits beside it."""
+    st.result = None
+    if st.device.type == "cuda":
+        torch.cuda.empty_cache()
     ref = ref or follow(st, "fp32")
     init = [t for p in st.layers for t in (p["b"], p["w"])]
     gref = [float(torch.linalg.norm(g)) for g in ref["grads"]]
@@ -234,7 +251,22 @@ def control_readings(st: State, half: bool = False) -> Dict:
             "params": c["params"]}
 
 
-def layer_context(st: State, tracer: Tracer) -> dict:
+def control(st: State, seed: int) -> Dict[str, float]:
+    return judge(st, control_readings(st))
+
+
+FAULTS = {"fault_half_batch":
+          lambda st: judge(st, control_readings(st, half=True))}
+
+
+def layer_context(st: State, m: Measured, tracer: Tracer) -> dict:
     steps = st.traced_epochs * st.traffic["train_batches"]
     return {"kind": "train_lifter", "config": st.cfg, "traffic": st.traffic,
             "tracer": tracer, "steps": steps, "rows": st.batch_size}
+
+
+def tiny(cfg: dict, tr: dict) -> None:
+    """Rehearsal size: 64-row batches of a two-layer 64-wide lifter."""
+    cfg["lifter"]["widths"] = [64, 64]
+    cfg["train"]["batch_size"] = 64
+    tr["train_batches"] = max(tr["follow_steps"] + 1, 4)

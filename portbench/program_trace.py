@@ -131,6 +131,17 @@ def per_root_ms(ctx, root: str, names: Sequence[str]) -> Optional[float]:
     return 1e3 * sum(roots.values()) / len(roots)
 
 
+def root_ms(ctx, root: str) -> Optional[float]:
+    """Mean length (ms) of the stretch's ``root`` spans, their children's
+    time included."""
+    pt = read(ctx)
+    if pt is None:
+        return None
+    t = [b - a for n, a, b, p in zip(pt.names, pt.start, pt.end, pt.parent)
+         if n == root and p is None]
+    return 1e3 * sum(t) / len(t) if t else None
+
+
 def per_span_ms(ctx, name: str) -> Optional[float]:
     """Mean self time (ms) of the stretch's spans named ``name``."""
     pt = read(ctx)

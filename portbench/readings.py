@@ -4,11 +4,13 @@ control's (the reference in the next precision down, in the program's
 place) over a few, in one process so that set-up is paid once a seed.
 
     python3 -m portbench.readings --workload <name> --seeds 1,2,...
-        [--control-seeds 1,2,3] [--seconds 2] [--out FILE] [--cpu]
+        [--control-seeds 1,2,3] [--fault-seeds 1,2,3] [--seconds 2]
+        [--out FILE] [--cpu]
 
-Each reading is a JSON line: {"seed", "side": "program"|"control",
-"checks": {...}}; the lines go to standard output and, with ``--out``, to
-a file.  Not run by the benchmark's own runs."""
+Each reading is a JSON line: {"seed", "side": "program", "control" or the
+name of a fault the cell's loop plants (its ``FAULTS``), "checks": {...}};
+the lines go to standard output and, with ``--out``, to a file.  Not run
+by the benchmark's own runs."""
 
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import json
 import sys
 import time
 
-from portbench.cell import load, loop, manifest
+from portbench.cell import load, manifest
 from portbench.run import cache_dirs, run_cell, tiny
 
 
@@ -27,8 +29,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", default="")
     ap.add_argument("--control-seeds", default="")
     ap.add_argument("--fault-seeds", default="",
-                    help="training: the reference with half of each batch "
-                         "left out, in the program's place")
+                    help="each fault the loop defines (FAULTS), planted in "
+                         "the reference put in the program's place")
     ap.add_argument("--seconds", type=float, default=2.0)
     ap.add_argument("--out")
     ap.add_argument("--cpu", action="store_true")
@@ -39,7 +41,7 @@ def main(argv=None) -> int:
         cell = tiny(cell)
     device = "cpu" if args.cpu else "cuda"
     import torch
-    drv = loop(cell.kind)
+    drv = cell.loop
     sink = open(args.out, "a") if args.out else None
 
     def emit(rec):
@@ -59,18 +61,14 @@ def main(argv=None) -> int:
     for s in [int(x) for x in args.control_seeds.split(",") if x]:
         t = time.time()
         st = drv.setup(cell, s, torch.device(device), build_program=False)
-        if cell.kind == "batch":
-            checks = drv.control(st, s)
-        else:
-            checks = drv.judge(st, drv.control_readings(st))
-        emit({"seed": s, "side": "control", "checks": checks,
+        emit({"seed": s, "side": "control", "checks": drv.control(st, s),
               "seconds": time.time() - t})
     for s in [int(x) for x in args.fault_seeds.split(",") if x]:
-        t = time.time()
-        st = drv.setup(cell, s, torch.device(device), build_program=False)
-        checks = drv.judge(st, drv.control_readings(st, half=True))
-        emit({"seed": s, "side": "fault_half_batch", "checks": checks,
-              "seconds": time.time() - t})
+        for name, fault in getattr(drv, "FAULTS", {}).items():
+            t = time.time()
+            st = drv.setup(cell, s, torch.device(device), build_program=False)
+            emit({"seed": s, "side": name, "checks": fault(st),
+                  "seconds": time.time() - t})
     if sink:
         sink.close()
     return 0

@@ -24,7 +24,7 @@ import sys
 import time
 from typing import Dict, List, Optional
 
-from portbench.cell import HERE, Cell, load, loop, manifest, reader
+from portbench.cell import HERE, Cell, load, manifest, reader
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "mpe3d_tpu")
 TRACE_AT = 0.25          # the traced stretch starts this share into the window
@@ -79,7 +79,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     torch.set_num_threads(min(4, torch.get_num_threads()))
-    drv = loop(cell.kind)
+    drv = cell.loop
     tracer = Tracer(dev) if trace else None
     trace_s = min(TRACE_MAX_S, 0.5 * seconds)
     st = drv.setup(cell, seed, dev)
@@ -87,28 +87,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         tracer.warm()
     if fault is not None:
         fault(st)
-    if cell.kind == "batch":
-        setup_s = time.time() - t_start
-        win = drv.window(st, seconds, seed, tracer, TRACE_AT * seconds,
-                         trace_s)
-        e2e = drv.end_to_end(win)
-        attempted, failed = win.attempted, win.failed
-        info = device_info(dev)
-        checks = drv.judge(st, win.sample)
-        ctx = drv.layer_context(st, win, tracer) if trace else None
-    else:
-        drv.run(st, seconds, tracer, TRACE_AT * seconds, trace_s)
-        setup_s = st.marks["t0"] - time.perf_counter() + time.time() - t_start
-        e2e = drv.end_to_end(st)
-        attempted = st.marks["epochs"] * st.traffic["train_batches"]
-        failed = 0
-        info = device_info(dev)
-        got = drv.program_readings(st)
-        st.result = None
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
-        checks = drv.judge(st, got)
-        ctx = drv.layer_context(st, tracer) if trace else None
+    m = drv.measure(st, seconds, seed, tracer, TRACE_AT * seconds, trace_s)
+    setup_s = m.window_at - t_start
+    e2e = dict(m.end_to_end)
+    attempted, failed = m.attempted, m.failed
+    info = device_info(dev)
+    checks = drv.judge(st, m.got)
+    ctx = drv.layer_context(st, m, tracer) if trace else None
     limits = cell.limits
     compared = {k: {"value": v, "limit": limits[k]} for k, v in checks.items()}
     correct = failed == 0 and all(np.isfinite(v) and v <= limits[k]
@@ -141,19 +126,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
 
 
 def tiny(cell: Cell) -> Cell:
-    """The cell at rehearsal size (``--cpu``): a batch of one union of at
-    most two frames, two pool batches; training on 64-row batches of a
-    two-layer 64-wide lifter."""
+    """The cell at rehearsal size (``--cpu``), as its loop's ``tiny``
+    shrinks copies of its configuration and mix."""
     tr = dict(cell.traffic)
     cfg = json.loads(json.dumps(cell.config))
-    if tr["kind"] == "batch":
-        C = len(cfg["cameras"]["names"])
-        tr.update(chunks=1, chunk_heads=2 * C * tr["slots"], pool_batches=2,
-                  check_batches=1)
-    else:
-        cfg["lifter"]["widths"] = [64, 64]
-        cfg["train"]["batch_size"] = 64
-        tr["train_batches"] = max(tr["follow_steps"] + 1, 4)
+    cell.loop.tiny(cfg, tr)
     cell.traffic, cell.config = tr, cfg
     return cell
 

@@ -10,10 +10,12 @@ import pytest
 import torch
 
 from portbench.cell import load
-from portbench.loops import batch, train_lifter
+from portbench.loops import train_lifter
 from portbench.run import run_cell, tiny
+from portbench.tests.queued import load_any
 
-BATCH = ["panoptic.batch_s4", "panoptic.batch_s16", "arplab.batch_s4"]
+BATCH = ["panoptic.batch_s4", "panoptic.batch_s16", "arplab.batch_s4",
+         "panoptic.stream_live"]
 
 
 def _fails(checks, limits):
@@ -22,9 +24,9 @@ def _fails(checks, limits):
 
 @pytest.mark.parametrize("workload", BATCH)
 def test_batch_control_fails(workload):
-    cell = tiny(load(workload))
-    st = batch.setup(cell, 31, "cpu", build_program=False)
-    assert _fails(batch.control(st, 31), cell.limits)
+    cell = tiny(load_any(workload))
+    st = cell.loop.setup(cell, 31, "cpu", build_program=False)
+    assert _fails(cell.loop.control(st, 31), cell.limits)
 
 
 def test_train_control_fails():
@@ -80,6 +82,21 @@ def test_batch_faults_fail(monkeypatch, fault):
     out = run_cell(cell, 5, 1.0, False, "cpu", time.time(),
                    fault=lambda st: fault(monkeypatch, st))
     assert out["correct"] is False, out["checks"]
+
+
+@pytest.mark.parametrize("fault", [_scores_altered, _person_altered,
+                                   _pose_altered])
+def test_stream_faults_fail(monkeypatch, fault):
+    cell = tiny(load_any("panoptic.stream_live"))
+    out = run_cell(cell, 5, 1.0, False, "cpu", time.time(),
+                   fault=lambda st: fault(monkeypatch, st))
+    assert out["correct"] is False, out["checks"]
+
+
+def test_stream_sound_run_is_correct():
+    cell = tiny(load_any("panoptic.stream_live"))
+    out = run_cell(cell, 5, 1.0, False, "cpu", time.time())
+    assert out["correct"] is True, out["checks"]
 
 
 def test_batch_sound_run_is_correct():

@@ -5,7 +5,10 @@ import json
 import os
 import re
 
+import pytest
+
 from portbench.cell import HERE, ROOT, load, manifest, reader
+from portbench.tests.queued import entries, manifest_with
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -87,3 +90,33 @@ def test_configs_hold_the_published_widths():
         assert cfg["lifter"]["widths"] == [3072, 3072, 2048, 2048, 1024,
                                            1024, 1024, 1024]
         assert cfg["lifter"]["out_dim"] == 54
+
+
+@pytest.mark.parametrize("workload", sorted(
+    f[:-5] for f in os.listdir(os.path.join(HERE, "queued"))))
+def test_queued_cells_are_complete(workload):
+    """A queued cell's entries (``portbench/queued/``) hold to the
+    contract but for the bounds, which its measurement sets, and name
+    nothing BENCHMARK.json names."""
+    more = entries(workload)
+    assert set(more) <= {"workloads", "end_to_end", "per_layer"}
+    man = manifest_with(workload)
+    for key in ("workloads", "end_to_end", "per_layer"):
+        names = [e["name"] for e in man[key]]
+        assert len(names) == len(set(names)) and all(NAME.match(n)
+                                                     for n in names)
+    (w,) = more["workloads"]
+    assert w["name"] == workload and w["chips"] == 1 and _line(w["why"])
+    assert set(w) == {"name", "config", "traffic", "chips", "why"}
+    for m in more["end_to_end"]:
+        assert set(m) == {"name", "unit", "better", "source", "workloads"}
+        assert m["workloads"] == [workload]
+        assert UNIT.match(m["unit"]) and m["source"] == "host_clock"
+    cell = load(workload, man)
+    e2e = [m["name"] for m in cell.end_to_end]
+    assert "setup_s" in e2e and len(e2e) >= 2 and cell.limits
+    for m in more["per_layer"]:
+        assert set(m) == {"name", "unit", "better", "source", "layer",
+                          "moves", "workloads"}
+        assert m["workloads"] == [workload] and m["moves"] in e2e
+        assert callable(reader(m["name"])) and _line(m["layer"])

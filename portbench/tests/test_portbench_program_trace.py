@@ -2,8 +2,8 @@
 (``program_trace.py`` and its metrics) on a fake stretch with known
 answers, its device timestamps 3 ms off the host clock (idle gaps are
 placed through the host records of their launches, so the answers hold),
-and in a ``--cpu --trace 1`` rehearsal of a batch cell and the training
-cell."""
+and in a ``--cpu --trace 1`` rehearsal of a batch cell, the live cell and
+the training cell."""
 
 import json
 import os
@@ -17,13 +17,17 @@ import pytest
 import torch
 
 from portbench import program_trace
-from portbench.cell import ROOT, reader
+from portbench.cell import ROOT, load, reader
+from portbench.run import run_cell, tiny
+from portbench.tests.queued import load_any
 
 ENV = dict(os.environ, PYTHONPATH=ROOT)
 OFFSET = 5.0                  # device clock - host clock in the fake, s
-BATCH_METRICS = ("pack_ms.batch", "features_ms.batch", "issue_ms.batch",
-                 "epilogue_ms.batch", "idle_unplaced.batch",
+BATCH_METRICS = ("pack_ms.batch", "epilogue_ms.batch", "idle_unplaced.batch",
                  "lifter_rows_used.batch")
+FRAME_METRICS = ("frame_submit_ms.live", "frame_collect_ms.live",
+                 "frame_pack_ms.live", "frame_issue_ms.live",
+                 "frame_download_ms.live")
 TRAIN_METRICS = ("grad_ms.train", "update_ms.train",
                  "epoch_tail_idle_ms.train")
 
@@ -133,8 +137,6 @@ def test_batch_readers_known_values(monkeypatch):
     ctx = _batch_ctx(monkeypatch)
     got = {m: reader(m)(ctx) for m in BATCH_METRICS}
     assert got["pack_ms.batch"] == pytest.approx(3.0)       # (2 + 4) / 2
-    assert got["features_ms.batch"] == pytest.approx(3.0)
-    assert got["issue_ms.batch"] == pytest.approx(2.0)
     assert got["epilogue_ms.batch"] == pytest.approx(3.0)
     assert got["idle_unplaced.batch"] == pytest.approx(100.0 * 4.0 / 5.5)
     assert got["lifter_rows_used.batch"] == pytest.approx(20.0)
@@ -159,11 +161,37 @@ def test_nothing_to_read_without_the_programs_trace(monkeypatch):
     monkeypatch.delitem(sys.modules, program_trace.MODULE, raising=False)
     ctx = {"kind": "batch", "tracer": FakeTracer([(100.0, 100.1)]),
            "persons": np.array([1.0])}
-    for m in BATCH_METRICS:
+    for m in BATCH_METRICS + FRAME_METRICS:
         assert reader(m)(dict(ctx)) is None, m
     for m in TRAIN_METRICS:
         assert reader(m)({"kind": "train_lifter",
                           "tracer": ctx["tracer"]}) is None, m
+
+
+def test_frame_readers_known_values(monkeypatch):
+    """Whole ``frame.submit`` / ``frame.collect`` spans, children
+    included, and the submit's parts, of the stretch's frames; none of
+    the batch path's."""
+    spans = [_span("frame.submit", 99.99, 99.995, None, 1)]  # before it
+    for k, at, sub_ms, gat_ms, col_ms in ((2, 100.01, 4.0, 1.0, 1.0),
+                                          (3, 100.03, 6.0, 2.0, 3.0)):
+        i = len(spans)
+        spans.append(_span("frame.submit", at, at + sub_ms * 1e-3, None, k))
+        spans.append(_span("frame.pack", at, at + 1e-3, i))
+        spans.append(_span("chunk.features", at + 1e-3, at + 1.5e-3, i))
+        spans.append(_span("chunk.gat", at + 1.5e-3,
+                           at + (1.5 + gat_ms) * 1e-3, i))
+        spans.append(_span("frame.download", at + 3.5e-3, at + 4e-3, i))
+        at += sub_ms * 1e-3
+        spans.append(_span("frame.collect", at, at + col_ms * 1e-3, None, k))
+    _program(monkeypatch, spans)
+    ctx = {"kind": "batch", "tracer": FakeTracer([(100.0, 100.1)])}
+    assert reader("frame_submit_ms.live")(ctx) == pytest.approx(5.0)
+    assert reader("frame_collect_ms.live")(ctx) == pytest.approx(2.0)
+    assert reader("frame_pack_ms.live")(ctx) == pytest.approx(1.0)
+    assert reader("frame_issue_ms.live")(ctx) == pytest.approx(2.0)
+    assert reader("frame_download_ms.live")(ctx) == pytest.approx(0.5)
+    assert reader("pack_ms.batch")(ctx) is None
 
 
 def test_train_readers_known_values(monkeypatch):
@@ -204,16 +232,39 @@ def _rehearse(workload):
     return json.loads(p.stdout.strip().splitlines()[-1])
 
 
-def test_cpu_rehearsal_reports_the_host_split():
-    out = _rehearse("panoptic.batch_s4")
+def test_cpu_rehearsal_reports_the_host_split(monkeypatch):
+    # in this process, so that the chunk stages' spans (which no reader
+    # reads since a replayed batch records none) can be summed here
+    from mpe3d_tpu_torch.utils import trace as spans
+    spans.clear()
+    cell = tiny(load("panoptic.batch_s4"))
+    kept, context = {}, cell.loop.layer_context
+    monkeypatch.setattr(cell.loop, "layer_context",
+                        lambda st, m, tr: kept.update(context(st, m, tr))
+                        or kept)
+    out = run_cell(cell, 4294967311, 4.0, True, "cpu", time.time())
     m = {k: v["value"] for k, v in out["metrics"].items()}
-    parts = [m[k] for k in ("pack_ms.batch", "features_ms.batch",
-                            "issue_ms.batch", "epilogue_ms.batch")]
+    parts = [m["pack_ms.batch"], m["epilogue_ms.batch"],
+             program_trace.per_root_ms(kept, "batch.submit", (
+                 "chunk.features", "chunk.gat", "chunk.decode",
+                 "chunk.lifter"))]
     assert all(v > 0 for v in parts)
     # the program's spans lie inside the benchmark's clock around submit
     assert 0.5 * m["submit_ms.batch"] < sum(parts) <= m["submit_ms.batch"]
     assert 0 < m["lifter_rows_used.batch"] <= 100
     assert "idle_unplaced.batch" not in m      # no device on the CPU
+    spans.clear()
+    out = run_cell(tiny(load_any("panoptic.stream_live")), 4294967311, 4.0,
+                   True, "cpu", time.time())
+    m = {k: v["value"] for k, v in out["metrics"].items()}
+    assert out["correct"]
+    assert 0 < m["frame_collect_ms.live"] < m["frame_submit_ms.live"]
+    parts = [m[k] for k in ("frame_pack_ms.live", "frame_issue_ms.live",
+                            "frame_download_ms.live")]
+    assert all(v > 0 for v in parts)
+    assert 0.5 * m["frame_submit_ms.live"] < sum(parts) \
+        <= m["frame_submit_ms.live"]
+    assert "submit_ms.batch" not in m and "pack_ms.batch" not in m
     out = _rehearse("panoptic.train_lifter")
     assert out["correct"]
     assert out["metrics"]["grad_ms.train"]["value"] > 0

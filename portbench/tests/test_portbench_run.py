@@ -1,16 +1,20 @@
-"""A run's last lines, the imports a run may load, and a cell added as
-files and manifest entries only."""
+"""A run's last lines, the imports a run may load, a cell added as files
+and manifest entries only, and a loop of a new kind run by ``run_cell``."""
 
 import ast
+import importlib.util
 import json
 import os
 import shutil
 import subprocess
 import sys
+import time
 
 import pytest
 
-from portbench.cell import HERE, ROOT
+from portbench.cell import HERE, ROOT, load
+from portbench.run import run_cell, tiny
+from portbench.tests.queued import load_any
 
 ENV = dict(os.environ, PYTHONPATH=ROOT)
 
@@ -45,6 +49,64 @@ def test_last_line(trace):
     else:
         assert set(out["metrics"]) == {"frames_per_s", "batch_p95_ms",
                                        "setup_s"}
+
+
+def test_stream_cell_rehearses(capsys):
+    """The queued live cell (``portbench/queued/``) at rehearsal size."""
+    cell = tiny(load_any("panoptic.stream_live"))
+    out = run_cell(cell, 4294967303, 1.0, False, "cpu", time.time())
+    assert out["correct"], out["checks"]
+    assert out["attempted"] > 0 and out["failed"] == 0
+    assert set(out["metrics"]) == {"live_frames_per_s", "frame_p95_ms",
+                                   "setup_s"}
+    assert set(out["checks"]) == {"score_gap", "decode_miss", "pose_gap",
+                                  "quality_gap"}
+    err = capsys.readouterr().err.strip().splitlines()
+    assert err[-1].startswith(f"stream: {out['attempted']} frames")
+
+
+NEW_KIND = """
+import time
+from portbench.loops import Measured
+
+def setup(cell, seed, device, build_program=True):
+    return {"seed": seed}
+
+def measure(st, seconds, seed, tracer, trace_at, trace_s):
+    return Measured({"frames_per_s": 4.0}, time.time(), 9, st["failed"],
+                    0.5)
+
+def judge(st, got):
+    return {"gap": got}
+
+def layer_context(st, m, tracer):
+    return {}
+
+def control(st, seed):
+    return {"gap": 2.0}
+
+def tiny(cfg, tr):
+    pass
+"""
+
+
+@pytest.mark.parametrize("failed", [0, 2])
+def test_a_loop_of_a_new_kind_runs_through_run_cell(tmp_path, failed):
+    path = tmp_path / "counted.py"
+    path.write_text(NEW_KIND)
+    spec = importlib.util.spec_from_file_location("portbench_loop_counted",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    cell = load("panoptic.batch_s4")
+    cell.loop, cell.limits = mod, {"gap": 1.0}
+    out = run_cell(cell, 3, 0.1, False, "cpu", time.time(),
+                   fault=lambda st: st.update(failed=failed))
+    assert out["attempted"] == 9 and out["failed"] == failed
+    assert out["correct"] is (failed == 0)
+    assert out["checks"] == {"gap": {"value": 0.5, "limit": 1.0}}
+    assert out["metrics"]["frames_per_s"]["value"] == 4.0
+    assert "setup_s" in out["metrics"]
 
 
 def test_no_card_no_result():
@@ -82,8 +144,10 @@ def test_imports_by_whole_top_level_name():
         rel = os.path.relpath(path, HERE)
         if "mpe3d_tpu_torch" in tops:
             assert rel in ("program.py",) or rel.startswith("tests"), rel
-    code = ("import sys, portbench.reference.pose, "
-            "portbench.reference.lifter_train, portbench.reference.geometry;"
+    refs = sorted(f[:-3] for f in os.listdir(os.path.join(HERE, "reference"))
+                  if f.endswith(".py") and f != "__init__.py")
+    code = ("import sys, " + ", ".join("portbench.reference." + r
+                                       for r in refs) + ";"
             "print(sorted({m.split('.')[0] for m in sys.modules}))")
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
                        capture_output=True, text=True, timeout=120)
