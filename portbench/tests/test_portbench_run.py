@@ -198,3 +198,92 @@ def test_a_cell_added_as_files_only(tmp_path):
     out = json.loads(p.stdout.strip().splitlines()[-1])
     assert out["correct"]
     assert out["metrics"]["persons_per_frame.batch"]["value"] > 0
+
+
+STORED_LOOP = '''
+"""Batches through a stored lifter: the reference's weights read by
+``checkpoints.py``, the program built on the same stem."""
+from portbench import checkpoints, program, weights
+from portbench.loops import batch
+from portbench.loops.batch import control, judge, layer_context, measure, tiny
+
+
+def models(cfg, seed, dev):
+    return (weights.matcher_layers(cfg["matcher"], seed, dev),
+            checkpoints.lifter(cfg["lifter"]["checkpoint"], dev)[0])
+
+
+def build(st):
+    return program.served_pipeline(st.cfg, st.traffic, st.rig, st.device,
+                                   st.mlayers)
+
+
+FORM = batch.Form(models, build, batch.lift_mean_prior)
+
+
+def setup(cell, seed, device, build_program=True):
+    return batch.setup(cell, seed, device, build_program, FORM)
+'''
+
+
+def test_a_stored_lifter_cell_added_as_files_only(tmp_path):
+    """A cell whose lifter is a stored checkpoint: a configuration that
+    names its stem, a mix of a new kind and its loop (the reference's
+    weights from ``checkpoints.py``, the program from
+    ``program.served_pipeline``), limits and manifest entries; no
+    existing file edited.  The stem is a two-layer 64-wide mean-prior
+    lifter stored bf16 by the program's saver, so that
+    ``batch.lift_mean_prior`` is its reference."""
+    import numpy as np
+    import torch
+    from mpe3d_tpu_torch.checkpoint import save_checkpoint
+    from portbench import weights
+    root = tmp_path
+    shutil.copytree(HERE, root / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__", ".cache"))
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        man = json.load(f)
+    before = {p: open(p, "rb").read() for p in
+              (str(q) for q in (root / "portbench").rglob("*") if q.is_file())}
+    lcfg = {"in_dim": 1260, "out_dim": 54, "widths": [64],
+            "negative_slope": 0.1, "residual_prior": False}
+    stored = [{"w": p["w"].view(torch.int16).numpy().view(np.uint16),
+               "b": p["b"].numpy()}
+              for p in weights.lifter_layers(lcfg, 5, "cpu", torch.bfloat16)]
+    save_checkpoint(str(root / "stored" / "pose_estimator"),
+                    {"layers": stored},
+                    meta={"lifter_config": lcfg, "prior": "mean",
+                          "stored": "bf16"})
+    cfg = json.load(open(os.path.join(HERE, "configs", "panoptic.json")))
+    cfg["lifter"] = dict(lcfg, checkpoint="stored/pose_estimator",
+                         prior="mean", stored="bf16")
+    (root / "portbench/configs/panoptic_stored.json").write_text(
+        json.dumps(cfg))
+    mix = json.load(open(os.path.join(HERE, "traffic", "batch_s4.json")))
+    mix.update(kind="batch_stored", why="batch_s4 through a stored lifter")
+    (root / "portbench/traffic/batch_stored.json").write_text(json.dumps(mix))
+    (root / "portbench/loops/batch_stored.py").write_text(STORED_LOOP)
+    (root / "portbench/limits/panoptic_stored.batch_stored.json").write_text(
+        open(os.path.join(HERE, "limits", "panoptic.batch_s4.json")).read())
+    name = "panoptic_stored.batch_stored"
+    man["configs"].append({"name": "panoptic_stored",
+                           "source": man["configs"][0]["source"],
+                           "file": "portbench/configs/panoptic_stored.json",
+                           "reduced": [], "why": "a stored lifter"})
+    man["workloads"].append({"name": name, "config": "panoptic_stored",
+                             "traffic": "batch_stored", "chips": 1,
+                             "why": "batch_s4 through a stored lifter"})
+    for m in man["end_to_end"] + man["per_layer"]:
+        if "workloads" in m and "panoptic.batch_s4" in m["workloads"]:
+            m["workloads"].append(name)
+    (root / "BENCHMARK.json").write_text(json.dumps(man))
+    for p, data in before.items():
+        assert open(p, "rb").read() == data
+    env = dict(os.environ, PYTHONPATH=f"{root}{os.pathsep}{ROOT}")
+    p = _run(["--workload", name, "--seed", "4294967309", "--seconds", "1",
+              "--trace", "1", "--cpu"], cwd=root, env=env)
+    assert p.returncode == 0, p.stderr[-2000:]
+    out = json.loads(p.stdout.strip().splitlines()[-1])
+    assert out["correct"], out["checks"]
+    assert out["attempted"] > 0 and out["failed"] == 0
+    assert "submit_ms.batch" in out["metrics"]
