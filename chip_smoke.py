@@ -50,7 +50,11 @@ failure raises, and the script exits non-zero):
    one launch at M = 16, 32, 64 and 50 against ``run_plain``, two launches
    bit-equal, the M=64 launch's device time in turns against the four
    M=16 launches it replaces (it must be shorter), the int8 layers alone
-   at M=64 (one launch a layer); the decode kernel over a batch (a block a
+   at M=64 (one launch a layer); the wide row classes (65-256 rows, wgmma)
+   on the bf16 Panoptic, int8 ``pan_irls`` and bf16 ARPLAB nets at M = 96,
+   250, 252 and 256 against ``run_plain``, two launches bit-equal, each
+   in turns against the 64-row launches it replaces (it must be shorter)
+   and with the library chain; the decode kernel over a batch (a block a
    frame) on 8 S=4 and 6 S=16 frames against its plain version frame by
    frame.  At the shapes of phase 8 (rows with a "case"): the stack kernel
    at ARPLAB S=4 (in_dim 1082, head degree 20; the trained matcher also
@@ -1936,6 +1940,9 @@ def time_parser(lines, rig_config):
 # phase 3 additions: the run kernel past 16 rows, the decode over a batch
 
 RUN_ROWS = (16, 32, 64, 50)   # the whole nets' row counts (50: ragged)
+# the wide classes' row counts: S=16's chunk (6 x 16), S=4's (25 x 10),
+# ARPLAB's (21 x 12), a full group
+WIDE_ROWS = (96, 250, 252, 256)
 BATCH_DECODE = 8              # frames of the S=4 batched decode check
 BATCH_DECODE16 = 6            # frames of the S=16 one (the union's limit)
 
@@ -2023,6 +2030,73 @@ def check_run_rows(label, lifter, nets, report, replaces, library_of):
           f"library ({lib_label}) {lib_ms:.4f} ms in turns with "
           f"{k_ms:.4f}", flush=True)
     return ms, dev, (d64, d4x16)
+
+
+def check_run_wide(label, lifter, nets, report, replaces, library_of):
+    """Phase 3: the whole net of ``lifter`` as ONE launch of a wide row
+    class at M = 96, 250, 252 and 256 rows against ``run_plain``
+    (MLP_NET_TOL), two launches bit-equal; each M's device time in turns
+    against the 64-row launches it replaces (wide, 64-row groups, 64-row
+    groups, wide), which must be longer, and its call time in turns with
+    the library chain.  Appends a row a M to ``report``; returns
+    {M: (wide device ms, 64-row device ms)}."""
+    import torch
+    from mpe3d_tpu_torch.ops import fused_mlp
+    layers = lifter.packed_layers()
+    slope = lifter.cfg.negative_slope
+    acts = [i < len(layers) - 1 for i in range(len(layers))]
+    lib_label, library = library_of(layers, slope)
+    out = {}
+    for M in WIDE_ROWS:
+        x = run_rows_input(nets, M, M)
+        wide = lambda x=x: fused_mlp.mlp_run(x, layers, slope, acts)  # noqa
+        old = lambda x=x: [fused_mlp.mlp_run(x[m:m + 64], layers,  # noqa
+                                             slope, acts)
+                           for m in range(0, x.shape[0], 64)]
+        before = fused_mlp.mlp_run.launches
+        got, again = wide(), wide()
+        ref = fused_mlp.run_plain(x, layers, slope, acts)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if not (bool(torch.isfinite(got).all()) and err <= MLP_NET_TOL):
+            raise AssertionError(f"{label} wide run, M={M}: max err "
+                                 f"{err:.3g} > {MLP_NET_TOL}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label} wide run, M={M}: two launches "
+                                 f"differ")
+        if fused_mlp.mlp_run.launches - before != 2:
+            raise AssertionError(f"{label} wide run, M={M}: not one launch "
+                                 f"a call")
+        turns = [device_ms(f) for f in (wide, old, old, wide)]
+        d_wide = statistics.median([turns[0], turns[3]])
+        d_old = statistics.median([turns[1], turns[2]])
+        if not d_wide < d_old:
+            raise AssertionError(f"{label}: the M={M} launch's device time "
+                                 f"{d_wide:.4f} ms is not below its 64-row "
+                                 f"launches' {d_old:.4f} ms")
+        bytes_, flops = run_costs(layers, x)
+        t_b, t_f = bytes_ / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS
+        k_ms, lib_ms = in_turns(wide, lambda x=x: library(x))
+        report.append({
+            "name": "mlp_run", "route": "cuda",
+            "source": "mpe3d_tpu_torch/csrc/fused_mlp.cu",
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": median_ms(
+                lambda x=x: fused_mlp.run_plain(x, layers, slope, acts), 5),
+            "bound_ms": 1e3 * max(t_b, t_f),
+            "bound_by": "bytes" if t_b > t_f else "operations",
+            "library_ms": lib_ms, "device_ms": d_wide,
+            "case": f"{label}, M={M} (wide)", "path": "batch",
+            "replaced_device_ms": d_old})
+        out[M] = (d_wide, d_old)
+        print(f"  mlp_run ({label}), wide class at M={M}: max err "
+              f"{err:.3g} (tol {MLP_NET_TOL:g}), two launches bit-equal; "
+              f"device ms in turns (wide, 64-row, 64-row, wide) "
+              + ", ".join(f"{t:.4f}" for t in turns)
+              + f"; call {k_ms:.4f} ms, library ({lib_label}) "
+              f"{lib_ms:.4f} ms in turns; bound {1e3 * max(t_b, t_f):.5f} "
+              f"ms ({report[-1]['bound_by']})", flush=True)
+    return out
 
 
 def bf16_library(layers, slope):
@@ -2176,8 +2250,9 @@ STAGED_FRAMES = 6        # frames of each staged check
 def expected_batch_launches(pipe, frames):
     """Kernel launches ``infer_batch`` gives these frames (``batch_plan``):
     a chunk is one GAT call of the bucket's form, one decode launch, and a
-    run launch a group of 64 lifter rows for each run of the lifter."""
-    from mpe3d_tpu_torch.ops.fused_mlp import MAX_ROWS, launch_plan
+    run launch a group of 256 lifter rows (``row_groups``) for each run of
+    the lifter."""
+    from mpe3d_tpu_torch.ops.fused_mlp import launch_plan, row_groups
     want = dict.fromkeys(launch_counters(), 0)
     S = pipe._batch_slots(frames)
     plan = pipe.batch_plan(S, len(frames))
@@ -2194,7 +2269,7 @@ def expected_batch_launches(pipe, frames):
             want["gat_k1"] += n_gat
             want["gat_k2"] += n_gat - 1
         want["frame_decode_pack"] += 1
-        want["mlp_run"] += runs * -(-m * P // MAX_ROWS)
+        want["mlp_run"] += runs * len(row_groups(m * P))
     return want, plan
 
 
@@ -2866,6 +2941,8 @@ def check_variant_kernels(V, report):
                                  "mpe3d_tpu/ops/fused_mlp.py:57",
                                  bf16_library)
     rows[-1].update(case="bf16 ARPLAB, M=64", path="arplab_bf16_batch")
+    check_run_wide("bf16 ARPLAB", ab.lifter, nets, rows,
+                   "mpe3d_tpu/ops/fused_mlp.py:57", bf16_library)
     rows.append(run_entry("bf16 BODY_25", bp.lifter,
                           bp.stage_inputs(b25.frames[0][0])[3],
                           "mpe3d_tpu/ops/fused_mlp.py:57", bf16_library,
@@ -4924,6 +5001,10 @@ def main() -> int:
         "bf16, pan_irls_bf16", gpu_r.lifter, nets8, report,
         "mpe3d_tpu/ops/fused_mlp.py:57", bf16_library)
     check_run_rows("int8, pan_irls", irls_gpu.lifter, nets8, report,
+                   "mpe3d_tpu/ops/fused_mlp.py:80", int8_net_library)
+    check_run_wide("bf16, pan_irls_bf16", gpu_r.lifter, nets8, report,
+                   "mpe3d_tpu/ops/fused_mlp.py:57", bf16_library)
+    check_run_wide("int8, pan_irls", irls_gpu.lifter, nets8, report,
                    "mpe3d_tpu/ops/fused_mlp.py:80", int8_net_library)
     check_int8_rows64(irls_gpu.lifter, nets8, report)
     check_batch_decode(gpu_r, frames, trained16, frames16, report)

@@ -41,7 +41,7 @@ from torch import nn
 
 from mpe3d_tpu_torch.config import LifterConfig
 from mpe3d_tpu_torch.ops.fused_mlp import (Fp32Layer, Int8Layer,
-                                           fused_mlp_forward,
+                                           fused_mlp_forward, mlp_run,
                                            pack_fp32_layer, pack_int8_layer,
                                            pack_layer)
 from mpe3d_tpu_torch.utils import trace
@@ -176,10 +176,15 @@ class Lifter(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [M, in_dim] packed inputs (fp32) -> [M, out_dim] decameters.
-        Counts the M rows under ``lifter.rows`` (``utils/trace.py``)."""
+        Counts the M rows under ``lifter.rows`` and the run kernel's
+        launches under ``lifter.launches`` (``utils/trace.py``; none on the
+        CPU, where the plain version runs)."""
         trace.count("lifter.rows", x.shape[0])
+        before = mlp_run.launches
         h = fused_mlp_forward(x, self.packed_layers(),
                               self.cfg.negative_slope, self.cfg.out_dim)
+        if mlp_run.launches != before:
+            trace.count("lifter.launches", mlp_run.launches - before)
         if self.cfg.residual_prior:
             h = h + extract_prior(x, self.cfg)
         return h

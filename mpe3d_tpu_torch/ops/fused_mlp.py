@@ -16,9 +16,9 @@ A packed lifter is a list of layers of three kinds:
   reference computes its fp32 lifter in XLA, outside any Pallas kernel).
 
 Each maximal run of consecutive bf16 and int8 layers is ONE launch of the
-run kernel ``mlp_run`` (``launch_plan``) for up to 64 rows: the whole
-network of a bf16 or an int8 lifter; more rows (a batch of frames) take a
-launch a group of 64 (``run_layers``), each streaming the weights once.
+run kernel ``mlp_run`` (``launch_plan``) for up to 256 rows: the whole
+network of a bf16 or an int8 lifter; more rows take a launch a group of
+256 (``run_layers``, ``row_groups``), each streaming the weights once.
 LeakyReLU follows every layer but the last.  Activations are
 fp32 between layers and rounded to bf16 (round to nearest even) as
 operands, as ``fused_mlp.py:114-117`` does; an int8 layer's input is first
@@ -37,7 +37,25 @@ grid barrier between layers.  ``plan_run`` decides which block owns which
 turns a plan into the kernel's device tables, built once per packed run and
 row count.  The kernel's row classes (up to 8, 16, 32, 64 rows) differ
 in shared memory: past 16 rows the ring is shallower, past 32 a K-chunk is
-at most 512 rows (``kc_max``, ``run_smem_bytes``).
+at most 512 rows (``kc_max``, ``run_smem_bytes``).  Their plans and tables
+are pinned (``tests/test_torch_batch.py``): the frame path's lifter (M =
+P = 10-16) launches as it always did.
+
+The wide row classes (65-128 and 129-256 rows, ``row_tiles`` 16 and 32)
+take a batch chunk's rows in one launch (250 at S=4, 252 in ARPLAB, 96 at
+S=16): wgmma with the slab's columns from registers and the activation
+rows from a swizzled window in shared memory (a stage's sums added in
+fp32, so no tensor-core sum runs past 128 k-rows), chunks of whole ring
+stages (``stage_rows``), a bf16 stage's window copied while the stage
+before computes (an int8 stage's 256 rows staged in a window of
+``kc_max`` rows), the run's x converted to bf16 once by all blocks, and a
+split layer's partials summed by every block, a share each (the tables'
+last layer field: splits << 40 | partial offset).  The plan counts the
+activation rows a block copies (``_wide_cost``).  Bound for the serving
+lifter at 250 rows: 17.4 us of weight bytes against 14.7 us of bf16
+tensor math; one launch takes 0.16 ms of device time on an H100 where
+four 64-row launches took 0.69 ms (PERF.md, the kernel table).  int8 runs
+take the same classes.
 
 Weights are packed once (``pack_layer``, ``pack_int8_layer``,
 ``pack_fp32_layer``): the output width is padded to a multiple of 16 with
@@ -62,7 +80,12 @@ import torch
 from mpe3d_tpu_torch.ops import _build, quant_matmul
 
 COLS = 16              # output widths are padded to a multiple of this
-MAX_ROWS = 64          # activation rows one launch of the run kernel serves
+MAX_ROWS = 64          # activation rows of the narrow row classes (8-64)
+GROUP_ROWS = 256       # rows one launch serves (the wide classes):
+#                        run_layers launches a group of at most this many
+PIECE = 64             # rows of one wide-class wgmma
+WIDE_STAGES = 5        # the wide classes' ring stages
+WIDE_XS_BYTES = 128 * 1024   # the wide classes' staged window
 SLAB = 64              # output columns of a run tile
 KBLOCK = 16            # rows of a k-block; K-chunks are whole k-blocks
 KC_MAX = 1024          # rows of a K-chunk (the kernel stages its activations)
@@ -224,34 +247,59 @@ def run_layers(x: torch.Tensor, layers: Sequence[Union[Bf16Layer, Int8Layer]],
                slope: float, acts: Sequence[bool]) -> torch.Tensor:
     """A run of consecutive bf16 and int8 layers, x [M, K0] fp32 ->
     [M, Np] fp32: the plain version for CPU tensors; for CUDA tensors the
-    run kernel, one launch a group of at most 64 rows."""
+    run kernel, one launch a group of ``row_groups`` (at most 256 rows)."""
     if x.device.type == "cpu":
         return run_plain(x, layers, slope, acts)
     if x.device.type != "cuda":
         raise ValueError(f"run_layers: unsupported device {x.device}")
-    if x.shape[0] <= MAX_ROWS:
+    groups = row_groups(x.shape[0])
+    if len(groups) == 1:
         return mlp_run(x, layers, slope, acts)
-    return torch.cat([mlp_run(x[m:m + MAX_ROWS], layers, slope, acts)
-                      for m in range(0, x.shape[0], MAX_ROWS)])
+    return torch.cat([mlp_run(x[m0:m1], layers, slope, acts)
+                      for m0, m1 in groups])
+
+
+def row_groups(M: int) -> List[Tuple[int, int]]:
+    """The rows [m0, m1) of each launch ``run_layers`` makes for a run on
+    M rows: groups of GROUP_ROWS, the last one ragged."""
+    return [(m, min(m + GROUP_ROWS, M)) for m in range(0, M, GROUP_ROWS)]
 
 
 # ---- the run kernel's tile plan ----------------------------------------
 
 def row_tiles(M: int) -> int:
-    """n8 tiles of the kernel's row class for M rows: 1, 2, 4 or 8."""
-    return 1 if M <= 8 else 2 if M <= 16 else 4 if M <= 32 else 8
+    """n8 tiles of the kernel's row class for M rows: 1, 2, 4 or 8, and 16
+    or 32 for the wide classes (65 to 128, 129 to 256 rows)."""
+    return (1 if M <= 8 else 2 if M <= 16 else 4 if M <= 32 else 8
+            if M <= MAX_ROWS else 16 if M <= 2 * MAX_ROWS else 32)
 
 
 def kc_max(M: int) -> int:
     """Rows of a K-chunk the row class of M rows stages (``Rows<NT>::KC``
-    in ``csrc/fused_mlp.cu``)."""
+    in ``csrc/fused_mlp.cu``); for a wide class the k-rows of its int8
+    window (``WideRows::KCW``): 512 of 128 rows, 256 of 256 rows.  A wide
+    tile's chunk may be longer: the kernel stages it window by window."""
+    if M > MAX_ROWS:
+        return WIDE_XS_BYTES // (row_tiles(M) * 8 * 128) * 64
     return KC_MAX if M <= 32 else KC_MAX // 2
+
+
+def stage_rows(M: int, int8: bool) -> int:
+    """Rows a wide-class chunk is a multiple of (a ring stage: 128 bf16
+    rows, 256 int8 rows), so that every stage is whole; a k-block (16
+    rows) for the narrow classes."""
+    if M <= MAX_ROWS:
+        return KBLOCK
+    return STAGE_BYTES // (SLAB * (1 if int8 else 2))
 
 
 def run_smem_bytes(M: int) -> int:
     """Dynamic shared memory of the row class of M rows (``Rows<NT>::
     SMEM``): the ring (10 stages up to 16 rows, else 8), the staged chunk
-    (8 NT rows, at least 16, of kc_max + 8 bf16) and the warp sums."""
+    (8 NT rows, at least 16, of kc_max + 8 bf16) and the warp sums; the
+    wide class's ring of 5 stages, its window and 1 KB to align it."""
+    if M > MAX_ROWS:
+        return WIDE_STAGES * STAGE_BYTES + WIDE_XS_BYTES + 1024
     nt = row_tiles(M)
     stages = 10 if nt <= 2 else 8
     return (stages * STAGE_BYTES + max(nt * 8, 16) * (kc_max(M) + 8) * 2
@@ -259,8 +307,9 @@ def run_smem_bytes(M: int) -> int:
 
 
 def partial_cap(M: int) -> int:
-    """Floats of slab partials one pass of the kernel's reduction holds
-    (its staged chunk's space)."""
+    """Floats of slab partials one pass of the narrow classes' reduction
+    holds (its staged chunk's space); the wide classes reduce a share a
+    block straight from the partials, with no such pass."""
     nt = row_tiles(M)
     return max(nt * 8, 16) * (kc_max(M) + 8) * 2 // 4
 
@@ -270,11 +319,12 @@ def split_cost_rows(M: int) -> int:
     return SPLIT_COST_ROWS if M <= 16 else WIDE_SPLIT_COST_ROWS * M // 16
 
 
-def max_splits(M: int, K: int) -> int:
+def max_splits(M: int, K: int, int8: bool = False) -> int:
     """K-chunks a layer of K rows may have on M rows: up to 16 rows as
     many as one pass reduces (8192 floats of M x 64 partials), past that 8
-    (the reduction goes in passes), and at most its k-blocks."""
-    return min(_cdiv(K, KBLOCK),
+    (the reduction goes in passes), and at most its k-blocks (its whole
+    stages on the wide classes)."""
+    return min(_cdiv(K, stage_rows(M, int8)),
                MAX_PARTIAL_FLOATS // (min(M, 16) * SLAB))
 
 class RunTile(NamedTuple):
@@ -304,14 +354,15 @@ class RunPlan(NamedTuple):
     blocks: Tuple[Tuple[RunTile, ...], ...]
 
 
-def chunk_rows(K: int, splits: int, chunk: int) -> Tuple[int, int]:
+def chunk_rows(K: int, splits: int, chunk: int,
+               unit: int = KBLOCK) -> Tuple[int, int]:
     """Weight rows [r0, r1) of K-chunk ``chunk``: the layer's
-    ceil(K / 16) k-blocks cut into ``splits`` near-equal runs; r1 of the
-    last chunk is rounded up to a whole k-block (the kernel zero-fills rows
-    past K)."""
-    nkb = _cdiv(K, KBLOCK)
-    return (chunk * nkb // splits * KBLOCK,
-            (chunk + 1) * nkb // splits * KBLOCK)
+    ceil(K / unit) units (k-blocks; whole stages on the wide classes,
+    ``stage_rows``) cut into ``splits`` near-equal runs; r1 of the last
+    chunk is rounded up to a whole unit (the kernel zero-fills rows past
+    K)."""
+    nkb = _cdiv(K, unit)
+    return (chunk * nkb // splits * unit, (chunk + 1) * nkb // splits * unit)
 
 
 def run_splits(K: int, N: int, M: int, n_blocks: int,
@@ -321,23 +372,49 @@ def run_splits(K: int, N: int, M: int, n_blocks: int,
     plus a cost for each extra chunk of a slab (its partial's round trip);
     at most ``max_splits`` chunks of at most ``kc_max`` rows; fewer splits
     on ties.  Costs are in bytes of a 64-column slab row over 64: 2 a bf16
-    row, 1 an int8 row."""
+    row, 1 an int8 row.  The wide classes (M > 64) copy a chunk's
+    activations stage by stage: their chunks have no length limit, and the
+    block that pays most, activations included, is counted
+    (``_wide_cost``)."""
     n_slabs, nkb = _cdiv(N, SLAB), _cdiv(K, KBLOCK)
     row_cost = 1 if int8 else 2
     best = None
-    for s in range(1, max_splits(M, K) + 1):
+    for s in range(1, max_splits(M, K, int8) + 1):
         rows = _cdiv(nkb, s) * KBLOCK
         per = _cdiv(n_slabs * s, n_blocks)
-        if rows > kc_max(M) or per > MAX_LAYER_TILES:
+        if per > MAX_LAYER_TILES:
             continue
-        cost = (per * (rows * row_cost + 2 * TILE_COST_ROWS)
-                + 2 * (s - 1) * split_cost_rows(M))
+        if M > MAX_ROWS:
+            cost = _wide_cost(K, n_slabs, M, n_blocks, s, int8)
+        elif rows > kc_max(M):
+            continue
+        else:
+            cost = per * (rows * row_cost + 2 * TILE_COST_ROWS)
+        cost += 2 * (s - 1) * split_cost_rows(M)
         if best is None or cost < best[0]:
             best = (cost, s)
     if best is None:
         raise ValueError(f"no run plan for a {K} x {N} layer on {n_blocks} "
                          f"blocks")
     return best[1]
+
+
+def _wide_cost(K: int, n_slabs: int, M: int, n_blocks: int, s: int,
+               int8: bool) -> float:
+    """The most a block of a wide class pays in a layer cut into ``s``
+    chunks: its tiles' weight rows, their activation rows (2 M bytes a
+    row: every tile copies its own) and fixed costs, in the units of
+    ``run_splits``."""
+    T, unit = n_slabs * s, stage_rows(M, int8)
+    row = (1 if int8 else 2) + 2 * M / 64
+    worst = 0.0
+    for b in range(n_blocks):
+        cost = 0.0
+        for t in range(b * T // n_blocks, (b + 1) * T // n_blocks):
+            r0, r1 = chunk_rows(K, s, t // n_slabs, unit)
+            cost += (r1 - r0) * row + 2 * TILE_COST_ROWS
+        worst = max(worst, cost)
+    return worst
 
 
 def plan_run(shapes: Sequence[Tuple[int, int]], M: int, n_blocks: int,
@@ -347,20 +424,21 @@ def plan_run(shapes: Sequence[Tuple[int, int]], M: int, n_blocks: int,
     ``n_blocks`` blocks: per layer ``run_splits`` K-chunks of every
     64-column slab; the layer's tiles, chunk-major, cut into ``n_blocks``
     contiguous near-equal ranges, one a block."""
-    if not 1 <= M <= MAX_ROWS:
-        raise ValueError(f"the run kernel serves 1..{MAX_ROWS} rows, got {M}")
+    if not 1 <= M <= GROUP_ROWS:
+        raise ValueError(f"the run kernel serves 1..{GROUP_ROWS} rows, got "
+                         f"{M}")
     int8 = [False] * len(shapes) if int8 is None else list(int8)
     layers, blocks = [], [[] for _ in range(n_blocks)]
     for i, ((K, N), q) in enumerate(zip(shapes, int8)):
         s = run_splits(K, N, M, n_blocks, q)
         n_slabs = _cdiv(N, SLAB)
         layers.append(RunLayer(K, N, n_slabs, s, bool(q)))
-        T = n_slabs * s
+        T, unit = n_slabs * s, stage_rows(M, q)
         for b in range(n_blocks):
             for t in range(b * T // n_blocks, (b + 1) * T // n_blocks):
                 chunk, slab = divmod(t, n_slabs)
                 blocks[b].append(RunTile(i, slab, chunk,
-                                         *chunk_rows(K, s, chunk)))
+                                         *chunk_rows(K, s, chunk, unit)))
     if len(shapes) > MAX_RUN_LAYERS or max(map(len, blocks)) > MAX_BLOCK_TILES:
         raise ValueError(f"a run of {len(shapes)} layers on {n_blocks} blocks "
                          f"exceeds the kernel's tables ({MAX_RUN_LAYERS} "
@@ -392,9 +470,17 @@ def run_tables(plan: RunPlan, ptrs: Sequence[Tuple[int, int, int, int]],
     blocks in chunk order.  A layer row: weights, bias, K, N, LeakyReLU,
     input and output offsets (bf16 elements; -1: the run's x / y), int8,
     scales, its own row scales (read where it takes the run's x), the next
-    layer's row scales (0: none), 0."""
+    layer's row scales (0: none), 0.
+
+    The wide classes (M > 64) keep no slab counters: their sync words are
+    a barrier a layer (its outputs written), one a layer (its partials
+    written: every block then reduces a share) and the prologue's; the
+    prologue writes the run's x as bf16 rows of K0 rounded up to 16 after
+    the activations, the first layer's input offset; a split layer's last
+    field is its splits << 40 | its partials' float offset."""
     M, L = plan.M, len(plan.layers)
-    act_off, part_off, n_sync = [], [], L
+    wide = M > MAX_ROWS
+    act_off, part_off, n_sync = [], [], 2 * L + 1 if wide else L
     counter, a, p = {}, 0, 0
     for i, lay in enumerate(plan.layers):
         act_off.append(a if i < L - 1 else -1)
@@ -402,18 +488,24 @@ def run_tables(plan: RunPlan, ptrs: Sequence[Tuple[int, int, int, int]],
         part_off.append(p)
         if lay.splits > 1:
             p += lay.n_slabs * lay.splits * M * SLAB
-            for j in range(lay.n_slabs):
+            for j in range(0 if wide else lay.n_slabs):
                 counter[i, j] = n_sync
                 n_sync += 1
+    x_off = -1
+    if wide:
+        x_off = a
+        a += M * _round_up(plan.layers[0].K, KBLOCK)
     layer_rows = []
     for i, (lay, (w, b, scale, rscale), act) in enumerate(
             zip(plan.layers, ptrs, acts)):
         nxt = i + 1 < L and plan.layers[i + 1].int8
         layer_rows.append([w, b, lay.K, lay.N, int(act),
-                           act_off[i - 1] if i else -1, act_off[i],
+                           act_off[i - 1] if i else x_off, act_off[i],
                            int(lay.int8), scale if lay.int8 else 0,
                            rscale if lay.int8 else 0,
-                           ptrs[i + 1][3] if nxt else 0, 0])
+                           ptrs[i + 1][3] if nxt else 0,
+                           lay.splits << 40 | part_off[i]
+                           if wide and lay.splits > 1 else 0])
     tile_rows, block_tiles = [], [0]
     for tiles in plan.blocks:
         for t in tiles:
@@ -487,15 +579,15 @@ def _check_run_layers(layers: Sequence[Union[Bf16Layer, Int8Layer]], K0: int,
 
 def mlp_run(x: torch.Tensor, layers: Sequence[Union[Bf16Layer, Int8Layer]],
             slope: float, acts: Sequence[bool]) -> torch.Tensor:
-    """Launch the run kernel on CUDA tensors: x [M, K0] fp32, M <= 64.
+    """Launch the run kernel on CUDA tensors: x [M, K0] fp32, M <= 256.
     The layers are checked and the plan and its device tables built at the
     first call for these layers and this M, and kept; a call then checks
     only x."""
     dev = x.device
     if (x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous()
-            or not 1 <= x.shape[0] <= MAX_ROWS):
+            or not 1 <= x.shape[0] <= GROUP_ROWS):
         raise ValueError(f"mlp_run: x must be a contiguous float32 "
-                         f"[M <= {MAX_ROWS}, K] matrix, got {x.dtype} "
+                         f"[M <= {GROUP_ROWS}, K] matrix, got {x.dtype} "
                          f"{tuple(x.shape)}")
     M = x.shape[0]
     # the layers' addresses and shapes name the tables (a layer moved or

@@ -125,9 +125,11 @@ quality column, the person mask, the views), and ``batch.download`` (the
 output concatenation and the pinned download); on a replayed batch
 ``batch.replay`` (the graph's launch) takes the chunks' place and the
 download is the copy alone.  Counters: ``batch.capture`` (a batch body
-captured), ``batch.replay`` (a batch whose body ran as a replay) and
+captured), ``batch.replay`` (a batch whose body ran as a replay),
 ``lifter.rows`` (on a replay, the rows its graph gives the lifter: the
-frames times the person slots).  ``batch.collect`` is the
+frames times the person slots) and ``lifter.launches`` (the run kernel's
+launches for the lifter; on a replay the graph's, counted at its
+capture).  ``batch.collect`` is the
 whole ``collect_batch`` under the ticket's key.  The frame path has the
 same stages under ``frame.submit`` (``frame.pack``, ``frame.download``)
 and ``frame.collect``.
@@ -350,14 +352,15 @@ class _CudaGraph:
 class _Graph(NamedTuple):
     """A captured batch body: the graph, its static input (the packed
     upload's device buffer) and outputs, what its launches read through
-    addresses baked in at the capture (kept alive with it), and the
-    capture's host seconds."""
+    addresses baked in at the capture (kept alive with it), the capture's
+    host seconds, and the lifter's run launches the graph holds."""
 
     graph: object
     input: torch.Tensor
     outputs: Tuple[torch.Tensor, ...]
     held: tuple
     capture_s: float
+    lifter_launches: int
 
 
 _SEEN, _EAGER = "seen", "eager"     # a key seen once; one that will not capture
@@ -405,6 +408,7 @@ class _BatchGraphs:
             self._stream = torch.cuda.Stream(self.device)
         graph = self.graph_type(self._stream)
         t0, before = time.perf_counter(), _kernel_state()
+        launches = fused_mlp.mlp_run.launches
         try:
             out = graph.capture(body)
         except RuntimeError as exc:     # CUDA's and the launches' errors
@@ -415,7 +419,8 @@ class _BatchGraphs:
             return None
         self.entries[key] = _Graph(graph, inp, out,
                                    (before, _kernel_state(), held),
-                                   time.perf_counter() - t0)
+                                   time.perf_counter() - t0,
+                                   fused_mlp.mlp_run.launches - launches)
         return self.entries[key]
 
     def clear(self) -> None:
@@ -1181,6 +1186,8 @@ class PoseEstimationPipeline:
                 trace.count("batch.replay")
                 if state is entry:      # a capture counts its rows itself
                     trace.count("lifter.rows", n * self._p_max(S))
+                    if entry.lifter_launches:
+                        trace.count("lifter.launches", entry.lifter_launches)
                 with trace.span("batch.download"):
                     return ((frames,) + self._download(entry.outputs)
                             + (entry, key))

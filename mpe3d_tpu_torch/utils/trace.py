@@ -4,7 +4,9 @@
 The batch path (``pipeline.py``: ``batch.submit`` and its stages), the
 frame path's roots, the lifter trainer's epoch (``train/lifter.py``) and
 the evaluation runners' timed sections (``eval/timing.py``) open their
-regions here, and ``Lifter.forward`` counts the rows it lifts.
+regions here, and ``Lifter.forward`` counts the rows it lifts
+(``lifter.rows``) and the run kernel's launches it makes
+(``lifter.launches``).
 
 * ``span(name, key=None)`` is a context manager.  While a profiler
   session is active it records ``(name, start_ns, end_ns, parent, key)``:

@@ -13,8 +13,10 @@ JAX's, poses within 1e-2 m (the bf16 lifter's rounding cascade,
 per-frame scores within 1e-6 (the same arithmetic on rows of a larger
 matrix: summation order only) in the stack and the tiled form; the
 batched decode's plain version equals it frame by frame exactly; and the
-lifter run kernel's plan at 17 to 64 rows fits its shared memory and
-partial limits, with the plan's emulation held to the plain layers.
+lifter run kernel's plan at 17 to 256 rows fits its shared memory and
+partial limits (past 64 rows the wide classes' whole-stage chunks), with
+the plan's emulation held to the plain layers; up to 64 rows its plans
+and tables are pinned, and a run's rows go in launches of 256.
 """
 
 import os
@@ -286,37 +288,130 @@ def test_empty_frames_batch(trees):
         assert got[0].poses.shape == (0, 18, 3)
 
 
-@pytest.mark.parametrize("M", [17, 32, 50, 64])
+@pytest.mark.parametrize("M", [17, 32, 50, 64, 65, 96, 250, 252, 256])
 @pytest.mark.parametrize("net", ["serving", "pan_irls"])
 def test_run_plan_fits_the_kernel_past_16_rows(M, net):
-    """The lifter run's plan for 17 to 64 rows: its row class's shared
-    memory within what a block may have, chunks of at most ``kc_max``
-    rows, at most ``max_splits`` chunks a slab; each tile owned once, its
-    slab's chunks covering the rows once."""
+    """The lifter run's plan for 17 to 256 rows: its row class's shared
+    memory within what a block may have, at most ``max_splits`` chunks a
+    slab; each tile owned once, its slab's chunks covering the rows once.
+    Up to 64 rows chunks of at most ``kc_max`` rows, and one pass of the
+    reduction holds a row of every chunk; on the wide classes (65 to 256
+    rows) chunks of whole ring stages (128 bf16 rows, 256 int8 rows),
+    staged in windows of ``kc_max`` rows of 128 or 256 activation rows
+    that fill the window's 128 KB."""
     int8 = [net == "pan_irls"] * 8 + [False]
     plan = fm.plan_run(SERVING, M, 132, int8)
     assert fm.run_smem_bytes(M) + fm.STATIC_SMEM <= fm.SMEM_OPTIN
-    assert fm.kc_max(M) == (1024 if M <= 32 else 512)
+    if M <= fm.MAX_ROWS:
+        assert fm.kc_max(M) == (1024 if M <= 32 else 512)
+    else:
+        rows = 128 if M <= 128 else 256
+        assert fm.row_tiles(M) * 8 == rows
+        assert fm.kc_max(M) == (512 if M <= 128 else 256)
+        assert rows * fm.kc_max(M) * 2 == fm.WIDE_XS_BYTES
     seen = set()
     for tiles in plan.blocks:
         assert len(tiles) <= fm.MAX_BLOCK_TILES
         for t in tiles:
-            assert 0 < t.r1 - t.r0 <= fm.kc_max(M)
+            if M <= fm.MAX_ROWS:
+                assert 0 < t.r1 - t.r0 <= fm.kc_max(M)
+            else:
+                unit = fm.stage_rows(M, int8[t.layer])
+                assert unit == (256 if int8[t.layer] else 128)
+                assert t.r0 % unit == 0 and (t.r1 - t.r0) % unit == 0
+                assert t.r1 > t.r0 and fm.kc_max(M) >= unit
             assert (t.layer, t.slab, t.chunk) not in seen
             seen.add((t.layer, t.slab, t.chunk))
-    for (K, N), lay in zip(SERVING, plan.layers):
-        assert 1 <= lay.splits <= fm.max_splits(M, K)
-        # one pass of the reduction holds at least a row of every chunk
-        assert fm.partial_cap(M) // lay.splits >= fm.SLAB
+    for l, ((K, N), lay) in enumerate(zip(SERVING, plan.layers)):
+        assert 1 <= lay.splits <= fm.max_splits(M, K, int8[l])
+        if M <= fm.MAX_ROWS:
+            # one pass of the reduction holds at least a row of every chunk
+            assert fm.partial_cap(M) // lay.splits >= fm.SLAB
+        # the slab's chunks cover its rows once, the last past K
+        unit = fm.stage_rows(M, int8[l])
+        spans = sorted(fm.chunk_rows(K, lay.splits, c, unit)
+                       for c in range(lay.splits))
+        assert spans[0][0] == 0 and spans[-1][1] >= K
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
     assert len(seen) == sum(lay.n_slabs * lay.splits for lay in plan.layers)
 
 
-@pytest.mark.parametrize("M", [17, 32, 64])
+# digests of the plans and device tables of the run kernel up to 64 rows,
+# as they were before the wide classes (a hash of the plan and of every
+# table, on 132 blocks and made-up addresses)
+NARROW_TABLES = {
+    ("serving", 1): "d75d8392da629d85", ("serving", 8): "02c959535693bc28",
+    ("serving", 10): "722611994d30055c", ("serving", 16): "c649716f56adb2b4",
+    ("serving", 17): "0f41f602e606f6e7", ("serving", 32): "67eb341adc726c8f",
+    ("serving", 50): "1ab088b1a2026522", ("serving", 64): "f716e8bb6eed960c",
+    ("arplab", 1): "019c816e07027894", ("arplab", 8): "7c916e93ddf798df",
+    ("arplab", 10): "48d52fa1d3841f74", ("arplab", 16): "0e9361af9e9d52fd",
+    ("arplab", 17): "5d48914fce186582", ("arplab", 32): "aaba2ace8ddff8ad",
+    ("arplab", 50): "484c14522d1d05e9", ("arplab", 64): "af926fb05e45d2f7",
+    ("pan_irls", 1): "3c5aacb1eca86ec2", ("pan_irls", 8): "a450810dc8f3d408",
+    ("pan_irls", 10): "f5172eee8e2fe9b8",
+    ("pan_irls", 16): "39642a3ebd172eda",
+    ("pan_irls", 17): "fd228420a79ac5af",
+    ("pan_irls", 32): "a4c47ef906be7ab7",
+    ("pan_irls", 50): "9581b187017db91e",
+    ("pan_irls", 64): "58952a6f60570bd2",
+    ("narrow", 1): "7292e758149107c3", ("narrow", 8): "cc19d32756cb3d21",
+    ("narrow", 10): "cc12d0a3c74697b4", ("narrow", 16): "b510f6247294d3f6",
+    ("narrow", 17): "58ba8fa4b2370f98", ("narrow", 32): "d5596faf3c1c337d",
+    ("narrow", 50): "a15c378af6f54b69", ("narrow", 64): "87d360abb93af98b",
+}
+
+
+@pytest.mark.parametrize("net, M", list(NARROW_TABLES))
+def test_run_tables_up_to_64_rows_unchanged(net, M):
+    """Up to 64 rows the run kernel's plan and device tables are the ones
+    it had before the wide classes joined (the frame path's lifter, M =
+    P = 10-16, serving and the eager path launch as before): the serving,
+    ARPLAB, ``pan_irls`` and the narrow ragged net, bit for bit."""
+    import hashlib
+    shapes, int8 = {"serving": (SERVING, None),
+                    "arplab": (((1512, 3072),) + SERVING[1:], None),
+                    "pan_irls": (SERVING, [True] * 8 + [False]),
+                    "narrow": (NARROW, None)}[net]
+    kinds = int8 or [False] * len(shapes)
+    plan = fm.plan_run(shapes, M, 132, int8)
+    ptrs = [(1000 * (i + 1), 2000 * (i + 1), 3000 * (i + 1) if q else 0,
+             4000 * (i + 1) if q else 0) for i, q in enumerate(kinds)]
+    acts = [i < len(shapes) - 1 for i in range(len(shapes))]
+    tables = fm.run_tables(plan, ptrs, acts, "cpu")
+    h = hashlib.sha256(repr(plan).encode())
+    for t in (tables.layers, tables.tiles, tables.block_tiles):
+        h.update(t.numpy().tobytes())
+    h.update(repr(tables[3:]).encode())
+    assert h.hexdigest()[:16] == NARROW_TABLES[net, M]
+
+
+@pytest.mark.parametrize("M, groups", [
+    (1, [(0, 1)]), (64, [(0, 64)]), (65, [(0, 65)]), (250, [(0, 250)]),
+    (256, [(0, 256)]), (300, [(0, 256), (256, 300)]),
+    (600, [(0, 256), (256, 512), (512, 600)])])
+def test_run_row_groups(M, groups):
+    """A run on M rows is one launch up to 256 rows (the wide classes past
+    64) and a launch a group of 256 past that, whatever its layer kinds:
+    an int8 run groups its rows as a bf16 one, and its plan takes the wide
+    class; ``int8_layer_matmul`` keeps its 64-row groups."""
+    assert fm.row_groups(M) == groups
+    for m0, m1 in groups:
+        for int8 in (None, [True] * 8 + [False]):
+            plan = fm.plan_run(SERVING, m1 - m0, 132, int8)
+            assert plan.M == m1 - m0
+            assert fm.row_tiles(plan.M) == (32 if plan.M > 128 else 16
+                                            if plan.M > 64 else
+                                            fm.row_tiles(plan.M))
+    assert fm.MAX_ROWS == 64 and fm.GROUP_ROWS == 256
+
+
+@pytest.mark.parametrize("M", [17, 32, 64, 96, 250])
 def test_emulated_plan_matches_plain_past_16_rows(M):
-    """The plan's emulation at 17 to 64 rows, on the narrow bf16 net and
-    the narrow mixed int8 net: each layer within 1e-5 x max|out| of its
-    plain version on the same input, the net within 1e-5 of
-    ``fused_mlp_plain``."""
+    """The plan's emulation at 17 to 250 rows (past 64 the wide classes'
+    chunks of whole stages), on the narrow bf16 net and the narrow mixed
+    int8 net: each layer within 1e-5 x max|out| of its plain version on
+    the same input, the net within 1e-5 of ``fused_mlp_plain``."""
     x = torch.tensor(np.random.default_rng(M).normal(size=(M, 70)),
                      dtype=torch.float32)
     for layers, kinds, acts in (

@@ -12,7 +12,9 @@ kept, least recently used out; ``reload_weights`` empties the cache; a
 CPU pipeline, the eager body and the frame path never capture; a body
 that will not capture runs eagerly from then on; the tracer's
 ``batch.replay``, ``batch.capture`` and ``lifter.rows`` count what the
-policy did; and every output equals a pipeline's without graphs.
+policy did, and ``lifter.launches`` the run launches of a stand-in run
+kernel (eagerly, at the capture and, from the capture's count, on a
+replay); and every output equals a pipeline's without graphs.
 """
 
 from unittest import mock
@@ -283,6 +285,38 @@ def test_tracer_counts_what_the_policy_did(trees, frames):
     assert mine[0] == ["batch.pack", "batch.download"]
     for names in mine[1:]:
         assert names == ["batch.pack", "batch.replay", "batch.download"]
+
+
+def test_tracer_counts_the_lifter_launches(trees, frames, monkeypatch):
+    """With a stand-in for the run kernel (the plain run, a launch counted
+    for each of its row groups, as ``run_layers`` launches on a card)
+    ``lifter.launches`` counts a batch's launches on every batch: from
+    ``Lifter.forward`` eagerly and at the capture, on a replay the graph's
+    as its capture counted them; rows over launches is a chunk's rows (its
+    frames times the person slots: one launch a chunk)."""
+    from mpe3d_tpu_torch.ops import fused_mlp as fm
+
+    def run(x, layers, slope, acts):
+        fm.mlp_run.launches += len(fm.row_groups(x.shape[0]))
+        return fm.run_plain(x, layers, slope, acts)
+
+    monkeypatch.setattr(fm, "run_layers", run)
+    pipe = _pipe(trees)
+    P = pipe._p_max(4)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        for i in range(4):                   # eager, capture, 2 replays
+            _batch(pipe, frames[i * N:(i + 1) * N])
+    counters = trace.snapshot().counters
+    chunks = pipe.batch_plan(4, N).chunks
+    per_batch = sum(len(fm.row_groups(m * P)) for m in chunks)
+    assert per_batch == len(chunks)
+    assert counters["lifter.launches"] == 4 * per_batch
+    assert counters["lifter.rows"] == 4 * N * P
+    assert counters["batch.replay"] == 3
+    graphs = [e for e in pipe._graphs.entries.values()
+              if isinstance(e, pl._Graph)]
+    assert [g.lifter_launches for g in graphs] == [per_batch]
 
 
 def _root(spans, i):
