@@ -41,6 +41,8 @@ from mpe3d_tpu_torch.data.synthetic import generate_frames, synthetic_ring_rig
 from mpe3d_tpu_torch.ops.fused_mlp import Bf16Layer, Int8Layer
 from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
 
+import torch_testing  # noqa: F401
+
 DEMO = os.path.join(os.path.dirname(__file__), "..", "models_demo")
 # model -> (lifter dtype served, packing prior, JAX serve_dtype)
 PAIRS = {"arp_irls": ("int8", "irls", None),

@@ -27,7 +27,6 @@ import numpy as np
 import pytest
 import torch
 
-from mpe3d_tpu.cli import load_models
 from mpe3d_tpu.config import PANOPTIC as J_PANOPTIC
 from mpe3d_tpu.config import LifterConfig as JLifterConfig
 from mpe3d_tpu.config import MatcherConfig as JMatcherConfig
@@ -46,6 +45,7 @@ from mpe3d_tpu_torch.pipeline import BatchPlan, PoseEstimationPipeline
 from test_torch_kernel_plans import (NARROW, NARROW_KINDS, NARROW_MIXED,
                                      SERVING, _check_layers, _mixed_layers,
                                      _packed, emulate_run)
+from torch_testing import jax_models
 
 DEMO = os.path.join(os.path.dirname(__file__), "..", "models_demo",
                     "pan_irls_bf16")
@@ -123,7 +123,7 @@ def test_infer_batch_matches_jax_and_single(trees, wire, union):
 def test_infer_batch_demo_pair_matches_jax(matcher):
     """``models_demo/pan_irls_bf16`` through ``from_checkpoint``, the batch
     body on the CPU, with its trained matcher and a random one."""
-    mparams, mcfg, lparams, lcfg, prior = load_models(DEMO, J_PANOPTIC)
+    mparams, mcfg, lparams, lcfg, prior = jax_models("pan_irls_bf16")
     rig = synthetic_ring_rig(PANOPTIC)
     port = PoseEstimationPipeline.from_checkpoint(
         DEMO, rig, device="cpu", slot_buckets=(4,), person_buckets=(8,),

@@ -31,6 +31,8 @@ from mpe3d_tpu_torch.data.synthetic import (SceneNoise, generate_frames,
                                             synthetic_ring_rig)
 from mpe3d_tpu_torch.utils import trace
 
+import torch_testing  # noqa: F401
+
 NOISE = SceneNoise(pixel_sigma=1.0, joint_dropout=0.03, spurious_rate=0.05,
                    camera_dropout=0.05)
 N = 3                       # frames a batch

@@ -17,6 +17,8 @@ from mpe3d_tpu_torch.config import PANOPTIC
 from mpe3d_tpu_torch.data.synthetic import synthetic_ring_rig
 from mpe3d_tpu_torch.geometry import calib_io, camera
 
+import torch_testing  # noqa: F401
+
 TOL = 1e-12
 
 

@@ -17,6 +17,8 @@ from mpe3d_tpu.train.checkpoint import (load_checkpoint,
 from mpe3d_tpu_torch import checkpoint as tck
 from mpe3d_tpu_torch.config import LifterConfig, MatcherConfig
 
+import torch_testing  # noqa: F401
+
 DEMO = os.path.join(os.path.dirname(__file__), "..", "models_demo")
 
 

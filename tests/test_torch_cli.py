@@ -45,6 +45,7 @@ from mpe3d_tpu_torch.data.synthetic import generate_frames, synthetic_ring_rig
 
 from test_convert import fake_sequence  # noqa: F401
 from test_torch_serve import assert_records_match, run_lines
+from torch_testing import jax_models, jax_pipeline, subprocess_env
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 DEMO = os.path.join(ROOT, "models_demo", "pan_irls_bf16")
@@ -65,7 +66,15 @@ def wire_lines():
 def _run_port(args, stdin=""):
     return subprocess.run([sys.executable, "-m", "mpe3d_tpu_torch", *args],
                           input=stdin, capture_output=True, text=True,
-                          cwd=ROOT, timeout=600)
+                          cwd=ROOT, env=subprocess_env(), timeout=600)
+
+
+def _demo_pipeline():
+    """The JAX pipeline ``serve`` builds on ``DEMO``: the CLI's default
+    buckets, bf16 lifter, the pair's prior, the synthetic ring rig."""
+    return jax_pipeline("pan_irls_bf16", use_frame_kernel=False,
+                        serve_dtype=jnp.bfloat16,
+                        lifter_prior=jax_models("pan_irls_bf16")[4])
 
 
 def test_serve_stdio_matches_jax(wire_lines):
@@ -75,11 +84,7 @@ def test_serve_stdio_matches_jax(wire_lines):
                   "\n".join(lines) + "\n")
     assert r.returncode == 0, r.stderr
     got = [json.loads(line) for line in r.stdout.splitlines()]
-    mparams, mcfg, lparams, lcfg, prior = jcli.load_models(DEMO, J_PANOPTIC)
-    ref_pipe = JPipeline(J_PANOPTIC, j_ring(J_PANOPTIC), mparams, mcfg,
-                         lparams, lcfg, use_frame_kernel=False,
-                         serve_dtype=jnp.bfloat16, lifter_prior=prior)
-    ref = run_lines(JPoseServer(ref_pipe, J_PANOPTIC, depth=2,
+    ref = run_lines(JPoseServer(_demo_pipeline(), J_PANOPTIC, depth=2,
                                 tracker_factory=lambda: JTracker(),
                                 quality_gate=GATE_PX), lines)
     assert_records_match(got, ref)
@@ -262,11 +267,7 @@ def test_serve_batch_window_stdio_matches_jax(wire_lines):
                    "--warmup"], "\n".join(lines) + "\n")
     assert r.returncode == 0, r.stderr
     got = [json.loads(line) for line in r.stdout.splitlines()]
-    mparams, mcfg, lparams, lcfg, prior = jcli.load_models(DEMO, J_PANOPTIC)
-    ref_pipe = JPipeline(J_PANOPTIC, j_ring(J_PANOPTIC), mparams, mcfg,
-                         lparams, lcfg, use_frame_kernel=False,
-                         serve_dtype=jnp.bfloat16, lifter_prior=prior)
-    ref = run_lines(JPoseServer(ref_pipe, J_PANOPTIC, depth=2,
+    ref = run_lines(JPoseServer(_demo_pipeline(), J_PANOPTIC, depth=2,
                                 batch_window=3, batch_linger_ms=20.0),
                     lines)
     assert_records_match(got, ref)
@@ -518,7 +519,8 @@ def test_serve_track_warmup_imports_the_solver_before_frames():
             f"cli.main(['serve', '--cpu', '--modelsdir', {DEMO!r}, "
             "'--track', '--warmup'])\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, cwd=ROOT, timeout=600)
+                       text=True, cwd=ROOT, env=subprocess_env(),
+                       timeout=600)
     assert r.returncode == 0, r.stderr
     assert r.stdout.split() == ["True"]
 

@@ -37,6 +37,8 @@ from mpe3d_tpu_torch.convert.gat2_replica import (build_gat2_replica,
 from mpe3d_tpu_torch.matching.features import build_topology
 from mpe3d_tpu_torch.models.gat import gat_topology
 
+import torch_testing  # noqa: F401
+
 MATCHER_FIELDS = ("in_dim", "hidden", "heads", "n_classes", "alpha",
                   "residual", "feat_drop", "attn_drop", "hidden_slope")
 

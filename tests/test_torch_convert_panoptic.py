@@ -48,6 +48,7 @@ from mpe3d_tpu_torch.convert.pose_resnet import (PoseResNet,
                                                  pose_resnet_flops)
 
 from test_convert import _torch_pose_resnet, fake_sequence  # noqa: F401
+from torch_testing import subprocess_env
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 NET_RTOL = 1e-5            # of the largest output
@@ -354,7 +355,7 @@ print(type(ts).__module__, ts.get_transform("root", "trackerb")[:3, 3].tolist())
 """
     r = subprocess.run([sys.executable, "-c", code, ROOT,
                         str(tmp_path / "tm_j.pickle")], capture_output=True,
-                       text=True, timeout=120)
+                       text=True, env=subprocess_env(), timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.split(" ", 1) == [
         "mpe3d_tpu_torch.geometry.calib_io", "[-0.05, 0.0, 2.5]\n"]

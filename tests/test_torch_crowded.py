@@ -50,6 +50,8 @@ from mpe3d_tpu_torch.matching.features import pair_ray_distances
 from mpe3d_tpu_torch.pipeline import (PoseEstimationPipeline,
                                       resolve_serving_path)
 
+from torch_testing import default_threads  # noqa: F401
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 DEMO = os.path.join(ROOT, "models_demo", "pan_irls_bf16")
 SCORE_TOL = 1e-5
@@ -89,6 +91,7 @@ def default_buckets():
     return port, jax_pipe, mparams, _crowded_frames(rig)
 
 
+@pytest.mark.usefixtures("default_threads")
 @pytest.mark.parametrize("matcher", ["trained", "random"])
 def test_default_buckets_reach_s10_and_match_reference(default_buckets,
                                                        matcher):

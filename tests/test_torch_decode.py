@@ -18,6 +18,8 @@ from mpe3d_tpu_torch.matching import features as tfeat
 from mpe3d_tpu_torch.matching.decode_device import \
     decode_person_proposals_device as t_decode
 
+import torch_testing  # noqa: F401
+
 C, S = 5, 4
 
 

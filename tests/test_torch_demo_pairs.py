@@ -19,22 +19,18 @@ lifter).
 
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpe3d_tpu.cli import load_models
-from mpe3d_tpu.config import PANOPTIC as J_PANOPTIC
-from mpe3d_tpu.data.frames import parse_frame as j_parse
-from mpe3d_tpu.data.synthetic import synthetic_ring_rig as j_ring
-from mpe3d_tpu.pipeline import PoseEstimationPipeline as JPipeline
 from mpe3d_tpu_torch import weights
 from mpe3d_tpu_torch.config import PANOPTIC
 from mpe3d_tpu_torch.data.frames import parse_frame
 from mpe3d_tpu_torch.data.synthetic import generate_frames, synthetic_ring_rig
 from mpe3d_tpu_torch.ops.fused_mlp import Bf16Layer, Int8Layer
 from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
+
+from torch_testing import jax_infer_fused, jax_models, jax_pipeline
 
 DEMO = os.path.join(os.path.dirname(__file__), "..", "models_demo")
 N_FRAMES = 6
@@ -49,10 +45,11 @@ def frames():
                            n_people=(2, 3), seed=1)
 
 
-def _compare(port, ref_pipe, frames):
+def _compare(port, ref, frames):
+    """The port's ``infer_fused`` of each frame against ``ref``, the JAX
+    pipeline's outputs on the same frames."""
     near, n_persons = 0, 0
-    for f in frames:
-        a = ref_pipe.infer_fused(j_parse(f, J_PANOPTIC))
+    for f, a in zip(frames, ref):
         b = port.infer_fused(parse_frame(f, PANOPTIC))
         near += int((np.abs(a.scores - 0.5) < 1e-5).sum())
         note = f"{near} scores within 1e-5 of the threshold"
@@ -69,7 +66,7 @@ def _compare(port, ref_pipe, frames):
 def test_demo_pair_against_reference(frames, model, frame_path):
     dtype, prior, j_dtype = PAIRS[model]
     d = os.path.join(DEMO, model)
-    mparams, mcfg, lparams, lcfg, j_prior = load_models(d, J_PANOPTIC)
+    _, _, _, lcfg, j_prior = jax_models(model)
     port = PoseEstimationPipeline.from_checkpoint(
         d, synthetic_ring_rig(PANOPTIC), device="cpu", slot_buckets=(4,),
         person_buckets=(8,), use_frame_kernel=frame_path)
@@ -80,15 +77,13 @@ def test_demo_pair_against_reference(frames, model, frame_path):
     assert [type(layer) for layer in port.lifter.packed_layers()] == (
         [kind] * 8 + [Bf16Layer])
 
-    def ref(matcher):
-        kw = {} if j_dtype is None else {"serve_dtype": j_dtype}
-        return JPipeline(J_PANOPTIC, j_ring(J_PANOPTIC), matcher, mcfg,
-                         lparams, lcfg, slot_buckets=(4,),
-                         person_buckets=(8,), use_frame_kernel=False,
-                         lifter_prior=prior, **kw)
-
-    _compare(port, ref(mparams), frames)
-    tree = weights.random_matcher_tree(port.matcher.cfg, 0)
-    port.matcher = weights.matcher_from_tree(tree, port.matcher.cfg, "cpu")
-    assert _compare(port, ref(jax.tree_util.tree_map(jnp.asarray, tree)),
-                    frames) >= 2 * N_FRAMES
+    kw = dict(slot_buckets=(4,), person_buckets=(8,), use_frame_kernel=False,
+              lifter_prior=prior)
+    if j_dtype is not None:
+        kw["serve_dtype"] = j_dtype
+    _compare(port, jax_infer_fused(jax_pipeline(model, **kw), frames), frames)
+    cfg = port.matcher.cfg
+    port.matcher = weights.matcher_from_tree(
+        weights.random_matcher_tree(cfg, 0), cfg, "cpu")
+    ref = jax_infer_fused(jax_pipeline(model, (cfg, 0), **kw), frames)
+    assert _compare(port, ref, frames) >= 2 * N_FRAMES

@@ -48,6 +48,8 @@ from mpe3d_tpu_torch.matching.features import build_topology
 from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
 from mpe3d_tpu_torch.train import matcher_data
 
+import torch_testing  # noqa: F401
+
 HIDDEN, HEADS, WIDTHS = (8, 8), (2, 2), (64, 64)
 KW = dict(slot_buckets=(4,), person_buckets=(8,), threshold=0.05,
           decode_top_k=0)

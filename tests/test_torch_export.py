@@ -17,6 +17,8 @@ from mpe3d_tpu.convert.torch_import import (load_reference_lifter,
                                             load_reference_matcher)
 from mpe3d_tpu.models.mlp import apply_lifter, init_lifter
 
+import torch_testing  # noqa: F401
+
 torch = pytest.importorskip("torch")
 
 

@@ -59,6 +59,8 @@ from mpe3d_tpu_torch.matching.features import build_topology
 from mpe3d_tpu_torch.ops import frame_kernel as fk
 from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
 
+import torch_testing  # noqa: F401
+
 DEMO = os.path.join(os.path.dirname(__file__), "..", "models_demo",
                     "pan_irls_bf16")
 SIZE = (1920.0, 1080.0)

@@ -18,6 +18,8 @@ from mpe3d_tpu_torch.data.synthetic import (SceneNoise, generate_frames,
                                             synthetic_ring_rig)
 from mpe3d_tpu_torch.matching import features as tfeat
 
+import torch_testing  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def rigs():

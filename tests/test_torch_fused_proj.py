@@ -17,7 +17,6 @@ import numpy as np
 import pytest
 import torch
 
-from mpe3d_tpu.cli import load_models
 from mpe3d_tpu.config import MatcherConfig as JMatcherConfig
 from mpe3d_tpu.config import PANOPTIC as J_PANOPTIC
 from mpe3d_tpu.data.frames import parse_frame as j_parse
@@ -37,6 +36,8 @@ from mpe3d_tpu_torch.models import gat as tgat
 from mpe3d_tpu_torch.ops import fused_proj as tproj
 from mpe3d_tpu_torch.pipeline import (PoseEstimationPipeline,
                                       resolve_serving_path)
+
+from torch_testing import default_threads, jax_models  # noqa: F401
 
 DEMO = os.path.join(os.path.dirname(__file__), "..", "models_demo")
 ATOL = 1e-5
@@ -84,6 +85,7 @@ def frame_inputs():
     return np.array(hf), np.array(ef), pm, jtopo
 
 
+@pytest.mark.usefixtures("default_threads")
 @pytest.mark.parametrize("weights_from", ["widefield", "random"])
 def test_layer_form_against_xla(frame_inputs, weights_from):
     """The layer form against the reference's per-layer XLA stack
@@ -135,7 +137,7 @@ def test_pipeline_layer_form(matcher):
     ``_gat_layer``), on the trained ``pan_irls_bf16`` pair and with a
     numpy-seeded matcher."""
     d = os.path.join(DEMO, "pan_irls_bf16")
-    mparams, mcfg, lparams, lcfg, prior = load_models(d, J_PANOPTIC)
+    mparams, mcfg, lparams, lcfg, prior = jax_models("pan_irls_bf16")
     rig = synthetic_ring_rig(PANOPTIC)
     port = PoseEstimationPipeline.from_checkpoint(
         d, rig, device="cpu", slot_buckets=(4,), person_buckets=(8,),

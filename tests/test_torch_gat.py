@@ -28,6 +28,8 @@ from mpe3d_tpu_torch.matching.features import (build_topology,
                                                edge_node_features)
 from mpe3d_tpu_torch.models import gat as tgat
 
+import torch_testing  # noqa: F401
+
 ATOL = 1e-5
 DEMO = os.path.join(os.path.dirname(__file__), "..", "models_demo")
 

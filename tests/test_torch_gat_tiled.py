@@ -35,6 +35,8 @@ from mpe3d_tpu_torch.matching import features as tfeat
 from mpe3d_tpu_torch.models import gat as tgat
 from mpe3d_tpu_torch.ops import gat_tiled
 
+import torch_testing  # noqa: F401
+
 TILED_TOL = 2e-5
 STACK_TOL = 1e-5
 DIST_TOL_M = 1e-5

@@ -20,6 +20,8 @@ from mpe3d_tpu_torch.data.synthetic import synthetic_ring_rig
 from mpe3d_tpu_torch.geometry import camera as tcam
 from mpe3d_tpu_torch.geometry import triangulate as ttri
 
+import torch_testing  # noqa: F401
+
 ATOL_M = 1e-5
 
 

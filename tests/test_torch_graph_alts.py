@@ -43,6 +43,8 @@ from mpe3d_tpu_torch.matching.features import (build_topology,
                                                head_features)
 from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
 
+import torch_testing  # noqa: F401
+
 SCORE_TOL = 1e-5
 POSE_TOL_M = 1e-2
 FORMATS = {"COCO": 18, "BODY_25": 25}

@@ -24,6 +24,8 @@ from mpe3d_tpu_torch.matching import features as tfeat
 from mpe3d_tpu_torch.matching.decode_device import \
     decode_person_proposals_device as t_device
 
+import torch_testing  # noqa: F401
+
 C, S = 5, 4
 
 

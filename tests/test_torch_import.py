@@ -12,6 +12,8 @@ from mpe3d_tpu.convert.torch_import import (load_reference_lifter,  # noqa: E402
                                             load_reference_matcher)
 from mpe3d_tpu.models.mlp import apply_lifter  # noqa: E402
 
+import torch_testing  # noqa: E402,F401
+
 
 def _reference_mlp(in_dim=1260, out_dim=54):
     """The reference lifter architecture (utils/mlp.py:3-31), rebuilt in

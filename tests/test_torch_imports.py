@@ -9,6 +9,8 @@ import sys
 
 import pytest
 
+from torch_testing import subprocess_env
+
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 PKG = os.path.join(ROOT, "mpe3d_tpu_torch")
 
@@ -73,7 +75,8 @@ assert all(sys.modules[m] is None for m in bad), bad
 print("imported", len(names))
 """
     r = subprocess.run([sys.executable, "-c", code, ROOT],
-                       capture_output=True, text=True, timeout=300)
+                       capture_output=True, text=True,
+                       env=subprocess_env(), timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("imported"), r.stdout
     assert int(r.stdout.split()[1]) >= 30

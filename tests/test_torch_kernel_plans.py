@@ -50,6 +50,8 @@ from mpe3d_tpu_torch.config import LifterConfig, MatcherConfig
 from mpe3d_tpu_torch.ops import fused_mlp as fm
 from mpe3d_tpu_torch.ops import fused_proj as fp
 
+import torch_testing  # noqa: F401
+
 DEMO = os.path.join(os.path.dirname(__file__), "..", "models_demo")
 GAT_WIDTHS = ((902, 400), (400, 400), (400, 320), (320, 150), (150, 1))
 SERVING = ((1260, 3072), (3072, 3072), (3072, 2048), (2048, 2048),

@@ -31,6 +31,8 @@ from mpe3d_tpu_torch.train.matcher import train_matcher
 from mpe3d_tpu_torch.train.matcher_data import build_matcher_scenes
 from mpe3d_tpu_torch.train.matcher_synth import build_scene_bank, synth_scenes
 
+import torch_testing  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def recordings():

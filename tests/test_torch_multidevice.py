@@ -36,6 +36,7 @@ from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
 
 from test_torch_serve import (HEADS, HIDDEN, WIDTHS, _trees,
                               assert_records_match, run_lines)
+import torch_testing  # noqa: F401
 
 KW = dict(slot_buckets=(4,), person_buckets=(8,), threshold=0.05,
           decode_top_k=0)

@@ -15,6 +15,8 @@ from mpe3d_tpu_torch.data.frames import parse_frame, parse_frames_batch
 from mpe3d_tpu_torch.data.synthetic import (SceneNoise, generate_frames,
                                             synthetic_ring_rig)
 
+import torch_testing  # noqa: F401
+
 CAMS = PANOPTIC.camera_names
 
 

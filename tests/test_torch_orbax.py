@@ -42,6 +42,8 @@ from mpe3d_tpu_torch import checkpoint as ck
 from mpe3d_tpu_torch import checkpoint_orbax as cko
 from mpe3d_tpu_torch import cli
 
+import torch_testing  # noqa: F401
+
 FIXTURE = os.path.join(os.path.dirname(__file__), "data", "orbax_lifter")
 FIXTURE_CFG = dict(in_dim=120, out_dim=54, widths=(16, 8))
 

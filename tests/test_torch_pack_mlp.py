@@ -24,6 +24,8 @@ from mpe3d_tpu_torch.data.synthetic import synthetic_ring_rig
 from mpe3d_tpu_torch.lifting.pack import pack_lifter_input
 from mpe3d_tpu_torch.ops.fused_mlp import mlp_layer_plain
 
+import torch_testing  # noqa: F401
+
 DEMO = os.path.join(os.path.dirname(__file__), "..", "models_demo")
 SIZE = (1920.0, 1080.0)
 

@@ -44,6 +44,8 @@ import time
 import numpy as np
 import pytest
 
+from torch_testing import subprocess_env
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WIDTHS, TP_WIDTHS = (64, 32), (64, 32, 16)
 NARROW = dict(hidden=(8, 8), heads=(2, 2))
@@ -188,7 +190,6 @@ def _worker(rank: int, world: int, d: str) -> None:
 
     from mpe3d_tpu_torch.parallel.mesh import make_mesh
 
-    torch.set_num_threads(2)
     dist.init_process_group(
         "gloo", init_method=f"file://{os.path.join(d, 'store')}",
         rank=rank, world_size=world,
@@ -222,7 +223,7 @@ class _World:
 
     def __init__(self, d):
         self.dir, self._out = str(d), None
-        env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+        env = subprocess_env(PYTHONPATH=REPO)
         self.procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--rank", str(r),
              "--world", "2", "--dir", self.dir],
@@ -391,7 +392,7 @@ def test_train_lifter_under_torchrun_matches_one_process(tmp_path, capsys):
             str(tmp_path / "train.json"), "--devset",
             str(tmp_path / "dev.json"), "--epochs", "6", "--batch-size",
             "100"]
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    env = subprocess_env(PYTHONPATH=REPO)
     for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
               "MASTER_PORT"):
         env.pop(k, None)

@@ -21,7 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-from mpe3d_tpu.cli import load_models
 from mpe3d_tpu.config import LifterConfig as JLifterConfig
 from mpe3d_tpu.config import MatcherConfig as JMatcherConfig
 from mpe3d_tpu.config import PANOPTIC as J_PANOPTIC
@@ -42,8 +41,13 @@ from mpe3d_tpu_torch.ops import quant_matmul as tq
 from mpe3d_tpu_torch.ops.fused_mlp import Bf16Layer, Int8Layer
 from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
 
+from torch_testing import jax_infer_fused, jax_models, jax_pipeline
+
 DEMO = os.path.join(os.path.dirname(__file__), "..", "models_demo")
 N_FRAMES = 6
+# the default matcher architecture's numpy-seeded weights (seed 0: its
+# scores sit above the threshold, so persons decode)
+RANDOM_MATCHER = (MatcherConfig(), 0)
 
 
 def _layer_inputs(M, K, N, seed, with_rscale):
@@ -199,10 +203,11 @@ def test_int8_checkpoint_leaves(model, n_leaves):
     assert tree["layers"][-1]["w"].dtype == np.float32
 
 
-def _compare(port, ref_pipe, frames):
+def _compare(port, ref, frames):
+    """The port's ``infer_fused`` of each frame against ``ref``, the JAX
+    pipeline's outputs on the same frames."""
     near, n_persons = 0, 0
-    for f in frames:
-        a = ref_pipe.infer_fused(j_parse(f, J_PANOPTIC))
+    for f, a in zip(frames, ref):
         b = port.infer_fused(parse_frame(f, PANOPTIC))
         near += int((np.abs(a.scores - 0.5) < 1e-5).sum())
         note = f"{near} scores within 1e-5 of the threshold"
@@ -222,9 +227,7 @@ def frames():
 
 @pytest.fixture(scope="module")
 def random_matcher():
-    """The default matcher architecture with numpy-seeded weights (seed 0:
-    its scores sit above the threshold, so persons decode)."""
-    return weights.random_matcher_tree(MatcherConfig(), 0), JMatcherConfig()
+    return weights.random_matcher_tree(*RANDOM_MATCHER), JMatcherConfig()
 
 
 @pytest.mark.parametrize("serve_dtype", ["int8", "fp32"])
@@ -248,7 +251,8 @@ def test_pipeline_narrow_lifter(frames, random_matcher, serve_dtype):
         weights.matcher_from_tree(mtree, MatcherConfig(), "cpu"),
         lifter, slot_buckets=(4,), person_buckets=(8,), device="cpu")
     assert port.serve_dtype == lifter.serve_dtype == serve_dtype
-    assert _compare(port, ref, frames) >= 2 * N_FRAMES
+    want = [ref.infer_fused(j_parse(f, J_PANOPTIC)) for f in frames]
+    assert _compare(port, want, frames) >= 2 * N_FRAMES
     if serve_dtype == "fp32":
         port.use_frame_kernel = True
         with pytest.raises(ValueError, match="does not serve"):
@@ -265,7 +269,7 @@ def test_pipeline_int8_export(frames, random_matcher, model, frame_path):
     pipeline on the same export, with its trained matcher and with the
     random one."""
     d = os.path.join(DEMO, model)
-    mparams, mcfg, lparams, lcfg, prior = load_models(d, J_PANOPTIC)
+    prior = jax_models(model)[4]
     port = PoseEstimationPipeline.from_checkpoint(
         d, synthetic_ring_rig(PANOPTIC), device="cpu", serve_dtype="fp32",
         slot_buckets=(4,), person_buckets=(8,), use_frame_kernel=frame_path)
@@ -273,15 +277,12 @@ def test_pipeline_int8_export(frames, random_matcher, model, frame_path):
     kinds = [type(layer) for layer in port.lifter.packed_layers()]
     assert kinds == [Int8Layer] * 8 + [Bf16Layer]
 
-    def ref(matcher):
-        return JPipeline(J_PANOPTIC, j_ring(J_PANOPTIC), matcher, mcfg,
-                         lparams, lcfg, slot_buckets=(4,),
-                         person_buckets=(8,), use_frame_kernel=False,
-                         lifter_prior=prior)
-
-    assert ref(mparams).serve_dtype == jnp.int8
-    _compare(port, ref(mparams), frames)
+    kw = dict(slot_buckets=(4,), person_buckets=(8,), use_frame_kernel=False,
+              lifter_prior=prior)
+    trained = jax_pipeline(model, **kw)
+    assert trained.serve_dtype == jnp.int8
+    _compare(port, jax_infer_fused(trained, frames), frames)
     mtree, _ = random_matcher
     port.matcher = weights.matcher_from_tree(mtree, port.matcher.cfg, "cpu")
-    assert _compare(port, ref(jax.tree_util.tree_map(jnp.asarray, mtree)),
-                    frames) >= 2 * N_FRAMES
+    ref = jax_infer_fused(jax_pipeline(model, RANDOM_MATCHER, **kw), frames)
+    assert _compare(port, ref, frames) >= 2 * N_FRAMES

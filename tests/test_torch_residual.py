@@ -40,6 +40,8 @@ from mpe3d_tpu_torch.matching.features import build_topology
 from mpe3d_tpu_torch.models.gat import gat_topology
 from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
 
+import torch_testing  # noqa: F401
+
 SCORE_TOL = 1e-5
 POSE_TOL_M = 1e-2
 # (residual, bias); hidden 16 x 1 head makes layer 1 an identity shortcut

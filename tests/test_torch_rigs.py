@@ -20,6 +20,8 @@ from mpe3d_tpu_torch import cli, config, native
 from mpe3d_tpu_torch.data import synthetic
 from mpe3d_tpu_torch.data.frames import parse_frame, parse_frames_batch
 
+import torch_testing  # noqa: F401
+
 SPELLINGS = ["PANOPTIC", "panoptic", "Panoptic", "ARPLAB", "arplab",
              "ArpLab", "ARP", "coco", ""]
 

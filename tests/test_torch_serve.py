@@ -35,6 +35,8 @@ from mpe3d_tpu_torch.data.synthetic import (SceneNoise, generate_frames,
 from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
 from mpe3d_tpu_torch.tracking import PoseTracker
 
+import torch_testing  # noqa: F401
+
 POSE_TOL_M, QUALITY_TOL_PX = 1e-2, 0.5
 HIDDEN, HEADS, WIDTHS = (8, 8), (2, 2), (64, 64)
 TIMING = ("latency_ms", "mean_latency_ms")

@@ -24,7 +24,6 @@ import numpy as np
 import pytest
 import torch
 
-from mpe3d_tpu.cli import load_models
 from mpe3d_tpu.config import PANOPTIC as J_PANOPTIC
 from mpe3d_tpu.config import LifterConfig as JLifterConfig
 from mpe3d_tpu.config import MatcherConfig as JMatcherConfig
@@ -38,6 +37,8 @@ from mpe3d_tpu_torch.data.frames import FrameArrays, parse_frame
 from mpe3d_tpu_torch.data.synthetic import (SceneNoise, generate_frames,
                                             synthetic_ring_rig)
 from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
+
+from torch_testing import jax_models
 
 DEMO = os.path.join(os.path.dirname(__file__), "..", "models_demo",
                     "pan_irls_bf16")
@@ -182,7 +183,7 @@ def test_staged_demo_pair_matches_jax(matcher, crowd):
     also held within 1%: the random matcher groups skeletons of different
     people into persons whose reprojection error reaches thousands of
     pixels, where a pose within 1e-2 m moves it by more than 0.5 px."""
-    mparams, mcfg, lparams, lcfg, prior = load_models(DEMO, J_PANOPTIC)
+    mparams, mcfg, lparams, lcfg, prior = jax_models("pan_irls_bf16")
     rig = synthetic_ring_rig(PANOPTIC)
     people, buckets = (((2, 3), dict(slot_buckets=(4,), person_buckets=(8,)))
                        if crowd == "sparse" else ((6, 8), {}))

@@ -28,6 +28,8 @@ from mpe3d_tpu_torch.data.frames import parse_frame
 from mpe3d_tpu_torch.data.synthetic import generate_frames, synthetic_ring_rig
 from mpe3d_tpu_torch.pipeline import PoseEstimationPipeline
 
+import torch_testing  # noqa: F401
+
 MODELS = os.path.join(os.path.dirname(__file__), "..", "models_demo")
 DEMO = os.path.join(MODELS, "pan_irls_bf16")
 N_FRAMES = 6

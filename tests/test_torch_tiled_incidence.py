@@ -49,6 +49,8 @@ from mpe3d_tpu_torch.models import gat as tgat
 from mpe3d_tpu_torch.ops import gat_tiled
 from mpe3d_tpu_torch.ops.gat_kernel import GatTopology, layer_views
 
+import torch_testing  # noqa: F401
+
 TILED_TOL = 2e-5
 DEMO = os.path.join(os.path.dirname(__file__), "..", "models_demo",
                     "pan_irls_bf16")

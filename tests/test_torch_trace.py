@@ -34,6 +34,8 @@ from mpe3d_tpu_torch.train.lifter import train_lifter
 from mpe3d_tpu_torch.train.lifter_data import build_lifter_dataset
 from mpe3d_tpu_torch.utils import trace
 
+import torch_testing  # noqa: F401
+
 NOISE = SceneNoise(pixel_sigma=1.0, joint_dropout=0.03, spurious_rate=0.05,
                    camera_dropout=0.05)
 STAGES = ("chunk.features", "chunk.gat", "chunk.decode", "chunk.lifter",

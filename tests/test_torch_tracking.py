@@ -9,6 +9,8 @@ from mpe3d_tpu import tracking as jtracking
 from mpe3d_tpu_torch import tracking
 from mpe3d_tpu_torch.pipeline import PipelineOutput
 
+import torch_testing  # noqa: F401
+
 
 def _person(center, rng=None, jitter=0.0):
     """An 18-joint blob around a 3D center."""

@@ -47,6 +47,8 @@ from mpe3d_tpu_torch.lifting import loss, pack
 from mpe3d_tpu_torch.train.lifter import init_lifter_tree, train_lifter
 from mpe3d_tpu_torch.train.lifter_data import build_lifter_dataset
 
+import torch_testing  # noqa: F401
+
 WIDTHS = (64, 32)
 DATA_TOL, LOSS_RTOL, BF16_RTOL, CKPT_TOL = 1e-5, 1e-3, 1e-2, 1e-6
 NOISE = SceneNoise(pixel_sigma=1.5, joint_dropout=0.1, spurious_rate=0.1,

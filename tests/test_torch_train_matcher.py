@@ -55,6 +55,8 @@ from mpe3d_tpu_torch.train.matcher import (MatcherObjective, bce_per_element,
 from mpe3d_tpu_torch.train.matcher_data import build_matcher_scenes
 from mpe3d_tpu_torch.weights import random_matcher_tree
 
+import torch_testing  # noqa: F401
+
 NARROW = dict(hidden=(8, 8), heads=(2, 2))
 SCORE_TOL, LOSS_RTOL = 1e-5, 1e-3
 NOISE = SceneNoise(pixel_sigma=1.0, joint_dropout=0.03, spurious_rate=0.1,

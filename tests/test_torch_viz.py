@@ -35,6 +35,8 @@ from mpe3d_tpu_torch.viz.html_viewer import write_html_viewer
 from mpe3d_tpu_torch.viz.live_viewer import LiveViewerServer
 from mpe3d_tpu_torch.viz.viewer import render_sequence
 
+from torch_testing import subprocess_env
+
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 POSE_TOL_M = 1e-2
 NARROW = dict(hidden=(8, 8), heads=(2, 2))
@@ -193,8 +195,8 @@ def test_show_results_live_streams_and_stops_on_sigint(viz_dir):
          "--modelsdir", str(viz_dir / "models"), "--testfiles",
          str(viz_dir / "test.json"), "--serve-dtype", "fp32", "--live", "0",
          "--live-fps", "50", "--max-frames", str(LIVE_EVENTS)],
-        cwd=ROOT, stderr=subprocess.PIPE, stdout=subprocess.DEVNULL,
-        text=True)
+        cwd=ROOT, env=subprocess_env(), stderr=subprocess.PIPE,
+        stdout=subprocess.DEVNULL, text=True)
     lines: "queue.Queue[str]" = queue.Queue()
     reader = threading.Thread(target=lambda: [lines.put(ln)
                                               for ln in proc.stderr],
